@@ -1,0 +1,313 @@
+"""Llama-family decoder transformer in PyTorch, dense path (port of
+``mpi_operator_tpu/models/llama.py``).
+
+- bfloat16 compute, float32 parameters, f32 logits for the loss;
+- attention through the hand-written flash kernels
+  (``ops.attention.flash_attention_bshd``) on the projection layout, or
+  the dense oracle;
+- per-layer activation checkpointing (``remat_policy="full"``) trades
+  FLOPs for memory.
+
+Module names follow the Flax tree (``embed``, ``layer_{i}.attn.wq``,
+``attn_norm``, ``mlp.w_gate``, ``final_norm``, ``lm_head``), so
+``interop`` carries weights across leaf by leaf. MoE configs and the
+``"dots"`` remat policy are later slices of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.losses import f32_logits, lm_xent_chunked
+from ..ops.ring_attention import sp_attention, sp_attention_bshd
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    ffn_dim: int = 14336
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    dtype: Any = torch.bfloat16
+    remat: bool = True
+    # 'full' recomputes each block in the backward pass; 'dots' (save
+    # the matmul outputs and the flash residuals) is not ported yet.
+    remat_policy: str = "full"
+    tie_embeddings: bool = False
+    # 'flash' (the CUDA kernels; plain versions on the CPU) or 'dense'
+    # (the oracle). 'ring'/'ulysses' raise until sequence parallelism
+    # is ported.
+    attention_impl: str = "flash"
+    # Sparse MoE FFN: > 0 experts raises until models/moe.py is ported.
+    n_experts: int = 0
+    # > 0: the train loss computes cross-entropy in sequence chunks of
+    # this size (ops/losses.py:lm_xent_chunked); 0 = full [B, S, V] logits.
+    xent_chunk: int = 0
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+
+def llama3_8b(**overrides) -> LlamaConfig:
+    return dataclasses.replace(LlamaConfig(), **overrides)
+
+
+def tiny(**overrides) -> LlamaConfig:
+    """Test-scale config: real structure, toy widths."""
+    base = LlamaConfig(
+        vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+        ffn_dim=128, dtype=torch.float32, remat=False,
+        attention_impl="dense",
+    )
+    return dataclasses.replace(base, **overrides)
+
+
+CONFIGS = {
+    "llama3-8b": llama3_8b,
+    "llama-tiny": tiny,
+}
+
+
+def config_for(name: str, **overrides) -> LlamaConfig:
+    if name not in CONFIGS:
+        raise KeyError(
+            f"unknown llama model {name!r}; want one of {sorted(CONFIGS)}"
+        )
+    return CONFIGS[name](**overrides)
+
+
+def _rope(x, positions, theta: float):
+    """Rotary embeddings. x: [B, S, H, D_head]; positions: [B, S]."""
+    d = x.shape[-1]
+    exponents = torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d
+    freqs = 1.0 / (theta ** exponents)
+    angles = positions[..., None].float() * freqs  # [B, S, D/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _dense(x, layer: nn.Linear, dtype):
+    """nn.Dense(dtype=compute, param_dtype=f32): both operands in the
+    compute dtype (bf16 on the card), output in the compute dtype."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype))
+
+
+def _linear(n_in: int, n_out: int, device) -> nn.Linear:
+    return nn.Linear(n_in, n_out, bias=False, device=device)
+
+
+class F32LogitsDense(nn.Module):
+    """Bias-free projection producing f32 logits from compute-dtype
+    operands; the weight lives in f32 as [features, in]."""
+
+    def __init__(self, in_features: int, features: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(features, in_features, dtype=torch.float32,
+                        device=device)
+        )
+
+    def forward(self, x):
+        return f32_logits(x, self.weight.t())
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(
+            torch.ones(dim, dtype=torch.float32, device=device)
+        )
+
+    def forward(self, x):
+        xf = x.float()
+        norm = xf * torch.rsqrt(
+            torch.mean(xf * xf, dim=-1, keepdim=True) + self.eps
+        )
+        return (norm * self.scale).to(x.dtype)
+
+
+class Attention(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        cfg = self.config = config
+        hd = cfg.head_dim
+        self.wq = _linear(cfg.dim, cfg.n_heads * hd, device)
+        self.wk = _linear(cfg.dim, cfg.n_kv_heads * hd, device)
+        self.wv = _linear(cfg.dim, cfg.n_kv_heads * hd, device)
+        self.wo = _linear(cfg.n_heads * hd, cfg.dim, device)
+
+    def forward(self, x, positions):
+        cfg = self.config
+        b, s, _ = x.shape
+        hd = cfg.head_dim
+        q = _dense(x, self.wq, cfg.dtype).reshape(b, s, cfg.n_heads, hd)
+        k = _dense(x, self.wk, cfg.dtype).reshape(b, s, cfg.n_kv_heads, hd)
+        v = _dense(x, self.wv, cfg.dtype).reshape(b, s, cfg.n_kv_heads, hd)
+
+        q = _rope(q, positions, cfg.rope_theta)
+        k = _rope(k, positions, cfg.rope_theta)
+
+        # Transpose-free dispatch first: flash runs the projection-layout
+        # kernels on q/k/v exactly as RoPE produced them ([B, S, H, D]).
+        out = sp_attention_bshd(q, k, v, cfg.attention_impl, causal=True)
+        if out is None:
+            # [B, H, S, D] layout: the dense oracle.
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+            out = sp_attention(
+                q, k, v, cfg.attention_impl, causal=True
+            ).transpose(1, 2)
+        return _dense(out.reshape(b, s, cfg.n_heads * hd), self.wo, cfg.dtype)
+
+
+class MLP(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        self.config = config
+        self.w_gate = _linear(config.dim, config.ffn_dim, device)
+        self.w_up = _linear(config.dim, config.ffn_dim, device)
+        self.w_down = _linear(config.ffn_dim, config.dim, device)
+
+    def forward(self, x):
+        dtype = self.config.dtype
+        gate = _dense(x, self.w_gate, dtype)
+        up = _dense(x, self.w_up, dtype)
+        return _dense(F.silu(gate) * up, self.w_down, dtype)
+
+
+class Block(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        self.attn_norm = RMSNorm(config.dim, config.norm_eps, device)
+        self.attn = Attention(config, device)
+        self.mlp_norm = RMSNorm(config.dim, config.norm_eps, device)
+        self.mlp = MLP(config, device)
+
+    def forward(self, x, positions):
+        x = x + self.attn(self.attn_norm(x), positions)
+        return x + self.mlp(self.mlp_norm(x))
+
+
+class Llama(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None):
+        super().__init__()
+        if config.is_moe:
+            raise NotImplementedError(
+                "MoE Llama configs are not ported yet (ROADMAP.md queue (a) "
+                "item 13)"
+            )
+        if config.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy={config.remat_policy!r} is not ported yet "
+                f"(ROADMAP.md queue (a) item 4); use 'full'"
+            )
+        self.config = config
+        self.embed = nn.Embedding(config.vocab_size, config.dim, device=device)
+        for i in range(config.n_layers):
+            self.add_module(f"layer_{i}", Block(config, device))
+        self.final_norm = RMSNorm(config.dim, config.norm_eps, device)
+        if not config.tie_embeddings:
+            self.lm_head = F32LogitsDense(config.dim, config.vocab_size, device)
+
+    def blocks(self) -> list[Block]:
+        return [getattr(self, f"layer_{i}") for i in range(self.config.n_layers)]
+
+    def head_kernel(self) -> torch.Tensor:
+        """The LM head as [D, V] (the JAX kernel layout; a free view)."""
+        if self.config.tie_embeddings:
+            return self.embed.weight.t()
+        return self.lm_head.weight.t()
+
+    def forward(self, tokens, return_hidden: bool = False):
+        """``return_hidden=True`` skips the LM head and returns the final
+        hidden states -- the chunked-loss path applies the head
+        incrementally (ops/losses.py) so full logits never materialize."""
+        cfg = self.config
+        tokens = tokens.long()
+        positions = torch.arange(
+            tokens.shape[1], device=tokens.device
+        ).expand(tokens.shape)
+        h = self.embed(tokens).to(cfg.dtype)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for block in self.blocks():
+            if remat:
+                h = checkpoint(block, h, positions, use_reentrant=False)
+            else:
+                h = block(h, positions)
+        h = self.final_norm(h)
+        if return_hidden:
+            return h
+        # Untied head (Llama-3 does not tie embeddings); f32 logits.
+        return f32_logits(h, self.head_kernel())
+
+
+@torch.no_grad()
+def init_params(model: Llama, generator: torch.Generator) -> Llama:
+    """Initialize ``model`` in place from Flax's default distributions:
+    ``nn.Dense``'s lecun-normal (truncated at two standard deviations,
+    std 1/sqrt(fan_in)), ``nn.Embed``'s normal(std 1/sqrt(dim)) and ones
+    for RMSNorm. ``generator`` (seeded from --seed, on the parameters'
+    device) makes it reproducible; its numbers differ from jax.random's."""
+    for name, p in model.named_parameters():
+        if name.endswith("scale"):
+            p.fill_(1.0)
+        elif name == "embed.weight":
+            p.normal_(0.0, p.shape[1] ** -0.5, generator=generator)
+        else:  # [out, in] kernels: fan_in = in
+            # 0.8796...: the std of a unit normal truncated to [-2, 2].
+            std = p.shape[1] ** -0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+    return model
+
+
+def loss_fn(model: Llama, tokens):
+    """Next-token cross-entropy. The full sequence goes through the
+    model; the shift happens on the logits.
+
+    With ``cfg.xent_chunk > 0`` the head + CE run chunked
+    (ops/losses.py:lm_xent_chunked): same mean, but the [B, S, V] f32
+    logits never materialize."""
+    cfg = model.config
+    tokens = tokens.long()
+    if cfg.xent_chunk > 0:
+        h = model(tokens, return_hidden=True)
+        return lm_xent_chunked(
+            h[:, :-1], model.head_kernel(), tokens[:, 1:],
+            chunk=cfg.xent_chunk,
+        )
+    logits = model(tokens)
+    return F.cross_entropy(
+        logits[:, :-1].reshape(-1, cfg.vocab_size), tokens[:, 1:].reshape(-1)
+    )
+
+
+def make_train_step(model: Llama, optimizer, accum_steps: int = 1,
+                    lr_schedule=None):
+    """``step(tokens) -> loss``: one optimizer update. ``accum_steps > 1``
+    averages gradients over that many sequential microbatches (split on
+    the batch dim) first -- see ``parallel.accum``."""
+    from ..parallel.accum import make_update_step
+
+    return make_update_step(
+        lambda toks: loss_fn(model, toks), optimizer, accum_steps,
+        lr_schedule=lr_schedule,
+    )

@@ -1,0 +1,185 @@
+"""The port's trainer entry point (``mpi_operator_tpu_torch.cmd.train``)
+on the CPU: the summary line, the loud refusal of every flag a later
+slice brings, and no quiet move to the CPU when ``cuda`` is asked for.
+"""
+
+import json
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from mpi_operator_tpu_torch.cmd import train
+from mpi_operator_tpu_torch.models import llama as tllama
+from mpi_operator_tpu_torch.parallel.mesh import create_mesh
+
+pytestmark = pytest.mark.kernel
+torch.set_num_threads(2)
+
+# The keys of the JAX trainer's summary line (mpi_operator_tpu/cmd/train.py
+# main, for a token model without jaxtrace).
+JAX_SUMMARY_KEYS = {
+    "model", "steps", "final_step", "loss", "examples_per_sec", "step_ms",
+    "goodput", "devices", "preempted", "tokens_per_sec",
+}
+
+
+def _summary(capsys):
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_cpu_run_prints_the_jax_summary_keys(capsys):
+    rc = train.main(["--device", "cpu", "--model", "llama-tiny", "--steps",
+                     "3", "--warmup", "1"])
+    assert rc == 0
+    summary = _summary(capsys)
+    assert JAX_SUMMARY_KEYS <= set(summary)
+    assert summary["model"] == "llama-tiny"
+    assert summary["steps"] == summary["final_step"] == 3
+    assert summary["device"] == "cpu" and summary["devices"] == 1
+    assert math.isfinite(summary["loss"]) and math.isfinite(summary["first_loss"])
+    assert summary["preempted"] is False
+    assert summary["tokens_per_sec"] > 0 and summary["step_ms"] > 0
+
+
+def test_loss_falls_with_grad_accum_and_cosine_schedule(capsys):
+    rc = train.main(["--device", "cpu", "--model", "llama-tiny", "--steps",
+                     "6", "--warmup", "1", "--seq-len", "32",
+                     "--global-batch", "4", "--grad-accum", "2", "--lr",
+                     "1e-2", "--lr-schedule", "cosine", "--warmup-steps", "2",
+                     "--xent-chunk", "8", "--telemetry-every", "0"])
+    assert rc == 0
+    summary = _summary(capsys)
+    assert summary["loss"] < summary["first_loss"]
+
+
+REFUSED = {
+    "model": (["--model", "bert-base"], "items 11-13"),
+    "moe": (["--model", "mixtral-8x7b"], "items 11-13"),
+    "checkpoint": (["--checkpoint-dir", "/nonexistent"], "item 9"),
+    "data": (["--data", "corpus.bin"], "item 5"),
+    "heartbeat": (["--heartbeat-every", "2"], "item 10"),
+    "profile": (["--profile-dir", "/nonexistent"], "item 10"),
+    "mesh": (["--mesh", "dp=2"], "items 6-7"),
+    "remat": (["--remat-policy", "dots"], "item 4"),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(REFUSED))
+def test_unported_flags_refuse_loudly(flag):
+    extra, item = REFUSED[flag]
+    argv = ["--device", "cpu", "--model", "llama-tiny", "--steps", "1", *extra]
+    with pytest.raises(SystemExit, match=f"ROADMAP.md queue \\(a\\) {item}"):
+        train.main(argv)
+
+
+def test_cuda_without_a_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: cuda is not refused here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--model", "llama-tiny", "--steps", "1"])
+
+
+def test_synthetic_batch_is_the_jax_trainers():
+    args = train.build_parser().parse_args(
+        ["--device", "cpu", "--model", "llama-tiny", "--seq-len", "24",
+         "--global-batch", "3", "--seed", "7"])
+    work = train._lm_workload(args, create_mesh(device="cpu", dp=-1), 1)
+    # mpi_operator_tpu/cmd/train.py draws the llama tokens as the first
+    # use of RandomState(seed): randint(0, vocab, (batch, seq)).
+    want = np.random.RandomState(7).randint(0, 256, (3, 24))
+    np.testing.assert_array_equal(work.batch[0].numpy(), want)
+
+
+def test_cosine_schedule_matches_optax():
+    import optax
+
+    args = train.build_parser().parse_args(
+        ["--lr", "0.5", "--lr-schedule", "cosine", "--warmup-steps", "3",
+         "--steps", "10"])
+    got = train._make_learning_rate(args)
+    want = optax.warmup_cosine_decay_schedule(
+        init_value=0.0, peak_value=0.5, warmup_steps=3, decay_steps=10)
+    np.testing.assert_allclose([got(i) for i in range(12)],
+                               [float(want(i)) for i in range(12)],
+                               rtol=1e-6, atol=1e-7)
+
+
+def test_grad_accum_matches_the_full_batch_step():
+    tokens = torch.tensor(np.random.RandomState(3).randint(0, 256, (4, 12)))
+    results = []
+    for accum in (1, 2):
+        torch.manual_seed(0)
+        model = tllama.Llama(tllama.tiny(attention_impl="flash"), device="cpu")
+        tllama.init_params(model, torch.Generator().manual_seed(0))
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-2, weight_decay=1e-4)
+        step = tllama.make_train_step(model, opt, accum_steps=accum)
+        loss = float(step(tokens))
+        results.append((loss, [p.detach().clone() for p in model.parameters()]))
+    np.testing.assert_allclose(results[1][0], results[0][0], rtol=1e-6)
+    for p1, p2 in zip(results[0][1], results[1][1]):
+        torch.testing.assert_close(p2, p1, rtol=0, atol=1e-5)
+
+
+def test_metrics_expose_like_the_jax_packages_copy():
+    from mpi_operator_tpu.utils import metrics as jmetrics
+    from mpi_operator_tpu_torch.utils import metrics as tmetrics
+
+    texts = []
+    for lib in (jmetrics, tmetrics):
+        reg = lib.Registry()
+        c = lib.new_counter("tpu_operator_x_total", 'help \\ "q"\nnl',
+                            ("phase",), reg)
+        c.inc(1, "warmup")
+        c.inc(2.5, 'tr"ain')
+        lib.new_gauge("tpu_operator_g", "g", registry=reg).set(0.5)
+        h = lib.new_histogram("tpu_operator_h_seconds", "h", registry=reg,
+                              buckets=(0.1, 1.0))
+        for v in (0.05, 0.5, 5.0):
+            h.observe(v)
+        texts.append(reg.expose())
+    assert texts[1] == texts[0]
+
+
+def test_telemetry_records_and_one_final_record(tmp_path):
+    from mpi_operator_tpu_torch.utils import metrics, telemetry
+
+    path = tmp_path / "telemetry.jsonl"
+    telem = telemetry.TrainingTelemetry(
+        tokens_per_step=8, examples_per_step=2, registry=metrics.Registry(),
+        interval=2, jsonl_path=str(path))
+    telem.start()
+    for step in range(1, 5):
+        telem.record_step(step, 0.01, warmup=step == 1)
+    telem.close(4, final=True)
+    telem.close(4, final=True)  # a second SIGTERM emits nothing more
+    recs = [json.loads(line) for line in path.read_text().splitlines()]
+    assert [r["step"] for r in recs] == [2, 4, 4]
+    assert [r.get("final", False) for r in recs] == [False, False, True]
+    assert all(r["event"] == "train_telemetry" and "tokens_per_sec" in r
+               for r in recs)
+    assert 0 < telem.goodput_ratio() <= 1
+
+
+def test_adopted_trace_id_reaches_log_lines(capsys):
+    from mpi_operator_tpu_torch.utils import trace
+    from mpi_operator_tpu_torch.utils.logging import get_logger
+
+    prev = trace.adopt_context(None)
+    try:
+        assert trace.adopt_from_environ({"TPU_TRACE_CONTEXT": "bad"}) is None
+        ctx = trace.adopt_from_environ({"TPU_TRACE_CONTEXT": "t0ab-00c1"})
+        assert (ctx.trace_id, ctx.span_id) == ("t0ab", "00c1")
+        get_logger("train").info("step %d", 3, loss=1.5)
+    finally:
+        trace.adopt_context(prev)
+    line = capsys.readouterr().err.strip().splitlines()[-1]
+    assert line.endswith('train] step 3 loss=1.5 trace_id="t0ab"')
+
+
+def test_mesh_is_one_device():
+    mesh = create_mesh(device="cpu", dp=-1, tp=1)
+    assert mesh.sizes == {"dp": 1, "tp": 1}
+    with pytest.raises(ValueError, match="items 6-7"):
+        create_mesh(device="cpu", fsdp=2)
