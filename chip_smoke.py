@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one GPU and hold every
+"""Drive the PyTorch/CUDA port's main paths on one GPU and hold every
 kernel against its plain PyTorch version.
 
     python3 chip_smoke.py                      # every phase
@@ -10,21 +10,29 @@ Phases, in order:
 1. the card (``nvidia-smi`` name and power limit) and the kernel build:
    every CUDA source under ``mpi_operator_tpu_torch/csrc/``, one ``nvcc``
    each, all started together;
-2. ``kernels``: each flash kernel against its plain version on the card,
-   at the Llama training shape (B=2, S=2048, H=32, Hkv=8, D=128, bf16,
-   causal), at a padded GQA shape (S=200, f32, non-causal) and at a
-   masked-row shape (Sq > Sk, causal, f32); times by CUDA events beside
-   the bound and one PyTorch library call;
+2. ``kernels``: each kernel against its plain version on the card, with
+   times by CUDA events beside the bound and one PyTorch library call at
+   the main shape:
+   - the flash kernels at the Llama training shape (B=2, S=2048, H=32,
+     Hkv=8, D=128, bf16, causal), at a padded GQA shape (S=200, f32,
+     non-causal) and at a masked-row shape (Sq > Sk, causal, f32);
+   - the BN kernels at the ResNet-101 stem ([802816, 64] bf16 at B=64),
+     stage 3's widest layer ([3136, 2048] bf16) and a ragged f32 shape
+     ([1000, 130]);
 3. ``model``: llama3-8b at full width, 2 layers, small B and S: loss and
-   every gradient through the kernels against the dense oracle path on
-   the same weights;
+   every gradient through the flash kernels against the dense oracle;
+   then ResNet-101 at full width and depth, B=8, 224x224: loss, every
+   gradient and the updated running statistics through the BN kernels
+   against the plain-op BN route on the same weights;
 4. ``train``: the trainer's own entry point
-   (``mpi_operator_tpu_torch.cmd.train.main``) at full width, 2 layers,
-   S=2048, 6 AdamW steps; the loss must be finite and fall, and the
-   launch counters must show every attention call went through the
-   kernels;
+   (``mpi_operator_tpu_torch.cmd.train.main``) on both main paths: the
+   Llama arm (full width, 2 layers, S=2048, 6 AdamW steps) and ResNet-101
+   with ``--bn-kernel pallas`` (full width and depth, B=64, 224x224, 6
+   SGD steps). Each loss must be finite and fall, and each run's launch
+   counters (set to 0 just before it, read just after) must show every
+   attention and every BN call went through the kernels;
 5. ``profile`` (opt-in, ``--phases profile``): where one training step's
-   time goes (LM head, AdamW, device kernel time by kind, idle share).
+   time goes, for each arm (device kernel time by kind, idle share).
 
 Any failure raises and exits non-zero. The second-to-last line is the
 ``{"kernels": [...]}`` record; the last is
@@ -39,6 +47,7 @@ import contextlib
 import io
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -59,6 +68,25 @@ LSE_ABS_TOL = {"bf16": 1e-4, "f32": 1e-4}
 # two layers and the head that stays within these bounds.
 MODEL_LOSS_REL_TOL = 2e-3
 MODEL_GRAD_NORM_REL_TOL = 3e-2
+# BN kernel checks. Both sides read the same values and sum in f32, in
+# another order: the kernel's longest serial run is ~1e2 terms (a
+# thread's rows, then a finalize group's chunks), so rounding stays
+# below ~1e-5 of the sum of the terms' magnitudes. The error of every
+# sum is measured against that scale (Σ|x|, Σx², Σ|dy|, Σ|dy·x̂|): Σx
+# and Σdy·x̂ of zero-mean data cancel, so their own norm is no scale.
+BN_SUM_TOL = 2e-5
+# ResNet-101 model check. The reference is the plain BN route in f64.
+# The loss and the running statistics are well conditioned: in f32 the
+# two routes, which differ only in the order of f32 sums, must agree
+# directly. The gradients are not: at B=8 with every BN scale drawn
+# from U(0.5, 1.5), a ~1e-7 perturbation grows to ~5e-2 norm-relative
+# through 104 BN backward passes (measured on an H100). So each route's
+# gradients (and, in bf16, everything) are held against the f64 run: the
+# kernel route's error may be at most twice the plain route's, plus a
+# floor for the type.
+RESNET_F32_DIRECT_TOL = {"loss": 1e-4, "stats": 1e-3}
+RESNET_ERROR_RATIO = 2.0
+RESNET_FLOOR = {"float32": 1e-4, "bfloat16": 1e-2}
 
 TRAIN_ARGS = [
     "--model", "llama3-8b", "--n-layers", "2", "--seq-len", "2048",
@@ -66,11 +94,20 @@ TRAIN_ARGS = [
     "--warmup", "2", "--lr", "3e-4", "--log-every", "1",
 ]
 
+RESNET_TRAIN_ARGS = [
+    "--model", "resnet101", "--bn-kernel", "pallas", "--global-batch", "64",
+    "--image-size", "224", "--steps", "6", "--warmup", "2", "--lr", "0.1",
+    "--log-every", "1",
+]
+RESNET_BN_LAYERS = 104  # stem 1 + 33 blocks x 3 + 4 projections
+
 # Kernel -> the TPU kernel it replaces.
 REPLACES = {
     "flash_fwd": "mpi_operator_tpu/ops/attention.py:707",
     "flash_bwd_dq": "mpi_operator_tpu/ops/attention.py:835",
     "flash_bwd_dkv": "mpi_operator_tpu/ops/attention.py:930",
+    "bn_stats": "mpi_operator_tpu/ops/bn.py:54",
+    "bn_grads": "mpi_operator_tpu/ops/bn.py:96",
 }
 
 
@@ -276,6 +313,127 @@ def check_kernels() -> dict:
     return records
 
 
+def check_bn_kernels() -> dict:
+    """bn_stats and bn_grads against their plain versions at three shapes;
+    returns the main-shape record per kernel."""
+    import torch
+
+    from mpi_operator_tpu_torch.ops import _build
+    from mpi_operator_tpu_torch.ops import bn
+
+    # (label, rows, channels, dtype, [N, H, W] the rows come from)
+    shapes = [
+        ("main", 802816, 64, "bf16", (64, 112, 112)),   # the stem at B=64
+        ("stage3", 3136, 2048, "bf16", (64, 7, 7)),
+        ("ragged", 1000, 130, "f32", None),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    records = {}
+    for label, m, c, dtype_name, nhw in shapes:
+        dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
+        x = torch.randn(m, c, generator=gen, device="cuda").to(dtype)
+        dy = torch.randn(m, c, generator=gen, device="cuda").to(dtype)
+        xf, dyf = x.float(), dy.float()
+        mean = xf.mean(0)
+        inv = torch.rsqrt(xf.var(0, unbiased=False) + 1e-5)
+
+        s, q = bn.bn_stats(x)
+        db, dg = bn.bn_grads(dy, x, mean, inv)
+        torch.cuda.synchronize()
+        s_p, q_p = bn.bn_stats_plain(x)
+        db_p, dg_p = bn.bn_grads_plain(dy, x, mean, inv)
+        xhat = (xf - mean) * inv
+        scales = {  # the magnitude each sum's rounding scales with
+            "s": xf.abs().sum(0), "q": q_p, "db": dyf.abs().sum(0),
+            "dg": (dyf * xhat).abs().sum(0),
+        }
+        del xf, dyf, xhat
+
+        def err(got, want, key):
+            return float(((got.double() - want.double()).abs()
+                          / scales[key].double().clamp_min(1e-30)).max())
+
+        errs = {
+            "bn_stats": (max(max_abs(s, s_p), max_abs(q, q_p)),
+                         max(err(s, s_p, "s"), err(q, q_p, "q")),
+                         max(norm_rel(s, s_p), norm_rel(q, q_p))),
+            "bn_grads": (max(max_abs(db, db_p), max_abs(dg, dg_p)),
+                         max(err(db, db_p, "db"), err(dg, dg_p, "dg")),
+                         max(norm_rel(db, db_p), norm_rel(dg, dg_p))),
+        }
+        for name, (mabs, scaled, nrel) in errs.items():
+            ok = scaled <= BN_SUM_TOL and math.isfinite(mabs)
+            log(f"kernel {name} [{label} [{m}, {c}] {dtype_name}]: "
+                f"max_abs_err={mabs:.3e} err/sum|terms|={scaled:.3e} "
+                f"(tol {BN_SUM_TOL:.0e}) norm_rel_err={nrel:.3e} -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version at {label}")
+        if label != "main":
+            continue
+
+        # Library yardsticks, timed here only: the same data viewed as
+        # [N, C, H, W] channels_last.
+        n, h, w = nhw
+        x4 = x.view(n, h, w, c).permute(0, 3, 1, 2)
+        dy4 = dy.view(n, h, w, c).permute(0, 3, 1, 2)
+        ones = torch.ones(c, device="cuda")
+        es = x.element_size()
+        vec_bytes = 2 * c * 4
+        calls = {
+            # x in; two f32 [C] out. One add and one FMA per element.
+            "bn_stats": (lambda: bn.bn_stats(x),
+                         lambda: bn.bn_stats_plain(x),
+                         lambda: torch.batch_norm_stats(x4, 1e-5),
+                         m * c * es + vec_bytes, 2 * m * c),
+            # dy, x, mean, inv in; two f32 [C] out. A subtract, a
+            # multiply, an FMA and an add per element.
+            "bn_grads": (lambda: bn.bn_grads(dy, x, mean, inv),
+                         lambda: bn.bn_grads_plain(dy, x, mean, inv),
+                         lambda: torch.batch_norm_backward_reduce(
+                             dy4, x4, mean, inv, ones, False, True, True),
+                         2 * m * c * es + 2 * vec_bytes, 5 * m * c),
+        }
+        for name, (kernel_fn, plain_fn, lib_fn, nbytes, flops) in calls.items():
+            t_ops = flops / PEAK_FLOPS["f32"]
+            t_bytes = nbytes / PEAK_BYTES_PER_S
+            mabs, scaled, nrel = errs[name]
+            records[name] = {
+                "name": name,
+                "route": "cuda",
+                "source": "mpi_operator_tpu_torch/csrc/"
+                          + _build.KERNELS[name][0],
+                "replaces": REPLACES[name],
+                "launches": 0,
+                "max_abs_err": mabs,
+                "norm_rel_err": nrel,
+                "ms": time_ms(kernel_fn, 3, 20),
+                "plain_ms": time_ms(plain_fn, 2, 5),
+                "bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": time_ms(lib_fn, 3, 20),
+            }
+            log(f"kernel {name} [main] timing: " + json.dumps(
+                {k: records[name][k] for k in
+                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
+        del x4, dy4
+    # A CUDA operand the kernels do not take raises; it never falls back
+    # to the plain version.
+    x16 = torch.zeros(64, 8, device="cuda", dtype=torch.float16)
+    strided = torch.zeros(8, 64, device="cuda").t()
+    for bad, err_type in ((x16, TypeError), (strided, ValueError)):
+        try:
+            bn.bn_stats(bad)
+        except err_type as e:
+            log(f"kernel bn_stats refuses {bad.dtype} strides {bad.stride()}: "
+                f"{type(e).__name__}: {e}")
+        else:
+            raise AssertionError("bn_stats accepted an operand it cannot take")
+    torch.cuda.empty_cache()
+    return records
+
+
 def check_model() -> None:
     """llama3-8b, full width, 2 layers, B=1, S=256: loss and gradients
     through the kernels against the dense oracle on the same weights."""
@@ -324,23 +482,194 @@ def check_model() -> None:
     torch.cuda.empty_cache()
 
 
-def run_train() -> tuple[dict, dict]:
-    """The trainer's own entry point; returns (summary, launch counts)."""
+def _resnet_pass(impl: str, dtype, state, images, labels):
+    """One forward + backward of ResNet-101 on the BN route ``impl`` in
+    ``dtype`` compute from ``state``: (loss, f32 gradients by name,
+    running statistics by name, BN launches)."""
+    import torch
+
+    from mpi_operator_tpu_torch.models import resnet as lib
+    from mpi_operator_tpu_torch.ops import bn
+
+    model = lib.resnet(101, dtype=dtype, bn_impl=impl, device="cuda")
+    model.to(memory_format=torch.channels_last).train()
+    model.load_state_dict(state)
+    bn.reset_launch_counts()
+    loss = lib.loss_fn(model, images, labels)
+    loss.backward()
+    torch.cuda.synchronize()
+    out = (float(loss.detach()),
+           {n: p.grad.float() for n, p in model.named_parameters()},
+           {n: b.clone() for n, b in model.named_buffers()},
+           dict(bn.LAUNCHES))
+    del model, loss
+    return out
+
+
+def _resnet_errors(got, ref) -> dict:
+    """How far one pass lies from a reference pass: loss relative error,
+    gradient norm-relative error over all parameters at once and at the
+    worst leaf, and running-statistics error (each mean against its
+    channel's running standard deviation, each variance relative)."""
+    (lg, gg, sg, _), (lr, gr, sr, _) = got, ref
+    diff = sum(float((gg[n] - gr[n]).double().norm() ** 2) for n in gr)
+    norm = sum(float(gr[n].double().norm() ** 2) for n in gr)
+    stats = 0.0
+    for name, var in sr.items():
+        if name.endswith(".var"):
+            mean = name[:-len("var")] + "mean"
+            scale = var.double().sqrt()
+            stats = max(stats, float(
+                ((sg[mean] - sr[mean]).double().abs() / scale).max()),
+                float(((sg[name] - var).double().abs() / var.double()).max()))
+    worst = max((norm_rel(gg[n], gr[n]), n) for n in gr)
+    return {"loss": abs(lg - lr) / abs(lr), "grads": math.sqrt(diff / norm),
+            "worst_leaf": worst[0], "worst_leaf_name": worst[1],
+            "stats": stats}
+
+
+def check_resnet_model() -> None:
+    """ResNet-101, full width and depth, B=8, 224x224: loss, gradients and
+    the updated running statistics through the BN kernels against the
+    plain-op BN route on the same weights and batch.
+
+    In f32 the two routes do the same math up to the order of f32 sums:
+    their losses and running statistics must agree directly. Gradients
+    (in f32) and everything in bf16 (the main path's type) spread a
+    rounding difference through 104 layers, so there each route is held
+    against the plain route run in f64: the kernel route may be at most
+    about as far from it as the plain route is. Every BN scale is redrawn
+    from U(0.5, 1.5) first (Flax zeroes each block's last one, which would
+    leave most gradients at 0)."""
+    import numpy as np
+    import torch
+
+    from mpi_operator_tpu_torch.models import resnet as lib
+
+    rng = np.random.RandomState(1)
+    images = torch.as_tensor(
+        rng.standard_normal((8, 224, 224, 3)).astype(np.float32),
+        device="cuda").permute(0, 3, 1, 2)
+    labels = torch.as_tensor(rng.randint(0, 1000, (8,)), device="cuda")
+    model = lib.resnet(101, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lib.init_params(model, gen)
+    with torch.no_grad():
+        for mod in lib.bn_layers(model):
+            mod.scale.uniform_(0.5, 1.5, generator=gen)
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+
+    cases = [("xla", "float64")] + [(impl, dt) for dt in ("float32", "bfloat16")
+                                     for impl in ("pallas", "xla")]
+    runs = {(impl, dt): _resnet_pass(impl, getattr(torch, dt), state,
+                                     images, labels)
+            for impl, dt in cases}
+    want = {"bn_stats": RESNET_BN_LAYERS, "bn_grads": RESNET_BN_LAYERS}
+    launches_ok = all(
+        runs[impl, dt][3] == (want if impl == "pallas" else
+                              {"bn_stats": 0, "bn_grads": 0})
+        for impl, dt in runs)
+    direct = _resnet_errors(runs["pallas", "float32"], runs["xla", "float32"])
+    direct_ok = all(direct[k] <= tol for k, tol in RESNET_F32_DIRECT_TOL.items())
+    fmt = lambda e: json.dumps({k: (f"{v:.3e}" if isinstance(v, float)
+                                    else v) for k, v in e.items()})
+    log(f"model resnet101 B=8 224x224 f32, kernel route vs plain route: "
+        f"{fmt(direct)} (tol {RESNET_F32_DIRECT_TOL}) -> "
+        f"{'ok' if direct_ok else 'FAIL'}")
+    ref = runs["xla", "float64"]
+    ratio_ok = True
+    for dt in ("float32", "bfloat16"):
+        err = {impl: _resnet_errors(runs[impl, dt], ref)
+               for impl in ("pallas", "xla")}
+        ok = all(err["pallas"][k] <= RESNET_ERROR_RATIO * err["xla"][k]
+                 + RESNET_FLOOR[dt] for k in ("loss", "grads", "stats"))
+        ratio_ok = ratio_ok and ok
+        log(f"model resnet101 B=8 224x224 {dt} vs the f64 plain run "
+            f"(loss {ref[0]:.6f}): kernel route {fmt(err['pallas'])}; plain "
+            f"route {fmt(err['xla'])} (kernel loss, grads and stats <= "
+            f"{RESNET_ERROR_RATIO}x plain + {RESNET_FLOOR[dt]:.0e}) -> "
+            f"{'ok' if ok else 'FAIL'}")
+    log(f"model resnet101 launches per pass: "
+        f"{ {f'{i}/{d}': r[3] for (i, d), r in runs.items()} } (kernel "
+        f"route want {want}) -> {'ok' if launches_ok else 'FAIL'}")
+    if not (direct_ok and ratio_ok and launches_ok):
+        raise AssertionError("BN kernel route disagrees with the plain route")
+    del runs, state, images
+    torch.cuda.empty_cache()
+
+
+def _reset_all_launch_counts() -> None:
+    from mpi_operator_tpu_torch.ops import attention as attn
+    from mpi_operator_tpu_torch.ops import bn
+
+    attn.reset_launch_counts()
+    bn.reset_launch_counts()
+
+
+def _all_launch_counts() -> dict:
+    from mpi_operator_tpu_torch.ops import attention as attn
+    from mpi_operator_tpu_torch.ops import bn
+
+    return {**attn.LAUNCHES, **bn.LAUNCHES}
+
+
+def _drive_trainer(argv) -> tuple[dict, dict]:
+    """``cmd.train.main(argv)`` with every launch counter set to 0 just
+    before it and read just after; returns (summary line with the peak
+    device memory added, launch counts)."""
     import torch
 
     from mpi_operator_tpu_torch.cmd import train
-    from mpi_operator_tpu_torch.ops import attention as attn
 
     torch.cuda.reset_peak_memory_stats()
     buf = io.StringIO()
-    attn.reset_launch_counts()
+    _reset_all_launch_counts()
     with contextlib.redirect_stdout(buf):
-        rc = train.main(TRAIN_ARGS)
-    launches = dict(attn.LAUNCHES)
+        rc = train.main(argv)
+    launches = _all_launch_counts()
     if rc != 0:
         raise AssertionError(f"train.main returned {rc}")
     summary = json.loads(buf.getvalue().strip().splitlines()[-1])
     summary["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return summary, launches
+
+
+def run_resnet_train() -> tuple[dict, dict]:
+    """The trainer's own entry point on the ResNet-101 path; returns
+    (summary, launch counts)."""
+    import torch
+
+    from mpi_operator_tpu_torch.models import resnet as lib
+
+    summary, launches = _drive_trainer(RESNET_TRAIN_ARGS)
+    # MFU with 2 x MAC FLOPs: forward + backward = 3 x the forward FLOPs
+    # per image (models/resnet.py flops_per_image), against the bf16
+    # dense peak.
+    summary["mfu_bf16_peak"] = (summary["examples_per_sec"] * 3
+                                * lib.flops_per_image(101, 224)
+                                / PEAK_FLOPS["bf16"])
+    log("train resnet101 summary: " + json.dumps(summary))
+    steps = summary["steps"]
+    want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "bn_stats": RESNET_BN_LAYERS * steps,
+            "bn_grads": RESNET_BN_LAYERS * steps}
+    ok = (steps == 6 and math.isfinite(summary["loss"])
+          and summary["loss"] < summary["first_loss"] and launches == want)
+    log(f"train resnet101 launches {launches} (want {want}); loss "
+        f"{summary['first_loss']:.4f} -> {summary['loss']:.4f}; "
+        f"images/s {summary['examples_per_sec']} step_ms "
+        f"{summary['step_ms']} MFU {summary['mfu_bf16_peak']:.4f} peak "
+        f"{summary['peak_mem_gb']:.2f} GB -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("ResNet training run failed its checks")
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def run_train() -> tuple[dict, dict]:
+    """The trainer's own entry point; returns (summary, launch counts)."""
+    summary, launches = _drive_trainer(TRAIN_ARGS)
     # MFU, PaLM-appendix accounting with 2 x MAC FLOPs: 6 x the matmul
     # parameters (2 layers + the LM head) + 6 L d S for causal attention,
     # per token, against the bf16 dense peak.
@@ -357,7 +686,7 @@ def run_train() -> tuple[dict, dict]:
     log("train summary: " + json.dumps(summary))
     layers, steps = 2, summary["steps"]
     want = {"flash_fwd": 2 * layers * steps, "flash_bwd_dq": layers * steps,
-            "flash_bwd_dkv": layers * steps}
+            "flash_bwd_dkv": layers * steps, "bn_stats": 0, "bn_grads": 0}
     ok = (steps == 6 and math.isfinite(summary["loss"])
           and summary["loss"] < summary["first_loss"] and launches == want)
     log(f"train launches {launches} (want {want}); loss "
@@ -375,7 +704,6 @@ def profile_step() -> None:
     alone, and a torch.profiler pass over two steps for device kernel
     time by kind and the device's busy share of the wall time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from mpi_operator_tpu_torch.cmd import train
     from mpi_operator_tpu_torch.ops.losses import lm_xent_chunked
@@ -399,12 +727,56 @@ def profile_step() -> None:
     work.optimizer.zero_grad(set_to_none=False)
     adamw_ms = time_ms(work.optimizer.step, 1, 3)
 
+    busy, wall, kinds, kernels = _profile_steps(
+        lambda: work.step_fn(tokens), _llama_kind)
+    log("profile: " + json.dumps({
+        "step_ms": step_ms, "lm_head_fwd_bwd_ms": head_ms,
+        "adamw_step_ms": adamw_ms,
+        "profiled_wall_ms_per_step": wall,
+        "device_busy_ms_per_step": busy,
+        "device_idle_share": 1 - busy / wall,
+        "device_ms_per_step_by_kind": kinds,
+    }))
+    for ms, name in kernels[:12]:
+        log(f"profile kernel {ms:9.3f} ms/step  {name}")
+    del work, model, h
+    torch.cuda.empty_cache()
+
+
+def _llama_kind(name: str) -> str:
+    return ("flash" if "flash::" in name else
+            "gemm_f32" if "f32f32" in name or "sgemm" in name else
+            "gemm" if any(s in name.lower() for s in
+                          ("gemm", "nvjet", "xmma", "cutlass")) else
+            "adamw" if "multi_tensor_apply" in name else "other")
+
+
+def _resnet_kind(name: str) -> str:
+    low = name.lower()
+    return ("bn_kernels" if "bn::" in name else
+            "conv_gemm" if any(s in low for s in (
+                "conv", "gemm", "nvjet", "xmma", "cutlass", "cudnn", "sm90_",
+                "sm80_", "dgrad", "wgrad", "fprop", "implicit")) else
+            "optimizer" if "multi_tensor_apply" in name else
+            "reduce" if "reduce" in low else
+            "elementwise" if any(s in low for s in (
+                "elementwise", "vectorized", "unrolled", "copy", "pool",
+                "fill")) else "other")
+
+
+def _profile_steps(step, classify, steps: int = 2):
+    """torch.profiler over ``steps`` calls of ``step``: (device busy ms
+    per step, wall ms per step, device ms per step by kind, the kernels
+    as (ms per step, name), largest first)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(2):
-            work.step_fn(tokens)
+        for _ in range(steps):
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kinds: dict = {}
@@ -416,27 +788,142 @@ def profile_step() -> None:
                 or getattr(evt, "is_user_annotation", False)
                 or "#" in evt.key):
             continue
-        us = evt.self_device_time_total
-        name = evt.key
-        kind = ("flash" if "flash::" in name else
-                "gemm_f32" if "f32f32" in name or "sgemm" in name else
-                "gemm" if any(s in name.lower() for s in
-                              ("gemm", "nvjet", "xmma", "cutlass")) else
-                "adamw" if "multi_tensor_apply" in name else "other")
-        kinds[kind] = kinds.get(kind, 0.0) + us / 2e3  # ms per step
-        kernels.append((us / 2e3, name[:90]))
-    busy = sum(kinds.values())
-    log("profile: " + json.dumps({
-        "step_ms": step_ms, "lm_head_fwd_bwd_ms": head_ms,
-        "adamw_step_ms": adamw_ms,
-        "profiled_wall_ms_per_step": wall_ms / 2,
-        "device_busy_ms_per_step": busy,
-        "device_idle_share": 1 - busy / (wall_ms / 2),
-        "device_ms_per_step_by_kind": kinds,
+        ms = evt.self_device_time_total / 1e3 / steps
+        kind = classify(evt.key)
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+        kernels.append((ms, evt.key[:90]))
+    return (sum(kinds.values()), wall_ms / steps, kinds,
+            sorted(kernels, reverse=True))
+
+
+def _captured(fn, warmup: int = 3):
+    """``fn`` captured into a CUDA graph, after ``warmup`` calls on a side
+    stream as capture requires. A replay runs the same kernels with no
+    host work between them, so its CUDA-event time is device time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def profile_resnet_step() -> None:
+    """Where one ResNet-101 training step's time goes (opt-in phase
+    ``profile``), at the ``train`` shape (B=64, 224x224, --bn-kernel
+    pallas) on the trainer's own workload.
+
+    The eager step is timed with CUDA events, beside the plain BN route's.
+    Device time comes from CUDA-graph replays, which leave out the host's
+    launch gaps: the whole step, then its parts (the forward alone, the
+    optimizer update alone, the 104 BN layers' forward and backward at
+    the step's shapes, and the BN kernels alone at those shapes). The
+    idle share is 1 - step device time / eager step time. A profiler
+    pass over step replays gives kernel time by kind, with its coverage
+    (the profiler's device total over the replay's CUDA-event time)."""
+    import torch
+
+    from mpi_operator_tpu_torch.cmd import train
+    from mpi_operator_tpu_torch.models import resnet as lib
+    from mpi_operator_tpu_torch.ops import bn
+    from mpi_operator_tpu_torch.parallel.mesh import create_mesh
+
+    mesh = create_mesh(device="cuda", dp=-1)
+    args = train.build_parser().parse_args(
+        [*RESNET_TRAIN_ARGS, "--bn-kernel", "xla"])
+    work = train._resnet_workload(args, mesh, 1)
+    plain_step_ms = time_ms(lambda: work.step_fn(*work.batch), 2, 5)
+    del work
+    # One bn_stats call on a small layer's operand (stage 3 at B=8: a few
+    # microseconds of device work), so this is the host's cost of a call.
+    x = torch.randn(392, 512, device="cuda", dtype=torch.bfloat16)
+    call_us = time_ms(lambda: bn.bn_stats(x), 10, 200) * 1e3
+
+    work = train._resnet_workload(
+        train.build_parser().parse_args(RESNET_TRAIN_ARGS), mesh, 1)
+    model, (images, labels) = work.model, work.batch
+    step_ms = time_ms(lambda: work.step_fn(images, labels), 2, 5)
+    shapes = []
+    hooks = [m.register_forward_pre_hook(
+        lambda _m, a: shapes.append(tuple(a[0].shape)))
+        for m in lib.bn_layers(model)]
+    work.step_fn(images, labels)
+    for h in hooks:
+        h.remove()
+
+    step_graph = _captured(lambda: work.step_fn(images, labels))
+    device_ms = {"step": time_ms(step_graph.replay, 2, 10)}
+    busy, _, kinds, kernels = _profile_steps(step_graph.replay,
+                                             _resnet_kind, 3)
+    with torch.no_grad():
+        graph = _captured(lambda: lib.loss_fn(model, images, labels))
+    device_ms["forward"] = time_ms(graph.replay, 2, 10)
+    graph = _captured(work.optimizer.step)
+    device_ms["optimizer"] = time_ms(graph.replay, 2, 10)
+    del graph, step_graph, work, model
+    torch.cuda.empty_cache()
+
+    # The BN layers at the step's shapes, on random bf16 activations.
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    layers = []
+    for n, c, h, w in shapes:
+        xs = torch.randn(n, c, h, w, generator=gen, device="cuda").to(
+            torch.bfloat16).to(memory_format=torch.channels_last)
+        layers.append((bn.TpuBatchNorm(c, device="cuda"),
+                       xs.requires_grad_(), torch.randn_like(xs)))
+
+    def bn_layers_fwd_bwd():
+        for layer, xs, dys in layers:
+            torch.autograd.grad(layer(xs), (xs,), dys)
+
+    operands = []
+    for _, xs, dys in layers:
+        x2d = xs.detach().movedim(1, -1).reshape(-1, xs.shape[1])
+        mean = x2d.float().mean(0)
+        inv = torch.rsqrt(x2d.float().var(0, unbiased=False) + 1e-5)
+        operands.append((x2d, dys.movedim(1, -1).reshape(x2d.shape),
+                         mean, inv))
+
+    def bn_kernels():
+        for x2d, dy2d, mean, inv in operands:
+            bn.bn_stats(x2d)
+            bn.bn_grads(dy2d, x2d, mean, inv)
+
+    for name, fn in (("bn_layers_fwd_bwd", bn_layers_fwd_bwd),
+                     ("bn_kernels", bn_kernels)):
+        graph = _captured(fn)
+        device_ms[name] = time_ms(graph.replay, 2, 10)
+        del graph
+    del layers, operands
+    device_ms["bn_elementwise"] = (device_ms["bn_layers_fwd_bwd"]
+                                   - device_ms["bn_kernels"])
+    # The two kernels' bound over the step: x read by stats, dy and x by
+    # grads (bf16), and six f32 [C] vectors (two out of stats; mean and
+    # inv in, two out of grads).
+    elems = sum(n * c * h * w for n, c, h, w in shapes)
+    channels = sum(c for _, c, _, _ in shapes)
+    bn_bound_ms = (3 * elems * 2 + 6 * channels * 4) / PEAK_BYTES_PER_S * 1e3
+    device_ms["rest_convs_head_relu_add_pool"] = (
+        device_ms["step"] - device_ms["bn_layers_fwd_bwd"]
+        - device_ms["optimizer"])
+    log("profile resnet101: " + json.dumps({
+        "step_ms": step_ms, "plain_bn_route_step_ms": plain_step_ms,
+        "bn_stats_call_us_small_layer": call_us,
+        "bn_layers": len(shapes), "bn_activation_elements": elems,
+        "bn_kernels_bound_ms": bn_bound_ms,
+        "device_ms_per_step": device_ms,
+        "device_idle_share": 1 - device_ms["step"] / step_ms,
+        "profiler_ms_per_step_by_kind": kinds,
+        "profiler_coverage": busy / device_ms["step"],
     }))
-    for ms, name in sorted(kernels, reverse=True)[:12]:
-        log(f"profile kernel {ms:9.3f} ms/step  {name}")
-    del work, model, h
+    for ms, name in kernels[:15]:
+        log(f"profile resnet101 kernel {ms:9.3f} ms/step  {name}")
     torch.cuda.empty_cache()
 
 
@@ -467,23 +954,35 @@ def main(argv=None) -> int:
     log(f"kernel build: {time.perf_counter() - t0:.1f} s wall "
         f"(per source: {json.dumps({k: round(v, 1) for k, v in seconds.items()})})")
     for name in _build.KERNELS:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+        # One summary line per source: its template instances' registers
+        # and spills.
+        text = _build.build_log(name)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", text))
+        log(f"ptxas {name}: {len(regs)} kernel instances, registers "
+            f"{min(regs, default=0)}-{max(regs, default=0)}, spill bytes "
+            f"{spills}")
 
     records = {}
     if "kernels" in phases:
-        records = check_kernels()
+        records = {**check_kernels(), **check_bn_kernels()}
     if "model" in phases:
         check_model()
+        check_resnet_model()
     if "profile" in phases:
         profile_step()
+        profile_resnet_step()
     if "train" in phases:
+        # Each main path's own run gives its kernels' launch counts.
         summary, launches = run_train()
+        r_summary, r_launches = run_resnet_train()
         for name, rec in records.items():
-            rec["launches"] = launches[name]
-        log(f"card: {card}; train tokens/s {summary.get('tokens_per_sec')} "
-            f"step_ms {summary['step_ms']}")
+            rec["launches"] = (r_launches if name.startswith("bn_")
+                               else launches)[name]
+        log(f"card: {card}; train llama tokens/s "
+            f"{summary.get('tokens_per_sec')} step_ms {summary['step_ms']}; "
+            f"train resnet101 images/s {r_summary['examples_per_sec']} "
+            f"step_ms {r_summary['step_ms']}")
     if records:
         log(json.dumps({"kernels": list(records.values())}))
     log(json.dumps({"ok": True, "device": {

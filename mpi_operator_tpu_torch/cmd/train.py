@@ -1,22 +1,33 @@
 """Training entrypoint -- the port of ``mpi_operator_tpu/cmd/train.py``,
-Llama arm, one process on one device:
+ResNet and Llama arms, one process on one device:
 
+    python -m mpi_operator_tpu_torch.cmd.train      # resnet101, 224x224, B=64
+    python -m mpi_operator_tpu_torch.cmd.train --model resnet101 \\
+        --bn-kernel pallas --steps 6 --warmup 2
     python -m mpi_operator_tpu_torch.cmd.train --model llama3-8b \\
         --n-layers 2 --seq-len 2048 --global-batch 2 --xent-chunk 1024 \\
         --steps 6 --warmup 2 --lr 3e-4
 
 Flow: rendezvous (launcher.bootstrap, single process) -> one-device mesh
--> model + AdamW -> step loop with warmup boundary, log cadence, SIGTERM
-stop, step-slowdown chaos and telemetry -> one JSON summary line on
-stdout with the JAX trainer's keys.
+-> model + optimizer (ResNet: SGD nesterov momentum 0.9; Llama: AdamW)
+-> step loop with warmup boundary, log cadence, SIGTERM stop,
+step-slowdown chaos and telemetry -> one JSON summary line on stdout
+with the JAX trainer's keys.
+
+``--bn-kernel`` keeps the JAX values so that a TPUJob's args mean the
+same on both packages: ``xla`` (the default) normalizes with plain
+PyTorch reductions, ``pallas`` through the hand-written CUDA BN kernels
+(``csrc/bn_stats.cu``, ``csrc/bn_grads.cu``; their plain versions on
+the CPU).
 
 Runs on ``cuda`` by default and raises when no GPU is present;
 ``--device cpu`` runs the same path with the kernels' plain versions.
 Flags whose machinery is a later slice of the port refuse loudly with
 the ROADMAP.md item that brings them; none is silently ignored.
 
-Data: synthetic tokens from ``np.random.RandomState(--seed)``, drawn
-exactly as the JAX trainer draws them, so both trainers see one batch.
+Data: synthetic images and labels, or tokens, from
+``np.random.RandomState(--seed)``, drawn exactly as the JAX trainer
+draws them, so both trainers see one batch.
 """
 
 from __future__ import annotations
@@ -35,7 +46,8 @@ from ..utils.logging import get_logger
 
 log = get_logger("train")
 
-PORTED_MODELS = ("llama3-8b", "llama-tiny")
+PORTED_MODELS = ("resnet18", "resnet50", "resnet101", "llama3-8b",
+                 "llama-tiny")
 
 
 def parse_mesh_spec(spec: str) -> dict[str, int]:
@@ -54,14 +66,16 @@ def parse_mesh_spec(spec: str) -> dict[str, int]:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tpujob-train-torch",
-        description="PyTorch/CUDA trainer for TPUJob workloads (Llama)",
+        description="PyTorch/CUDA trainer for TPUJob workloads (ResNet, "
+                    "Llama)",
     )
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where to train; cuda raises when no GPU is present "
                         "(the run never moves to the CPU on its own)")
     p.add_argument("--model", default="resnet101",
-                   help="ported: llama3-8b|llama-tiny (the JAX trainer's "
-                        "other names are refused until ported)")
+                   help="ported: resnet18|resnet50|resnet101|llama3-8b|"
+                        "llama-tiny (the JAX trainer's other names are "
+                        "refused until ported)")
     p.add_argument("--mesh", default="",
                    help="axis spec, e.g. dp=-1; every axis must be 1 "
                         "(multi-device meshes are not ported yet)")
@@ -70,9 +84,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--global-batch", type=int, default=0,
-                   help="0 = pick per model (lm: 8/device)")
+                   help="0 = pick per model (resnet: 64/device; lm: "
+                        "8/device)")
     p.add_argument("--image-size", type=int, default=224)
-    p.add_argument("--bn-kernel", choices=["xla", "pallas"], default="xla")
+    p.add_argument("--bn-kernel", choices=["xla", "pallas"], default="xla",
+                   help="resnet BN reduction path: xla = plain PyTorch "
+                        "reductions; pallas = the hand-written CUDA "
+                        "kernels (csrc/bn_*.cu; single-device only)")
     p.add_argument("--seq-len", type=int, default=512)
     p.add_argument("--lr", type=float, default=0.1)
     p.add_argument("--checkpoint-dir", default="")
@@ -123,9 +141,10 @@ def refuse_unported(args) -> None:
         raise SystemExit(f"{what} is not ported yet (ROADMAP.md {item})")
 
     if args.model not in PORTED_MODELS:
+        item = ("item 13" if args.model.startswith(("mixtral", "llama-moe"))
+                else "item 11")
         refuse(f"--model {args.model!r} (the port trains "
-               f"{' and '.join(PORTED_MODELS)})",
-               "queue (a) items 11-13")
+               f"{', '.join(PORTED_MODELS)})", f"queue (a) {item}")
     if args.checkpoint_dir:
         refuse("--checkpoint-dir", "queue (a) item 9")
     if args.data:
@@ -174,6 +193,51 @@ class Workload:
         self.batch = batch
         self.examples_per_step = examples_per_step
         self.tokens_per_step = tokens_per_step
+
+
+def _resnet_workload(args, mesh, n_devices: int) -> Workload:
+    import numpy as np
+    import torch
+
+    from ..models import resnet as lib
+    from ..ops.bn import require_single_device
+
+    if args.grad_accum > 1:
+        raise SystemExit(
+            "--grad-accum applies to LM models only (BatchNorm statistics "
+            "make microbatched ResNet steps non-equivalent)"
+        )
+    depth = int(args.model.removeprefix("resnet"))
+    global_batch = args.global_batch or 64 * n_devices
+    if args.bn_kernel == "pallas":
+        require_single_device(n_devices)
+    model = lib.resnet(depth, bn_impl=args.bn_kernel, device=mesh.device)
+    model.to(memory_format=torch.channels_last).train()
+    lib.init_params(
+        model, torch.Generator(device=mesh.device).manual_seed(args.seed)
+    )
+    lr = _make_learning_rate(args)
+    schedule = lr if callable(lr) else None
+    # optax.sgd(lr, momentum=0.9, nesterov=True): no dampening, no decay.
+    optimizer = torch.optim.SGD(
+        model.parameters(), lr=schedule(0) if schedule else lr,
+        momentum=0.9, nesterov=True, dampening=0, weight_decay=0,
+    )
+    rng = np.random.RandomState(args.seed)
+    images = rng.standard_normal(
+        (global_batch, args.image_size, args.image_size, 3)
+    ).astype(np.float32)
+    labels = rng.randint(0, 1000, (global_batch,))
+    # NHWC as drawn -> [N, 3, H, W] in channels_last memory (a view).
+    images = torch.as_tensor(images, device=mesh.device).permute(0, 3, 1, 2)
+    labels = torch.as_tensor(labels, dtype=torch.long, device=mesh.device)
+    return Workload(
+        model=model,
+        optimizer=optimizer,
+        step_fn=lib.make_train_step(model, optimizer, lr_schedule=schedule),
+        batch=(images, labels),
+        examples_per_step=global_batch,
+    )
 
 
 def llama_config_from_args(args, sp: int):
@@ -249,6 +313,14 @@ def _lm_workload(args, mesh, n_devices: int) -> Workload:
     )
 
 
+def build_workload(args, mesh, n_devices: int) -> Workload:
+    if args.model.startswith("resnet"):
+        return _resnet_workload(args, mesh, n_devices)
+    if args.model.startswith("llama"):
+        return _lm_workload(args, mesh, n_devices)
+    raise SystemExit(f"unknown --model {args.model!r}")
+
+
 def _sync(device) -> None:
     import torch
 
@@ -280,7 +352,7 @@ def main(argv=None) -> int:
         cfg.process_id, cfg.num_processes, n_devices, device, mesh.sizes,
     )
 
-    work = _lm_workload(args, mesh, n_devices)
+    work = build_workload(args, mesh, n_devices)
 
     start_step = 0
     end = args.steps

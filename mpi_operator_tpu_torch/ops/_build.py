@@ -21,12 +21,12 @@ import threading
 import time
 from pathlib import Path
 
-from ._common import DEFAULT_BLOCK_K, DEFAULT_BLOCK_Q
+from ._common import BN_THREADS, DEFAULT_BLOCK_K, DEFAULT_BLOCK_Q
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-HEADERS = ("flash_common.cuh",)
+HEADERS = ("flash_common.cuh", "bn_common.cuh")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> (source, argtypes). Every pointer and the stream are
@@ -36,6 +36,8 @@ KERNELS = {
     "flash_bwd_dq": ("flash_bwd_dq.cu", [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P]),
     "flash_bwd_dkv": ("flash_bwd_dkv.cu",
                       [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P]),
+    "bn_stats": ("bn_stats.cu", [_P] * 3 + [_I] * 7 + [_P]),
+    "bn_grads": ("bn_grads.cu", [_P] * 6 + [_I] * 8 + [_P]),
 }
 
 
@@ -58,6 +60,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v",
     f"-DFLASH_BLOCK_Q={DEFAULT_BLOCK_Q}", f"-DFLASH_BLOCK_K={DEFAULT_BLOCK_K}",
+    f"-DBN_THREADS={BN_THREADS}",
 ]
 
 

@@ -1,6 +1,7 @@
 """The port's trainer entry point (``mpi_operator_tpu_torch.cmd.train``)
-on the CPU: the summary line, the loud refusal of every flag a later
-slice brings, and no quiet move to the CPU when ``cuda`` is asked for.
+on the CPU: the summary line of both arms (ResNet and Llama), the loud
+refusal of every flag a later slice brings, and no quiet move to the CPU
+when ``cuda`` is asked for.
 """
 
 import json
@@ -23,6 +24,10 @@ JAX_SUMMARY_KEYS = {
     "model", "steps", "final_step", "loss", "examples_per_sec", "step_ms",
     "goodput", "devices", "preempted", "tokens_per_sec",
 }
+# A vision model's line has no tokens_per_sec.
+JAX_VISION_SUMMARY_KEYS = JAX_SUMMARY_KEYS - {"tokens_per_sec"}
+RESNET_ARGS = ["--device", "cpu", "--model", "resnet18", "--image-size",
+               "32", "--global-batch", "4"]
 
 
 def _summary(capsys):
@@ -55,8 +60,10 @@ def test_loss_falls_with_grad_accum_and_cosine_schedule(capsys):
 
 
 REFUSED = {
-    "model": (["--model", "bert-base"], "items 11-13"),
-    "moe": (["--model", "mixtral-8x7b"], "items 11-13"),
+    "model": (["--model", "bert-base"], "item 11"),
+    "vit": (["--model", "vit-base"], "item 11"),
+    "seq2seq": (["--model", "seq2seq-small"], "item 11"),
+    "moe": (["--model", "mixtral-8x7b"], "item 13"),
     "checkpoint": (["--checkpoint-dir", "/nonexistent"], "item 9"),
     "data": (["--data", "corpus.bin"], "item 5"),
     "heartbeat": (["--heartbeat-every", "2"], "item 10"),
@@ -72,6 +79,58 @@ def test_unported_flags_refuse_loudly(flag):
     argv = ["--device", "cpu", "--model", "llama-tiny", "--steps", "1", *extra]
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue \\(a\\) {item}"):
         train.main(argv)
+
+
+@pytest.mark.parametrize("bn_kernel", ["xla", "pallas"])
+def test_resnet_cpu_run_prints_the_jax_vision_summary_keys(capsys, bn_kernel):
+    rc = train.main([*RESNET_ARGS, "--steps", "3", "--warmup", "1",
+                     "--bn-kernel", bn_kernel, "--telemetry-every", "0"])
+    assert rc == 0
+    summary = _summary(capsys)
+    assert set(summary) >= JAX_VISION_SUMMARY_KEYS
+    assert "tokens_per_sec" not in summary
+    assert summary["model"] == "resnet18" and summary["steps"] == 3
+    assert math.isfinite(summary["loss"]) and summary["examples_per_sec"] > 0
+
+
+def test_resnet_grad_accum_is_refused_with_the_jax_message():
+    with pytest.raises(SystemExit, match="--grad-accum applies to LM models "
+                                         "only \\(BatchNorm statistics"):
+        train.main([*RESNET_ARGS, "--steps", "1", "--grad-accum", "2"])
+
+
+def test_default_model_is_resnet101_and_ported():
+    args = train.build_parser().parse_args([])
+    assert args.model == "resnet101" and args.bn_kernel == "xla"
+    assert args.device == "cuda" and args.image_size == 224
+    train.refuse_unported(args)  # no SystemExit
+
+
+def test_resnet_workload_is_the_jax_trainers():
+    """Batch 64 a device by default, SGD with nesterov momentum 0.9, the
+    BN route --bn-kernel names, and the JAX trainer's numpy draw: images
+    first, then labels, from RandomState(seed)."""
+    from mpi_operator_tpu_torch.ops import bn as tbn
+
+    mesh = create_mesh(device="cpu", dp=-1)
+    args = train.build_parser().parse_args(
+        ["--device", "cpu", "--model", "resnet18", "--image-size", "8",
+         "--seed", "7", "--bn-kernel", "pallas"])
+    work = train.build_workload(args, mesh, 1)
+    images, labels = work.batch
+    assert images.shape == (64, 3, 8, 8) and work.examples_per_step == 64
+    assert images.is_contiguous(memory_format=torch.channels_last)
+    rng = np.random.RandomState(7)
+    want = rng.standard_normal((64, 8, 8, 3)).astype(np.float32)
+    np.testing.assert_array_equal(images.permute(0, 2, 3, 1).numpy(), want)
+    np.testing.assert_array_equal(labels.numpy(), rng.randint(0, 1000, (64,)))
+    group = work.optimizer.param_groups[0]
+    assert isinstance(work.optimizer, torch.optim.SGD)
+    assert (group["momentum"], group["nesterov"], group["dampening"],
+            group["weight_decay"]) == (0.9, True, 0, 0)
+    assert work.model.training
+    assert all(isinstance(m, tbn.TpuBatchNorm)
+               for m in work.model.modules() if isinstance(m, tbn._BatchNormBase))
 
 
 def test_cuda_without_a_gpu_raises():
