@@ -11,26 +11,32 @@ Phases, in order:
    every CUDA source under ``mpi_operator_tpu_torch/csrc/``, one ``nvcc``
    each, all started together;
 2. ``kernels``: each kernel against its plain version on the card, with
-   times by CUDA events beside the bound and one PyTorch library call at
-   the main shape:
-   - the flash kernels at the Llama training shape (B=2, S=2048, H=32,
-     Hkv=8, D=128, bf16, causal), at a padded GQA shape (S=200, f32,
-     non-causal) and at a masked-row shape (Sq > Sk, causal, f32);
+   times by CUDA events beside the bound and one PyTorch library call:
+   - the six flash kernels, flat ([B, S, H*D]) and [B*H, S, D], at the
+     Llama training shape (B=2, S=2048, H=32, Hkv=8, D=128, bf16,
+     causal) and the BERT-base shape (B=64, S=512, H=12, D=64, bf16,
+     non-causal; timed at both), a padded GQA shape (S=200, f32), a
+     masked-row shape (Sq > Sk, causal, f32) and, for the [B*H, S, D]
+     kernels, an id-masked shape with rows that see nothing;
    - the BN kernels at the ResNet-101 stem ([802816, 64] bf16 at B=64),
      stage 3's widest layer ([3136, 2048] bf16) and a ragged f32 shape
      ([1000, 130]);
-3. ``model``: llama3-8b at full width, 2 layers, small B and S: loss and
-   every gradient through the flash kernels against the dense oracle;
-   then ResNet-101 at full width and depth, B=8, 224x224: loss, every
-   gradient and the updated running statistics through the BN kernels
-   against the plain-op BN route on the same weights;
+3. ``model``: llama3-8b at full width, 2 layers: loss and every gradient
+   through the flat kernels and through the [B*H, S, D] kernels
+   (``flash-bhsd``) against the dense oracle; ResNet-101 at full width
+   and depth, B=8: loss, every gradient and the running statistics
+   through the BN kernels against the plain-op BN route; BERT-base at
+   full depth and width, B=8, S=512: loss and every gradient through
+   both flash routes against the dense oracle, in f32 and bf16;
 4. ``train``: the trainer's own entry point
-   (``mpi_operator_tpu_torch.cmd.train.main``) on both main paths: the
-   Llama arm (full width, 2 layers, S=2048, 6 AdamW steps) and ResNet-101
-   with ``--bn-kernel pallas`` (full width and depth, B=64, 224x224, 6
-   SGD steps). Each loss must be finite and fall, and each run's launch
-   counters (set to 0 just before it, read just after) must show every
-   attention and every BN call went through the kernels;
+   (``mpi_operator_tpu_torch.cmd.train.main``) on each main path: Llama
+   (full width, 2 layers, S=2048, 6 AdamW steps), ResNet-101 with
+   ``--bn-kernel pallas`` (B=64, 224x224, 6 SGD steps) and BERT-base
+   (B=64, S=512, ``--mlm-layout positions``, 6 AdamW steps), then 3 steps
+   of the BERT train step on the ``flash-bhsd`` route. Each loss must be
+   finite (and, for the trainer runs, fall), and each run's launch
+   counters (set to 0 just before it, read just after) must show exactly
+   its own kernels;
 5. ``profile`` (opt-in, ``--phases profile``): where one training step's
    time goes, for each arm (device kernel time by kind, idle share).
 
@@ -87,6 +93,17 @@ BN_SUM_TOL = 2e-5
 RESNET_F32_DIRECT_TOL = {"loss": 1e-4, "stats": 1e-3}
 RESNET_ERROR_RATIO = 2.0
 RESNET_FLOOR = {"float32": 1e-4, "bfloat16": 1e-2}
+# BERT-base model check (12 post-LN layers). f32: the kernel routes and
+# the dense oracle differ only in the order of f32 sums. bf16: each route
+# is held against the f32 oracle, the kernel routes at most this ratio of
+# the dense bf16 route's own error plus a floor, on the leaves whose
+# gradient is at least BERT_TINY_LEAF of their layer's largest
+# (check_bert_model says why).
+BERT_F32_TOL = {"loss": 1e-5, "grads": 1e-3}
+BERT_ERROR_RATIO = 2.0
+BERT_BF16_FLOOR = 1e-2
+BERT_TINY_LEAF = 2e-2
+BERT_LAYERS = 12
 
 TRAIN_ARGS = [
     "--model", "llama3-8b", "--n-layers", "2", "--seq-len", "2048",
@@ -101,11 +118,24 @@ RESNET_TRAIN_ARGS = [
 ]
 RESNET_BN_LAYERS = 104  # stem 1 + 33 blocks x 3 + 4 projections
 
+# 1e-4: BERT's published pretraining rate (the trainer's default 0.1 is
+# ResNet's).
+BERT_TRAIN_ARGS = [
+    "--model", "bert-base", "--global-batch", "64", "--seq-len", "512",
+    "--mlm-layout", "positions", "--steps", "6", "--warmup", "2", "--lr",
+    "1e-4", "--log-every", "1",
+]
+
 # Kernel -> the TPU kernel it replaces.
 REPLACES = {
     "flash_fwd": "mpi_operator_tpu/ops/attention.py:707",
     "flash_bwd_dq": "mpi_operator_tpu/ops/attention.py:835",
     "flash_bwd_dkv": "mpi_operator_tpu/ops/attention.py:930",
+    "flash_bhsd_fwd": "mpi_operator_tpu/ops/attention.py:120",
+    "flash_bhsd_bwd_dq": "mpi_operator_tpu/ops/attention.py:198",
+    "flash_bhsd_bwd_dkv": "mpi_operator_tpu/ops/attention.py:243",
+    # #1's function at d=64, with the TPU's 128-lane head packing.
+    "flash_fwd_d64": "hack/headdim_probe.py:63",
     "bn_stats": "mpi_operator_tpu/ops/bn.py:54",
     "bn_grads": "mpi_operator_tpu/ops/bn.py:96",
 }
@@ -172,145 +202,217 @@ def bound(kind: str, shape: dict, dtype_name: str, pairs: int):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_kernels() -> dict:
-    """Each kernel against its plain version at three shapes. Returns the
-    main-shape record per kernel (errors, times, bounds)."""
+# Flash kernel check shapes: (label, shape, layouts). "flat" is the
+# projection layout [B, S, H*D] (flash_fwd, ...); "bhsd" is [B*H, S, D]
+# (flash_bhsd_fwd, ...). The Llama and BERT shapes are timed.
+FLASH_SHAPES = [
+    ("llama", dict(b=2, sq=2048, sk=2048, h=32, hkv=8, d=128, dtype="bf16",
+                   causal=True), ("flat", "bhsd")),
+    # BERT-base (and hack/headdim_probe.py's own shape): d=64, non-causal.
+    ("bert", dict(b=64, sq=512, sk=512, h=12, hkv=12, d=64, dtype="bf16",
+                  causal=False), ("flat", "bhsd")),
+    ("padded-gqa", dict(b=2, sq=200, sk=200, h=8, hkv=2, d=64, dtype="f32",
+                        causal=False), ("flat", "bhsd")),
+    ("masked-rows", dict(b=1, sq=130, sk=70, h=4, hkv=2, d=128, dtype="f32",
+                         causal=True), ("flat", "bhsd")),
+    # Ids from two chunks each (as a zigzag ring hop holds them); q rows
+    # 16..39 see no column.
+    ("id-masked", dict(b=2, sq=96, sk=80, h=4, hkv=2, d=64, dtype="f32",
+                       causal=False, ids=True), ("bhsd",)),
+]
+FLASH_NAMES = {
+    "flat": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+    "bhsd": ("flash_bhsd_fwd", "flash_bhsd_bwd_dq", "flash_bhsd_bwd_dkv"),
+}
+# The record each kernel's line in {"kernels": [...]} carries: the shape
+# of its main path (flat: the Llama trainer; bhsd: the BERT flash-bhsd
+# steps); the other timed shape rides along under "at_<label>".
+FLASH_RECORD_SHAPE = {"flat": "llama", "bhsd": "bert"}
+
+
+def _id_chunks():
     import torch
-    import torch.nn.functional as F
+
+    row = torch.cat([torch.arange(16, 64), torch.arange(160, 208)])
+    col = torch.cat([torch.arange(40, 80), torch.arange(120, 160)])
+    return row.to("cuda", torch.int32), col.to("cuda", torch.int32)
+
+
+def _flash_calls(attn, layout: str, h: int, scale: float, causal: bool,
+                 ids):
+    """((fwd, dq, dkv) kernel wrappers, their plain versions), each taking
+    (q, k, v) or (q, k, v, do, lse, delta) in ``layout``."""
+    if layout == "flat":
+        tail = (h, scale, causal)
+        return ((lambda *a: attn.flash_fwd(*a, *tail),
+                 lambda *a: attn.flash_bwd_dq(*a, *tail),
+                 lambda *a: attn.flash_bwd_dkv(*a, *tail)),
+                (lambda *a: attn.flash_fwd_plain(*a, *tail),
+                 lambda *a: attn.flash_bwd_dq_plain(*a, *tail),
+                 lambda *a: attn.flash_bwd_dkv_plain(*a, *tail)))
+    tail = (scale, causal, *ids)
+    return ((lambda *a: attn.flash_bhsd_fwd(*a, *tail),
+             lambda *a: attn.flash_bhsd_bwd_dq(*a, *tail),
+             lambda *a: attn.flash_bhsd_bwd_dkv(*a, *tail)),
+            (lambda *a: attn.flash_bhsd_fwd_plain(*a, *tail),
+             lambda *a: attn.flash_bhsd_bwd_dq_plain(*a, *tail),
+             lambda *a: attn.flash_bhsd_bwd_dkv_plain(*a, *tail)))
+
+
+def check_kernels() -> dict:
+    """Each flash kernel against its plain version at every shape of
+    FLASH_SHAPES in each of its layouts, timed at the Llama and BERT
+    shapes. Returns a record per kernel (errors, times, bounds), plus
+    ``flash_fwd_d64``: the flat forward at the BERT shape, the record for
+    hack/headdim_probe.py's packed d=64 kernel."""
+    import torch
 
     from mpi_operator_tpu_torch.ops import _build
     from mpi_operator_tpu_torch.ops import attention as attn
 
-    shapes = [
-        ("main", dict(b=2, sq=2048, sk=2048, h=32, hkv=8, d=128,
-                      dtype="bf16", causal=True)),
-        ("padded-gqa", dict(b=2, sq=200, sk=200, h=8, hkv=2, d=64,
-                            dtype="f32", causal=False)),
-        ("masked-rows", dict(b=1, sq=130, sk=70, h=4, hkv=2, d=128,
-                             dtype="f32", causal=True)),
-    ]
-    records = {}
+    timed = {}  # (kernel name, shape label) -> record
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for label, s in shapes:
+    for label, s, layouts in FLASH_SHAPES:
         dtype = torch.bfloat16 if s["dtype"] == "bf16" else torch.float32
         b, sq, sk, h, hkv, d = (s[k] for k in ("b", "sq", "sk", "h", "hkv", "d"))
         causal, scale = s["causal"], d ** -0.5
+        ids = _id_chunks() if s.get("ids") else (None, None)
 
         def rand(*shape):
             return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-        qf, kf, vf = rand(b, sq, h * d), rand(b, sk, hkv * d), rand(b, sk, hkv * d)
-        do = rand(b, sq, h * d)
-        f32 = [t.float() for t in (qf, kf, vf, do)]
-
-        out, lse = attn.flash_fwd(qf, kf, vf, h, scale, causal)
-        delta = (do.float() * out.float()).reshape(b, sq, h, d).sum(-1)
-        dq = attn.flash_bwd_dq(qf, kf, vf, do, lse, delta, h, scale, causal)
-        dk, dv = attn.flash_bwd_dkv(qf, kf, vf, do, lse, delta, h, scale,
-                                    causal)
-        torch.cuda.synchronize()
-        out_p, lse_p = attn.flash_fwd_plain(*f32[:3], h, scale, causal)
-        dq_p = attn.flash_bwd_dq_plain(*f32, lse, delta, h, scale, causal)
-        dk_p, dv_p = attn.flash_bwd_dkv_plain(*f32, lse, delta, h, scale,
-                                              causal)
-        live = lse_p > attn.NEG_INF / 2
-        dead_rows_ok = bool(
-            torch.all(lse[~live] == attn.NEG_INF)
-            and torch.all(out.reshape(b, sq, h, d)[~live] == 0)
-        )
-        errs = {
-            "flash_fwd": (max(max_abs(out, out_p),
-                              max_abs(lse[live], lse_p[live])),
-                          norm_rel(out, out_p),
-                          max_abs(lse[live], lse_p[live])),
-            "flash_bwd_dq": (max_abs(dq, dq_p), norm_rel(dq, dq_p), 0.0),
-            "flash_bwd_dkv": (max(max_abs(dk, dk_p), max_abs(dv, dv_p)),
-                              max(norm_rel(dk, dk_p), norm_rel(dv, dv_p)), 0.0),
-        }
-        tol = NORM_REL_TOL[s["dtype"]]
-        for name, (mabs, nrel, lse_err) in errs.items():
-            ok = (nrel <= tol and lse_err <= LSE_ABS_TOL[s["dtype"]]
-                  and math.isfinite(mabs) and dead_rows_ok)
-            log(f"kernel {name} [{label} {s}]: max_abs_err={mabs:.3e} "
-                f"norm_rel_err={nrel:.3e} (tol {tol:.0e}) lse_abs_err="
-                f"{lse_err:.3e} masked_rows_ok={dead_rows_ok} -> "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version at {label}")
-        if label != "main":
-            continue
-
-        pairs = int(attn._visible(sq, sk, causal, "cuda").sum())
-        calls = {
-            "flash_fwd": (
-                "fwd", lambda: attn.flash_fwd(qf, kf, vf, h, scale, causal),
-                lambda: attn.flash_fwd_plain(qf, kf, vf, h, scale, causal)),
-            "flash_bwd_dq": (
-                "dq", lambda: attn.flash_bwd_dq(qf, kf, vf, do, lse, delta, h,
-                                                scale, causal),
-                lambda: attn.flash_bwd_dq_plain(qf, kf, vf, do, lse, delta,
-                                                h, scale, causal)),
-            "flash_bwd_dkv": (
-                "dkv", lambda: attn.flash_bwd_dkv(qf, kf, vf, do, lse, delta,
-                                                  h, scale, causal),
-                lambda: attn.flash_bwd_dkv_plain(qf, kf, vf, do, lse, delta,
-                                                 h, scale, causal)),
-        }
-        # Library yardstick, timed here only: SDPA on the same values in
-        # its [B, H, S, D] layout (transposes made before timing).
-        qt, kt, vt, dot = (
-            t.reshape(b, t.shape[1], -1, d).transpose(1, 2).contiguous()
-            for t in (qf, kf, vf, do)
-        )
-        qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
-        sdpa_out = F.scaled_dot_product_attention(
-            qg, kg, vg, is_causal=causal, enable_gqa=True)
-        library = {
-            "fwd": lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True),
-            # dq, dk and dv in one call: the yardstick for both backward
-            # kernels (PERF.md compares it with their sum).
-            "bwd": lambda: torch.autograd.grad(
-                sdpa_out, (qg, kg, vg), dot, retain_graph=True),
-        }
-        lib_ms = {k: time_ms(fn, 2, 10) for k, fn in library.items()}
-        for name, (kind, kernel_fn, plain_fn) in calls.items():
-            bound_ms, bound_by = bound(kind, s, s["dtype"], pairs)
-            mabs, nrel, _ = errs[name]
-            records[name] = {
-                "name": name,
-                "route": "cuda",
-                "source": "mpi_operator_tpu_torch/csrc/"
-                          + _build.KERNELS[name][0],
-                "replaces": REPLACES[name],
-                "launches": 0,
-                "max_abs_err": mabs,
-                "norm_rel_err": nrel,
-                "ms": time_ms(kernel_fn, 2, 10),
-                "plain_ms": time_ms(plain_fn, 1, 3),
-                "bound_ms": bound_ms,
-                "bound_by": bound_by,
-                "library_ms": lib_ms["fwd" if kind == "fwd" else "bwd"],
-            }
-            log(f"kernel {name} [main] timing: " + json.dumps(
-                {k: records[name][k] for k in
-                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
-        del sdpa_out
+        # One draw in [B, H, S, D]; each layout views or copies it.
+        q4, k4, v4, do4 = (rand(b, n, ln, d) for n, ln in
+                           ((h, sq), (hkv, sk), (hkv, sk), (h, sq)))
+        lib_ms = None
+        if label in ("llama", "bert"):
+            lib_ms = _sdpa_ms(q4, k4, v4, do4, causal)
+        for layout in layouts:
+            if layout == "flat":
+                ops = [t.transpose(1, 2).reshape(b, t.shape[2], -1).contiguous()
+                       for t in (q4, k4, v4, do4)]
+            else:
+                ops = [t.reshape(-1, t.shape[2], d) for t in (q4, k4, v4, do4)]
+            qx, kx, vx, dox = ops
+            kernels, plains = _flash_calls(attn, layout, h, scale, causal, ids)
+            out, lse = kernels[0](qx, kx, vx)
+            delta = (dox.float() * out.float()).reshape(*lse.shape, d).sum(-1)
+            bwd_args = (qx, kx, vx, dox, lse, delta)
+            dq = kernels[1](*bwd_args)
+            dk, dv = kernels[2](*bwd_args)
+            torch.cuda.synchronize()
+            f32 = [t.float() for t in ops]
+            out_p, lse_p = plains[0](*f32[:3])
+            dq_p = plains[1](*f32, lse, delta)
+            dk_p, dv_p = plains[2](*f32, lse, delta)
+            live = lse_p > attn.NEG_INF / 2
+            dead_rows_ok = bool(
+                torch.all(lse[~live] == attn.NEG_INF)
+                and torch.all(out.reshape(*lse.shape, d)[~live] == 0))
+            if s.get("ids") and bool(live.all()):
+                raise AssertionError("the id-masked shape has no masked row")
+            errs = [
+                (max(max_abs(out, out_p), max_abs(lse[live], lse_p[live])),
+                 norm_rel(out, out_p), max_abs(lse[live], lse_p[live])),
+                (max_abs(dq, dq_p), norm_rel(dq, dq_p), 0.0),
+                (max(max_abs(dk, dk_p), max_abs(dv, dv_p)),
+                 max(norm_rel(dk, dk_p), norm_rel(dv, dv_p)), 0.0),
+            ]
+            del out_p, dq_p, dk_p, dv_p, f32
+            tol = NORM_REL_TOL[s["dtype"]]
+            for name, (mabs, nrel, lse_err) in zip(FLASH_NAMES[layout], errs):
+                ok = (nrel <= tol and lse_err <= LSE_ABS_TOL[s["dtype"]]
+                      and math.isfinite(mabs) and dead_rows_ok)
+                log(f"kernel {name} [{label} {s}]: max_abs_err={mabs:.3e} "
+                    f"norm_rel_err={nrel:.3e} (tol {tol:.0e}) lse_abs_err="
+                    f"{lse_err:.3e} masked_rows_ok={dead_rows_ok} -> "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name} disagrees with its plain "
+                                         f"version at {label}")
+            if lib_ms is None:
+                continue
+            pairs = int(attn._visible(sq, sk, causal, "cuda").sum())
+            for i, (name, kind) in enumerate(zip(FLASH_NAMES[layout],
+                                                 ("fwd", "dq", "dkv"))):
+                args = (qx, kx, vx) if i == 0 else bwd_args
+                bound_ms, bound_by = bound(kind, s, s["dtype"], pairs)
+                rec = {
+                    "ms": time_ms(lambda: kernels[i](*args), 2, 10),
+                    "plain_ms": time_ms(lambda: plains[i](*args), 1, 3),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": lib_ms["fwd" if kind == "fwd" else "bwd"],
+                    "max_abs_err": errs[i][0], "norm_rel_err": errs[i][1],
+                }
+                timed[name, label] = rec
+                log(f"kernel {name} [{label}] timing: " + json.dumps(
+                    {k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}))
+            del out, lse, delta, dq, dk, dv, bwd_args, ops, qx, kx, vx, dox
+        del q4, k4, v4, do4
+        torch.cuda.empty_cache()
     # A CUDA tensor the kernels do not take raises; it never falls back
     # to the plain version.
     x16 = torch.zeros(1, 64, 2 * 128, device="cuda", dtype=torch.float16)
     x256 = torch.zeros(1, 64, 2 * 256, device="cuda")
     for bad, err in ((x16, TypeError), (x256, ValueError)):
-        try:
-            attn.flash_fwd(bad, bad, bad, 2, 0.1, True)
-        except err as e:
-            log(f"kernel flash_fwd refuses {bad.dtype} d={bad.shape[2] // 2}: "
-                f"{type(e).__name__}: {e}")
-        else:
-            raise AssertionError("flash_fwd accepted operands it cannot take")
+        for fn in (lambda x: attn.flash_fwd(x, x, x, 2, 0.1, True),
+                   lambda x: attn.flash_bhsd_fwd(
+                       x.reshape(2, 64, -1), x.reshape(2, 64, -1),
+                       x.reshape(2, 64, -1), 0.1, True)):
+            try:
+                fn(bad)
+            except err as e:
+                log(f"kernel flash refuses {bad.dtype} d={bad.shape[2] // 2}: "
+                    f"{type(e).__name__}: {e}")
+            else:
+                raise AssertionError("a flash kernel accepted operands it "
+                                     "cannot take")
+
+    records = {}
+    for layout, names in FLASH_NAMES.items():
+        main = FLASH_RECORD_SHAPE[layout]
+        for name in names:
+            records[name] = _kernel_record(name, REPLACES[name],
+                                           timed[name, main], main)
+            for (other, label), rec in timed.items():
+                if other == name and label != main:
+                    records[name][f"at_{label}"] = rec
+    records["flash_fwd_d64"] = _kernel_record(
+        "flash_fwd", REPLACES["flash_fwd_d64"], timed["flash_fwd", "bert"],
+        "bert", name="flash_fwd_d64")
     torch.cuda.empty_cache()
     return records
+
+
+def _kernel_record(kernel: str, replaces: str, rec: dict, shape: str,
+                   name: str = "") -> dict:
+    from mpi_operator_tpu_torch.ops import _build
+
+    source = "mpi_operator_tpu_torch/csrc/" + _build.KERNELS[kernel][0]
+    return {"name": name or kernel, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0, "shape": shape, **rec}
+
+
+def _sdpa_ms(q, k, v, do, causal: bool) -> dict:
+    """Library yardstick, timed here only: SDPA's forward, and its whole
+    backward (dq, dk and dv in one call, the yardstick for both backward
+    kernels), on the same values in [B, H, S, D]."""
+    import torch
+    import torch.nn.functional as F
+
+    gqa = q.shape[1] != k.shape[1]
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                         enable_gqa=gqa)
+    ms = {
+        "fwd": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=gqa), 2, 10),
+        "bwd": time_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True), 2, 10),
+    }
+    del out
+    return ms
 
 
 def check_bn_kernels() -> dict:
@@ -436,7 +538,10 @@ def check_bn_kernels() -> dict:
 
 def check_model() -> None:
     """llama3-8b, full width, 2 layers, B=1, S=256: loss and gradients
-    through the kernels against the dense oracle on the same weights."""
+    through the flat kernels (``flash``) and the [B*H, S, D] kernels
+    behind transposes (``flash-bhsd``) against the dense oracle on the
+    same weights; each route's launch counters show its own kernels and
+    no others."""
     import torch
 
     from mpi_operator_tpu_torch.models import llama as lib
@@ -449,7 +554,7 @@ def check_model() -> None:
     )
     results = {}
     state = None
-    for impl in ("flash", "dense"):
+    for impl in ("flash", "flash-bhsd", "dense"):
         model = lib.Llama(lib.llama3_8b(n_layers=2, xent_chunk=128,
                                         attention_impl=impl), device="cuda")
         if state is None:
@@ -465,20 +570,152 @@ def check_model() -> None:
                                        model.named_parameters()},
                          dict(attn.LAUNCHES))
         del model, loss
-    (lf, gf, lf_launch), (ld, gd, _) = results["flash"], results["dense"]
-    loss_rel = abs(lf - ld) / abs(ld)
-    worst = max((norm_rel(gf[n], gd[n]), n) for n in gd)
-    ok = (math.isfinite(lf) and loss_rel <= MODEL_LOSS_REL_TOL
-          and worst[0] <= MODEL_GRAD_NORM_REL_TOL
-          and all(lf_launch[k] > 0 for k in lf_launch))
-    log(f"model llama3-8b/2 layers B=1 S=256: loss kernel={lf:.6f} "
-        f"oracle={ld:.6f} rel={loss_rel:.3e} (tol {MODEL_LOSS_REL_TOL:.0e}); "
-        f"worst grad norm_rel={worst[0]:.3e} at {worst[1]} "
-        f"(tol {MODEL_GRAD_NORM_REL_TOL:.0e}); kernel launches {lf_launch} "
-        f"-> {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("kernel path disagrees with the dense oracle")
-    del results, gf, gd, state
+    ld, gd, _ = results["dense"]
+    failed = []
+    for impl, layout in (("flash", "flat"), ("flash-bhsd", "bhsd")):
+        lf, gf, launches = results[impl]
+        loss_rel = abs(lf - ld) / abs(ld)
+        worst = max((norm_rel(gf[n], gd[n]), n) for n in gd)
+        own = FLASH_NAMES[layout]
+        launches_ok = all((n > 0) == (k in own) for k, n in launches.items())
+        ok = (math.isfinite(lf) and loss_rel <= MODEL_LOSS_REL_TOL
+              and worst[0] <= MODEL_GRAD_NORM_REL_TOL and launches_ok)
+        log(f"model llama3-8b/2 layers B=1 S=256 {impl}: loss kernel={lf:.6f} "
+            f"oracle={ld:.6f} rel={loss_rel:.3e} (tol "
+            f"{MODEL_LOSS_REL_TOL:.0e}); worst grad norm_rel={worst[0]:.3e} "
+            f"at {worst[1]} (tol {MODEL_GRAD_NORM_REL_TOL:.0e}); kernel "
+            f"launches {launches} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(impl)
+    if failed:
+        raise AssertionError(f"kernel routes {failed} disagree with the "
+                             f"dense oracle")
+    del results, gd, state
+    torch.cuda.empty_cache()
+
+
+def _bert_pass(impl: str, dtype, state, batch):
+    """One forward + backward of BERT-base (mask layout, full [B, S, V]
+    logits) on the attention route ``impl`` in ``dtype`` compute from
+    ``state``: (loss, f32 gradients by name, attention launches)."""
+    import torch
+
+    from mpi_operator_tpu_torch.models import bert as lib
+    from mpi_operator_tpu_torch.ops import attention as attn
+
+    model = lib.Bert(lib.bert_base(attention_impl=impl, dtype=dtype),
+                     device="cuda")
+    model.load_state_dict(state)
+    attn.reset_launch_counts()
+    loss = lib.mlm_loss(model, *batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    out = (float(loss.detach()),
+           {n: p.grad.float() for n, p in model.named_parameters()
+            if p.grad is not None},
+           dict(attn.LAUNCHES))
+    del model, loss
+    return out
+
+
+def _grad_errors(got: dict, want: dict, tiny: float = 0.0) -> dict:
+    """Gradient norm-relative error over all parameters at once and at
+    the worst leaf. Left out of the worst leaf: the key biases (a softmax
+    row is shift-invariant, so their exact gradient is 0 and each route's
+    is rounding noise) and, with ``tiny`` > 0, every leaf whose reference
+    norm is below ``tiny`` x the largest of its layer (or top-level
+    module); those are listed under "tiny"."""
+    diff = sum(float((got[n] - want[n]).double().norm() ** 2) for n in want)
+    norm = sum(float(want[n].double().norm() ** 2) for n in want)
+    leaf_norm = {n: float(want[n].double().norm()) for n in want}
+    group_max: dict = {}
+    for n, v in leaf_norm.items():
+        group = n.split(".")[0]
+        group_max[group] = max(group_max.get(group, 0.0), v)
+    small = {n for n, v in leaf_norm.items()
+             if v < tiny * group_max[n.split(".")[0]]}
+    worst = max((norm_rel(got[n], want[n]), n) for n in want
+                if not n.endswith(".wk.bias") and n not in small)
+    return {"grads": math.sqrt(diff / norm), "worst_leaf": worst[0],
+            "worst_leaf_name": worst[1],
+            "tiny": {n: f"{norm_rel(got[n], want[n]):.2e}"
+                     for n in sorted(small)}}
+
+
+def check_bert_model() -> None:
+    """BERT-base, full depth and width, B=8, S=512, mask layout: loss and
+    every gradient through the flat kernels (``flash``) and the
+    [B*H, S, D] kernels (``flash-bhsd``) against the dense oracle on the
+    same weights and batch, in f32 and in bf16; each route's launch
+    counters show its own kernels, 12 launches each, and no others.
+
+    In f32 a kernel route and the oracle differ only in the order of f32
+    sums: they must agree directly (BERT_F32_TOL), leaf by leaf. In bf16
+    (the main path's type) each route rounds at other points, so every
+    bf16 route is held against the f32 oracle: a kernel route may be at
+    most BERT_ERROR_RATIO x as far from it as the dense bf16 route, plus
+    a floor. The worst leaf there leaves out the leaves whose gradient is
+    below BERT_TINY_LEAF of their layer's largest (at init, the last
+    layers' q and k projections): the flash backward takes delta =
+    rowsum(do * o) from the bf16-rounded output, as the JAX kernels do,
+    and that rounding error, which the dense route's f32 softmax
+    backward does not make, dominates so small a gradient. They still
+    count in the all-leaf error."""
+    import numpy as np
+    import torch
+
+    from mpi_operator_tpu_torch.models import bert as lib
+
+    rng = np.random.RandomState(1)
+    rows = rng.randint(0, 30522, (8, 512))
+    mask = rng.rand(8, 512) < 0.15
+    batch = (torch.as_tensor(np.where(mask, 0, rows), device="cuda"),
+             torch.as_tensor(mask, dtype=torch.float32, device="cuda"),
+             torch.as_tensor(rows, device="cuda"))
+    model = lib.Bert(lib.bert_base(), device="cuda")
+    lib.init_params(model, torch.Generator(device="cuda").manual_seed(0))
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    runs = {(impl, dt): _bert_pass(impl, getattr(torch, dt), state, batch)
+            for dt in ("float32", "bfloat16")
+            for impl in ("dense", "flash", "flash-bhsd")}
+    ref_loss, ref_grads, _ = runs["dense", "float32"]
+    ok_all = True
+    for (impl, dt), (loss, grads, launches) in runs.items():
+        own = {"flash": FLASH_NAMES["flat"], "flash-bhsd": FLASH_NAMES["bhsd"],
+               "dense": ()}[impl]
+        launches_ok = all(n == (BERT_LAYERS if k in own else 0)
+                          for k, n in launches.items())
+        err = {"loss": abs(loss - ref_loss) / abs(ref_loss),
+               **_grad_errors(grads, ref_grads,
+                              BERT_TINY_LEAF if dt == "bfloat16" else 0.0)}
+        if impl == "dense":
+            ok = launches_ok and math.isfinite(loss)
+            want = "the yardstick"
+        elif dt == "float32":
+            ok = (launches_ok and err["loss"] <= BERT_F32_TOL["loss"]
+                  and err["worst_leaf"] <= BERT_F32_TOL["grads"])
+            want = f"tol {BERT_F32_TOL}"
+        else:
+            plain = _grad_errors(runs["dense", dt][1], ref_grads,
+                                 BERT_TINY_LEAF)
+            plain["loss"] = abs(runs["dense", dt][0] - ref_loss) / abs(ref_loss)
+            ok = launches_ok and all(
+                err[k] <= BERT_ERROR_RATIO * plain[k] + BERT_BF16_FLOOR
+                for k in ("loss", "grads", "worst_leaf"))
+            want = (f"<= {BERT_ERROR_RATIO}x the dense {dt} route's "
+                    f"{ {k: f'{plain[k]:.3e}' for k in ('loss', 'grads', 'worst_leaf')} }"
+                    f" + {BERT_BF16_FLOOR:.0e}")
+        ok_all = ok_all and ok
+        log(f"model bert-base B=8 S=512 {impl} {dt} vs the f32 dense oracle "
+            f"(loss {ref_loss:.6f}): loss {loss:.6f}, "
+            + json.dumps({k: (f"{v:.3e}" if isinstance(v, float) else v)
+                          for k, v in err.items()})
+            + f" ({want}); launches {launches} -> {'ok' if ok else 'FAIL'}")
+    if not ok_all:
+        raise AssertionError("a BERT kernel route disagrees with the dense "
+                             "oracle")
+    del runs, state, ref_grads
     torch.cuda.empty_cache()
 
 
@@ -614,6 +851,11 @@ def _all_launch_counts() -> dict:
     return {**attn.LAUNCHES, **bn.LAUNCHES}
 
 
+def _want_launches(counts: dict) -> dict:
+    """Every launch counter: 0, except ``counts``."""
+    return {**{k: 0 for k in _all_launch_counts()}, **counts}
+
+
 def _drive_trainer(argv) -> tuple[dict, dict]:
     """``cmd.train.main(argv)`` with every launch counter set to 0 just
     before it and read just after; returns (summary line with the peak
@@ -651,9 +893,8 @@ def run_resnet_train() -> tuple[dict, dict]:
                                 / PEAK_FLOPS["bf16"])
     log("train resnet101 summary: " + json.dumps(summary))
     steps = summary["steps"]
-    want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "bn_stats": RESNET_BN_LAYERS * steps,
-            "bn_grads": RESNET_BN_LAYERS * steps}
+    want = _want_launches({"bn_stats": RESNET_BN_LAYERS * steps,
+                           "bn_grads": RESNET_BN_LAYERS * steps})
     ok = (steps == 6 and math.isfinite(summary["loss"])
           and summary["loss"] < summary["first_loss"] and launches == want)
     log(f"train resnet101 launches {launches} (want {want}); loss "
@@ -685,8 +926,9 @@ def run_train() -> tuple[dict, dict]:
         summary["tokens_per_sec"] * flops_per_token / PEAK_FLOPS["bf16"])
     log("train summary: " + json.dumps(summary))
     layers, steps = 2, summary["steps"]
-    want = {"flash_fwd": 2 * layers * steps, "flash_bwd_dq": layers * steps,
-            "flash_bwd_dkv": layers * steps, "bn_stats": 0, "bn_grads": 0}
+    want = _want_launches({"flash_fwd": 2 * layers * steps,
+                           "flash_bwd_dq": layers * steps,
+                           "flash_bwd_dkv": layers * steps})
     ok = (steps == 6 and math.isfinite(summary["loss"])
           and summary["loss"] < summary["first_loss"] and launches == want)
     log(f"train launches {launches} (want {want}); loss "
@@ -695,6 +937,159 @@ def run_train() -> tuple[dict, dict]:
     if not ok:
         raise AssertionError("training run failed its checks")
     return summary, launches
+
+
+def _bert_mfu(sequences_per_s: float, seq_len: int = 512) -> float:
+    """bench.py's BERT accounting (PaLM appendix, fwd + bwd = 3 x fwd,
+    head-aware): the encoder's parameters on all S tokens, the MLM head
+    (d*d transform + d*V tied decode) on the n_pred gathered positions,
+    12*L*d*S per token for bidirectional attention; against the bf16
+    dense peak. The parameter count is the JAX tree's (no type_embed)."""
+    from mpi_operator_tpu_torch.models import bert as lib
+
+    cfg = lib.bert_base()
+    meta = lib.Bert(cfg, device="meta")
+    n_params = sum(p.numel() for n, p in meta.named_parameters()
+                   if not n.startswith("type_embed."))
+    n_head = cfg.dim * cfg.vocab_size + cfg.dim * cfg.dim
+    n_pred = max(int(seq_len * 0.15), 1)
+    flops_seq = ((6 * (n_params - n_head)
+                  + 12 * cfg.n_layers * cfg.dim * seq_len) * seq_len
+                 + 6 * n_head * n_pred)
+    return sequences_per_s * flops_seq / PEAK_FLOPS["bf16"]
+
+
+def run_bert_train() -> tuple[dict, dict]:
+    """The trainer's own entry point on the BERT-base path (flat flash
+    kernels); returns (summary, launch counts)."""
+    import torch
+
+    summary, launches = _drive_trainer(BERT_TRAIN_ARGS)
+    summary["mfu_bf16_peak"] = _bert_mfu(summary["examples_per_sec"])
+    steps = summary["steps"]
+    want = _want_launches({k: BERT_LAYERS * steps
+                           for k in FLASH_NAMES["flat"]})
+    ok = (steps == 6 and math.isfinite(summary["loss"])
+          and summary["loss"] < summary["first_loss"] and launches == want)
+    log("train bert-base summary: " + json.dumps(summary))
+    log(f"train bert-base launches {launches} (want {want}); loss "
+        f"{summary['first_loss']:.4f} -> {summary['loss']:.4f}; sequences/s "
+        f"{summary['examples_per_sec']} step_ms {summary['step_ms']} MFU "
+        f"{summary['mfu_bf16_peak']:.4f} peak {summary['peak_mem_gb']:.2f} GB "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("BERT training run failed its checks")
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def _bert_bhsd_workload():
+    """(model, step, batch) as the trainer builds them for BERT_TRAIN_ARGS
+    -- the same init, batch draw and AdamW -- with attention_impl
+    'flash-bhsd'."""
+    import numpy as np
+    import torch
+
+    from mpi_operator_tpu_torch.cmd import train
+    from mpi_operator_tpu_torch.models import bert as lib
+
+    args = train.build_parser().parse_args(BERT_TRAIN_ARGS)
+    model = lib.Bert(lib.bert_base(attention_impl="flash-bhsd"), device="cuda")
+    lib.init_params(model,
+                    torch.Generator(device="cuda").manual_seed(args.seed))
+    rng = np.random.RandomState(args.seed)
+    rows = rng.randint(0, model.config.vocab_size,
+                       (args.global_batch, args.seq_len))
+    pos, tg, inputs, w = train._mlm_positions_batch(
+        rows, rng.rand(args.global_batch, args.seq_len))
+    batch = tuple(torch.as_tensor(x, device="cuda") for x in (inputs, pos, tg))
+    batch += (torch.as_tensor(w, device="cuda"),)
+    optimizer = torch.optim.AdamW(model.parameters(), lr=args.lr,
+                                  betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=1e-4)
+    return model, lib.make_train_step_positions(model, optimizer), batch
+
+
+def run_bert_bhsd_steps() -> dict:
+    """3 steps of ``models/bert.py``'s ``make_train_step_positions`` with
+    attention_impl 'flash-bhsd' (the step the trainer builds, at its batch
+    and learning rate), with every launch counter set to 0 just before
+    and read just after: 12 x 3 launches of each [B*H, S, D] kernel, 0 of
+    any other. Steps 2-3 are timed."""
+    import torch
+
+    model, step, batch = _bert_bhsd_workload()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_launch_counts()
+    losses = [float(step(*batch))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        loss = step(*batch)
+    losses.append(float(loss))
+    elapsed = time.perf_counter() - t0
+    launches = _all_launch_counts()
+    step_ms = elapsed / 2 * 1e3
+    summary = {"steps": 3, "first_loss": losses[0], "loss": losses[-1],
+               "step_ms": step_ms,
+               "examples_per_sec": 64 / (step_ms / 1e3),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    summary["mfu_bf16_peak"] = _bert_mfu(summary["examples_per_sec"])
+    want = _want_launches({k: BERT_LAYERS * 3 for k in FLASH_NAMES["bhsd"]})
+    ok = all(math.isfinite(x) for x in losses) and launches == want
+    log("train bert-base flash-bhsd summary: " + json.dumps(summary))
+    log(f"train bert-base flash-bhsd launches {launches} (want {want}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("BERT flash-bhsd steps failed their checks")
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_bert_step() -> None:
+    """Where one BERT-base training step's time goes (opt-in phase
+    ``profile``), at the ``train`` shape on the trainer's own workload
+    (flat route) and on the flash-bhsd route: the eager step by CUDA
+    events; its device time as a CUDA-graph replay of the forward and
+    backward plus the AdamW update timed alone; a profiler pass over
+    graph replays for device time by kind; and the attention kernels'
+    share."""
+    import torch
+
+    from mpi_operator_tpu_torch.cmd import train
+    from mpi_operator_tpu_torch.models import bert as lib
+    from mpi_operator_tpu_torch.parallel.mesh import create_mesh
+
+    work = train._lm_workload(train.build_parser().parse_args(BERT_TRAIN_ARGS),
+                              create_mesh(device="cuda", dp=-1), 1)
+    routes = {"flash": (work.model, work.step_fn, work.batch,
+                        work.optimizer)}
+    model, step, batch = _bert_bhsd_workload()
+    routes["flash-bhsd"] = (model, step, batch, None)
+    for route, (model, step, batch, optimizer) in routes.items():
+        step_ms = time_ms(lambda: step(*batch), 2, 5)
+
+        def fwd_bwd():
+            model.zero_grad(set_to_none=True)
+            lib.mlm_loss_positions(model, *batch).backward()
+
+        graph = _captured(fwd_bwd)
+        device_ms = {"fwd_bwd": time_ms(graph.replay, 2, 5)}
+        if optimizer is not None:
+            device_ms["adamw_eager"] = time_ms(optimizer.step, 1, 3)
+        busy, _, kinds, kernels = _profile_steps(graph.replay, _llama_kind, 2)
+        log(f"profile bert-base {route}: " + json.dumps({
+            "step_ms": step_ms, "device_ms_per_step": device_ms,
+            "device_idle_share_fwd_bwd": 1 - device_ms["fwd_bwd"] / step_ms,
+            "profiler_ms_per_fwd_bwd_by_kind": kinds,
+            "profiler_coverage": busy / device_ms["fwd_bwd"],
+        }))
+        for ms, name in kernels[:10]:
+            log(f"profile bert-base {route} kernel {ms:9.3f} ms/step  {name}")
+        del graph
+    del work, routes, model, step, batch
+    torch.cuda.empty_cache()
 
 
 def profile_step() -> None:
@@ -969,20 +1364,29 @@ def main(argv=None) -> int:
     if "model" in phases:
         check_model()
         check_resnet_model()
+        check_bert_model()
     if "profile" in phases:
         profile_step()
         profile_resnet_step()
+        profile_bert_step()
     if "train" in phases:
         # Each main path's own run gives its kernels' launch counts.
         summary, launches = run_train()
         r_summary, r_launches = run_resnet_train()
+        b_summary, b_launches = run_bert_train()
+        bhsd_launches = run_bert_bhsd_steps()
+        runs = {"flash_fwd_d64": (b_launches, "flash_fwd")}
         for name, rec in records.items():
-            rec["launches"] = (r_launches if name.startswith("bn_")
-                               else launches)[name]
+            counts, key = runs.get(name, (
+                r_launches if name.startswith("bn_") else
+                bhsd_launches if name.startswith("flash_bhsd_") else
+                launches, name))
+            rec["launches"] = counts[key]
         log(f"card: {card}; train llama tokens/s "
             f"{summary.get('tokens_per_sec')} step_ms {summary['step_ms']}; "
             f"train resnet101 images/s {r_summary['examples_per_sec']} "
-            f"step_ms {r_summary['step_ms']}")
+            f"step_ms {r_summary['step_ms']}; train bert-base sequences/s "
+            f"{b_summary['examples_per_sec']} step_ms {b_summary['step_ms']}")
     if records:
         log(json.dumps({"kernels": list(records.values())}))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """Training entrypoint -- the port of ``mpi_operator_tpu/cmd/train.py``,
-ResNet and Llama arms, one process on one device:
+ResNet, Llama and BERT arms, one process on one device:
 
     python -m mpi_operator_tpu_torch.cmd.train      # resnet101, 224x224, B=64
     python -m mpi_operator_tpu_torch.cmd.train --model resnet101 \\
@@ -7,9 +7,13 @@ ResNet and Llama arms, one process on one device:
     python -m mpi_operator_tpu_torch.cmd.train --model llama3-8b \\
         --n-layers 2 --seq-len 2048 --global-batch 2 --xent-chunk 1024 \\
         --steps 6 --warmup 2 --lr 3e-4
+    python -m mpi_operator_tpu_torch.cmd.train --model bert-base \\
+        --global-batch 64 --seq-len 512 --mlm-layout positions \\
+        --steps 6 --warmup 2 --lr 1e-4
 
 Flow: rendezvous (launcher.bootstrap, single process) -> one-device mesh
--> model + optimizer (ResNet: SGD nesterov momentum 0.9; Llama: AdamW)
+-> model + optimizer (ResNet: SGD nesterov momentum 0.9; Llama and BERT:
+AdamW)
 -> step loop with warmup boundary, log cadence, SIGTERM stop,
 step-slowdown chaos and telemetry -> one JSON summary line on stdout
 with the JAX trainer's keys.
@@ -25,7 +29,8 @@ Runs on ``cuda`` by default and raises when no GPU is present;
 Flags whose machinery is a later slice of the port refuse loudly with
 the ROADMAP.md item that brings them; none is silently ignored.
 
-Data: synthetic images and labels, or tokens, from
+Data: synthetic images and labels, tokens, or BERT's masked-LM batch
+(``--mlm-layout mask`` or ``positions``), from
 ``np.random.RandomState(--seed)``, drawn exactly as the JAX trainer
 draws them, so both trainers see one batch.
 """
@@ -47,7 +52,7 @@ from ..utils.logging import get_logger
 log = get_logger("train")
 
 PORTED_MODELS = ("resnet18", "resnet50", "resnet101", "llama3-8b",
-                 "llama-tiny")
+                 "llama-tiny", "bert-base", "bert-tiny")
 
 
 def parse_mesh_spec(spec: str) -> dict[str, int]:
@@ -67,15 +72,15 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tpujob-train-torch",
         description="PyTorch/CUDA trainer for TPUJob workloads (ResNet, "
-                    "Llama)",
+                    "Llama, BERT)",
     )
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where to train; cuda raises when no GPU is present "
                         "(the run never moves to the CPU on its own)")
     p.add_argument("--model", default="resnet101",
                    help="ported: resnet18|resnet50|resnet101|llama3-8b|"
-                        "llama-tiny (the JAX trainer's other names are "
-                        "refused until ported)")
+                        "llama-tiny|bert-base|bert-tiny (the JAX trainer's "
+                        "other names are refused until ported)")
     p.add_argument("--mesh", default="",
                    help="axis spec, e.g. dp=-1; every axis must be 1 "
                         "(multi-device meshes are not ported yet)")
@@ -118,7 +123,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "microbatches per optimizer step")
     p.add_argument("--pp-microbatch", type=int, default=0)
     p.add_argument("--mlm-layout", choices=["mask", "positions"],
-                   default="mask")
+                   default="mask",
+                   help="bert batch: mask = [B, S] mask and targets, full "
+                        "[B, S, V] logits; positions = the gathered "
+                        "15%% prediction slots, head on [B, P] only")
     p.add_argument("--lr-schedule", choices=["constant", "cosine"],
                    default="constant",
                    help="cosine: linear warmup over --warmup-steps then "
@@ -140,7 +148,8 @@ def refuse_unported(args) -> None:
     def refuse(what: str, item: str):
         raise SystemExit(f"{what} is not ported yet (ROADMAP.md {item})")
 
-    if args.model not in PORTED_MODELS:
+    # Other bert-* names exit in the workload with the JAX trainer's message.
+    if args.model not in PORTED_MODELS and not args.model.startswith("bert"):
         item = ("item 13" if args.model.startswith(("mixtral", "llama-moe"))
                 else "item 11")
         refuse(f"--model {args.model!r} (the port trains "
@@ -258,6 +267,65 @@ def llama_config_from_args(args, sp: int):
     return lib.config_for(args.model, **kw)
 
 
+def _mlm_positions_batch(rows, rand):
+    """Gathered-positions MLM batch from a token matrix and a uniform
+    [B, S] draw: the n_pred = max(1, 0.15*S) smallest-rand positions of
+    each row become its prediction slots (sorted), zeroed in the inputs.
+    Returns (positions, targets, inputs, weights), numpy, as the JAX
+    trainer's ``_mlm_positions_batch``."""
+    import numpy as np
+
+    b, s = rows.shape
+    n_pred = max(int(s * 0.15), 1)
+    pos = np.sort(np.argsort(rand, axis=1)[:, :n_pred], axis=1)
+    tg = np.take_along_axis(rows, pos, axis=1)
+    inputs = rows.copy()
+    np.put_along_axis(inputs, pos, 0, axis=1)
+    return (
+        pos.astype(np.int32), tg, inputs, np.ones((b, n_pred), np.float32)
+    )
+
+
+def _bert_model(args, device, rng, global_batch: int):
+    """(model, make_step, batch) for a bert-* --model: the config the JAX
+    trainer builds (its attention_impl default; max_seq_len grown to
+    --seq-len) and its batch, drawn from ``rng`` in the JAX order."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ..models import bert as lib
+
+    if args.model not in lib.CONFIGS:
+        # Same rule as the llama arm: a typo ("bert-large", "bert-tinny")
+        # must not silently train the toy config.
+        raise SystemExit(
+            f"unknown --model {args.model!r}; bert models are bert-base or "
+            f"bert-tiny"
+        )
+    cfg = lib.CONFIGS[args.model]()
+    if args.seq_len > cfg.max_seq_len:
+        cfg = dataclasses.replace(cfg, max_seq_len=args.seq_len)
+    model = lib.Bert(cfg, device=device)
+    lib.init_params(model, torch.Generator(device=device).manual_seed(args.seed))
+
+    def on_device(x, dtype=torch.long):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    rows = rng.randint(0, cfg.vocab_size, (global_batch, args.seq_len))
+    if args.mlm_layout == "positions":
+        pos, tg, inputs, w = _mlm_positions_batch(
+            rows, rng.rand(global_batch, args.seq_len))
+        batch = (on_device(inputs), on_device(pos), on_device(tg),
+                 on_device(w, torch.float32))
+        return model, lib.make_train_step_positions, batch
+    mask = rng.rand(global_batch, args.seq_len) < 0.15
+    batch = (on_device(np.where(mask, 0, rows)),
+             on_device(mask, torch.float32), on_device(rows))
+    return model, lib.make_train_step, batch
+
+
 def _lm_workload(args, mesh, n_devices: int) -> Workload:
     import numpy as np
     import torch
@@ -283,11 +351,20 @@ def _lm_workload(args, mesh, n_devices: int) -> Workload:
             )
     rng = np.random.RandomState(args.seed)
 
-    cfg = llama_config_from_args(args, sp)
-    model = lib.Llama(cfg, device=mesh.device)
-    lib.init_params(
-        model, torch.Generator(device=mesh.device).manual_seed(args.seed)
-    )
+    if args.model.startswith("bert"):
+        model, make_step, batch = _bert_model(args, mesh.device, rng,
+                                              global_batch)
+    else:
+        cfg = llama_config_from_args(args, sp)
+        model = lib.Llama(cfg, device=mesh.device)
+        lib.init_params(
+            model, torch.Generator(device=mesh.device).manual_seed(args.seed)
+        )
+        make_step = lib.make_train_step
+        batch = (torch.as_tensor(
+            rng.randint(0, cfg.vocab_size, (global_batch, args.seq_len)),
+            dtype=torch.long, device=mesh.device,
+        ),)
     lr = _make_learning_rate(args)
     schedule = lr if callable(lr) else None
     # optax.adamw's defaults: b1 0.9, b2 0.999, eps 1e-8, weight decay
@@ -296,18 +373,14 @@ def _lm_workload(args, mesh, n_devices: int) -> Workload:
         model.parameters(), lr=schedule(0) if schedule else lr,
         betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4,
     )
-    tokens = torch.as_tensor(
-        rng.randint(0, cfg.vocab_size, (global_batch, args.seq_len)),
-        dtype=torch.long, device=mesh.device,
-    )
-    step_fn = lib.make_train_step(
+    step_fn = make_step(
         model, optimizer, accum_steps=args.grad_accum, lr_schedule=schedule
     )
     return Workload(
         model=model,
         optimizer=optimizer,
         step_fn=step_fn,
-        batch=(tokens,),
+        batch=batch,
         examples_per_step=global_batch,
         tokens_per_step=global_batch * args.seq_len,
     )
@@ -316,7 +389,7 @@ def _lm_workload(args, mesh, n_devices: int) -> Workload:
 def build_workload(args, mesh, n_devices: int) -> Workload:
     if args.model.startswith("resnet"):
         return _resnet_workload(args, mesh, n_devices)
-    if args.model.startswith("llama"):
+    if args.model.startswith(("bert", "llama")):
         return _lm_workload(args, mesh, n_devices)
     raise SystemExit(f"unknown --model {args.model!r}")
 

@@ -3,179 +3,14 @@
 // Replaces: mpi_operator_tpu/ops/attention.py:_bwd_flat_dkv_kernel (the
 // second Pallas kernel of _flash_flat_bwd_impl), unpacked (pack == 1) math.
 //
-// Computes, per (batch, kv head, k row): over the H / Hkv q heads that share
-// the kv head and every visible q row, p = exp(scale * q k^T - lse),
-// ds = p * (do v^T - delta), dv = sum p^T do, dk = scale * sum ds^T q.
-//
 // What bounds it on an H100: four S x S x D products per q head, ~1.4e11
 // FLOPs at the causal Llama shape against ~0.1 GB of operands, so the bound
 // is the tensor cores (~0.14 ms). This first kernel uses f32 FMA from
 // shared memory and is bound by that, far above the bound.
 //
-// Design: one block per (k tile of 64 rows, kv head, batch). The TPU grid
-// walked q blocks as its sequential axis and looped over heads inside the
-// program; here both the group's q heads and the q tiles are loops inside
-// the block, with the [64, D] dk and dv accumulators in registers, so each
-// kv head's sum over its group happens in one block and dk/dv are written
-// once, with no atomics. Causal q tiles that see none of the k tile are
-// skipped (first_live_q_tile).
-#include "flash_common.cuh"
-
-namespace flash {
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dk,
-                   T* __restrict__ dv, int q_len, int kv_len, int H, int Hkv,
-                   int D, float scale, int causal) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  float* Ks = smem;              // [BK][ld]
-  float* Vs = Ks + BK * ld;      // [BK][ld]
-  float* Qs = Vs + BK * ld;      // [BQ][ld]
-  float* dOs = Qs + BQ * ld;     // [BQ][ld]
-  float* PTs = dOs + BQ * ld;    // [BK][BQ + 1]: p transposed
-  float* DSTs = PTs + BK * (BQ + 1);   // [BK][BQ + 1]: ds transposed
-  float* lse_s = DSTs + BK * (BQ + 1);  // [BQ]
-  float* delta_s = lse_s + BQ;          // [BQ]
-
-  const int k0 = blockIdx.x * BK;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int groups = H / Hkv;
-  const int tr = threadIdx.x / 16;  // owns k rows tr * RPT + i
-  const int tc = threadIdx.x % 16;  // owns q columns tc + 16 * j
-
-  load_tile(Ks, k, b, k0, kv_len, Hkv, hk, D);
-  load_tile(Vs, v, b, k0, kv_len, Hkv, hk, D);
-
-  float dk_acc[RPT][DPT], dv_acc[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int jd = 0; jd < DPT; ++jd) dk_acc[i][jd] = dv_acc[i][jd] = 0.f;
-
-  const int qt_begin = first_live_q_tile(k0, q_len, kv_len, causal);
-  const int n_qt = (q_len + BQ - 1) / BQ;
-  for (int g = 0; g < groups; ++g) {
-    const int h = hk * groups + g;
-    for (int qt = qt_begin; qt < n_qt; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();
-      load_tile(Qs, q, b, q0, q_len, H, h, D);
-      load_tile(dOs, dout, b, q0, q_len, H, h, D);
-      load_stats(lse_s, lse, b, q0, q_len, H, h);
-      load_stats(delta_s, delta, b, q0, q_len, H, h);
-      __syncthreads();
-
-      float st[RPT][CPT], dpt[RPT][CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) st[i][j] = dpt[i][j] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        float kv[RPT], vv[RPT], qv[CPT], dov[CPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          kv[i] = Ks[(tr * RPT + i) * ld + d];
-          vv[i] = Vs[(tr * RPT + i) * ld + d];
-        }
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          qv[j] = Qs[(tc + 16 * j) * ld + d];
-          dov[j] = dOs[(tc + 16 * j) * ld + d];
-        }
-#pragma unroll
-        for (int i = 0; i < RPT; ++i)
-#pragma unroll
-          for (int j = 0; j < CPT; ++j) {
-            st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
-            dpt[i][j] = fmaf(vv[i], dov[j], dpt[i][j]);
-          }
-      }
-
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int r = tr * RPT + i;
-        const int col = k0 + r;
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const int qc = tc + 16 * j;
-          const bool vis = visible(q0 + qc, col, q_len, kv_len, causal);
-          const float p = expf(vis ? st[i][j] * scale - lse_s[qc] : NEG_INF);
-          PTs[r * (BQ + 1) + qc] = p;
-          DSTs[r * (BQ + 1) + qc] = p * (dpt[i][j] - delta_s[qc]);
-        }
-      }
-      __syncthreads();
-
-      for (int qq = 0; qq < BQ; ++qq) {
-        float pv[RPT], dsv[RPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          pv[i] = PTs[(tr * RPT + i) * (BQ + 1) + qq];
-          dsv[i] = DSTs[(tr * RPT + i) * (BQ + 1) + qq];
-        }
-#pragma unroll
-        for (int jd = 0; jd < DPT; ++jd) {
-          const int c = tc + 16 * jd;
-          if (c < D) {
-            const float dov = dOs[qq * ld + c];
-            const float qv = Qs[qq * ld + c];
-#pragma unroll
-            for (int i = 0; i < RPT; ++i) {
-              dv_acc[i][jd] = fmaf(pv[i], dov, dv_acc[i][jd]);
-              dk_acc[i][jd] = fmaf(dsv[i], qv, dk_acc[i][jd]);
-            }
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = k0 + tr * RPT + i;
-    if (row >= kv_len) continue;
-    const size_t o = offset(b, row, kv_len, Hkv, hk, D);
-#pragma unroll
-    for (int jd = 0; jd < DPT; ++jd) {
-      const int c = tc + 16 * jd;
-      if (c < D) {
-        dk[o + c] = from_f<T>(scale * dk_acc[i][jd]);
-        dv[o + c] = from_f<T>(dv_acc[i][jd]);
-      }
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, int B, int q_len, int kv_len,
-                       int H, int Hkv, int D, float scale, int causal,
-                       cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)(2 * BK + 2 * BQ) * (D + 1) +
-                       2 * BK * (BQ + 1) + 2 * BQ);
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((kv_len + BK - 1) / BK, Hkv, B);
-  bwd_dkv_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), q_len, kv_len, H, Hkv, D,
-      scale, causal);
-  return cudaGetLastError();
-}
-
-}  // namespace flash
+// Design: the body (flash_bwd_dkv.cuh) reads the [B, S, H*D] operands by
+// strides and sums each kv head over its q heads inside one block.
+#include "flash_bwd_dkv.cuh"
 
 // q/dout [B, q_len, H*D], k/v/dk/dv [B, kv_len, Hkv*D] (bf16 when is_bf16,
 // else f32), lse/delta f32 [B, q_len, H]. Returns a cudaError_t.
@@ -185,15 +20,8 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              int q_len, int kv_len, int H, int Hkv, int D,
                              float scale, int causal, int is_bf16,
                              void* stream) {
-  if (flash::bad_shape(B, q_len, kv_len, H, Hkv, D))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? flash::launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta,
-                                                 dk, dv, B, q_len, kv_len, H,
-                                                 Hkv, D, scale, causal, s)
-              : flash::launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, B,
-                                         q_len, kv_len, H, Hkv, D, scale,
-                                         causal, s);
-  return (int)err;
+  return flash::bwd_dkv(q, k, v, dout, lse, delta, dk, dv,
+                        flash::flat_geom(B, q_len, kv_len, H, Hkv, D, scale,
+                                         causal),
+                        is_bf16, stream);
 }

@@ -3,158 +3,14 @@
 // Replaces: mpi_operator_tpu/ops/attention.py:_bwd_flat_dq_kernel (the
 // first Pallas kernel of _flash_flat_bwd_impl), unpacked (pack == 1) math.
 //
-// Computes, per (batch, q head, q row): p = exp(scale * q k^T - lse) over
-// the visible columns (recomputed from the forward's lse, never stored),
-// ds = p * (do v^T - delta), dq = scale * ds k, where delta = rowsum(do * o)
-// comes from the wrapper as f32 [B, Sq, H].
-//
 // What bounds it on an H100: three S x S x D products per head, ~1.0e11
 // FLOPs at the causal Llama shape against ~0.1 GB of operands, so the bound
 // is the tensor cores (~0.1 ms). This first kernel uses f32 FMA from shared
 // memory and is bound by that, far above the bound.
 //
-// Design: one block per (q tile, q head, batch); the k tiles are a loop
-// inside the block with the [64, D] dq accumulator in registers, so dq is
-// written once, with no atomics. Causal dead k tiles are skipped as in the
-// forward.
-#include "flash_common.cuh"
-
-namespace flash {
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dq,
-                  int q_len, int kv_len, int H, int Hkv, int D, float scale,
-                  int causal) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  float* Qs = smem;            // [BQ][ld]
-  float* dOs = Qs + BQ * ld;   // [BQ][ld]
-  float* Ks = dOs + BQ * ld;   // [BK][ld]
-  float* Vs = Ks + BK * ld;    // [BK][ld]
-  float* DSs = Vs + BK * ld;   // [BQ][BK + 1]
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const int tr = threadIdx.x / 16;
-  const int tc = threadIdx.x % 16;
-
-  load_tile(Qs, q, b, q0, q_len, H, h, D);
-  load_tile(dOs, dout, b, q0, q_len, H, h, D);
-
-  float lse_r[RPT], delta_r[RPT], acc[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = q0 + tr * RPT + i;
-    const size_t o = ((size_t)b * q_len + row) * H + h;
-    lse_r[i] = row < q_len ? lse[o] : 0.f;
-    delta_r[i] = row < q_len ? delta[o] : 0.f;
-#pragma unroll
-    for (int jd = 0; jd < DPT; ++jd) acc[i][jd] = 0.f;
-  }
-
-  const int n_kt = live_k_tiles(q0, q_len, kv_len, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    load_tile(Ks, k, b, k0, kv_len, Hkv, hk, D);
-    load_tile(Vs, v, b, k0, kv_len, Hkv, hk, D);
-    __syncthreads();
-
-    float s[RPT][CPT], dp[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[RPT], dov[RPT], kv[CPT], vv[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        qv[i] = Qs[(tr * RPT + i) * ld + d];
-        dov[i] = dOs[(tr * RPT + i) * ld + d];
-      }
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        kv[j] = Ks[(tc + 16 * j) * ld + d];
-        vv[j] = Vs[(tc + 16 * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = tr * RPT + i;
-      const int row = q0 + r;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const bool vis = visible(row, k0 + tc + 16 * j, q_len, kv_len, causal);
-        const float p = expf(vis ? s[i][j] * scale - lse_r[i] : NEG_INF);
-        DSs[r * (BK + 1) + tc + 16 * j] = p * (dp[i][j] - delta_r[i]);
-      }
-    }
-    __syncthreads();
-
-    for (int kk = 0; kk < BK; ++kk) {
-      float dsv[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) dsv[i] = DSs[(tr * RPT + i) * (BK + 1) + kk];
-#pragma unroll
-      for (int jd = 0; jd < DPT; ++jd) {
-        const int c = tc + 16 * jd;
-        if (c < D) {
-          const float kv = Ks[kk * ld + c];
-#pragma unroll
-          for (int i = 0; i < RPT; ++i) acc[i][jd] = fmaf(dsv[i], kv, acc[i][jd]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = q0 + tr * RPT + i;
-    if (row >= q_len) continue;
-    const size_t o = offset(b, row, q_len, H, h, D);
-#pragma unroll
-    for (int jd = 0; jd < DPT; ++jd) {
-      const int c = tc + 16 * jd;
-      if (c < D) dq[o + c] = from_f<T>(scale * acc[i][jd]);
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      void* dq, int B, int q_len, int kv_len, int H, int Hkv,
-                      int D, float scale, int causal, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)(2 * BQ + 2 * BK) * (D + 1) + BQ * (BK + 1));
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((q_len + BQ - 1) / BQ, H, B);
-  bwd_dq_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), q_len, kv_len, H, Hkv, D, scale, causal);
-  return cudaGetLastError();
-}
-
-}  // namespace flash
+// Design: the body (flash_bwd_dq.cuh) reads the [B, S, H*D] operands by
+// strides; delta = rowsum(do * o) comes from the wrapper as f32 [B, Sq, H].
+#include "flash_bwd_dq.cuh"
 
 // q/dout/dq [B, q_len, H*D], k/v [B, kv_len, Hkv*D] (bf16 when is_bf16,
 // else f32), lse/delta f32 [B, q_len, H]. Returns a cudaError_t.
@@ -163,15 +19,8 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* delta, void* dq, int B, int q_len,
                             int kv_len, int H, int Hkv, int D, float scale,
                             int causal, int is_bf16, void* stream) {
-  if (flash::bad_shape(B, q_len, kv_len, H, Hkv, D))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? flash::launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta,
-                                                dq, B, q_len, kv_len, H, Hkv,
-                                                D, scale, causal, s)
-              : flash::launch_dq<float>(q, k, v, dout, lse, delta, dq, B,
-                                        q_len, kv_len, H, Hkv, D, scale,
-                                        causal, s);
-  return (int)err;
+  return flash::bwd_dq(q, k, v, dout, lse, delta, dq,
+                       flash::flat_geom(B, q_len, kv_len, H, Hkv, D, scale,
+                                        causal),
+                       is_bf16, stream);
 }

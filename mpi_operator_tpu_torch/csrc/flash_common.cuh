@@ -1,11 +1,20 @@
-// Shared pieces of the three flat flash-attention kernels (flash_fwd.cu,
-// flash_bwd_dq.cu, flash_bwd_dkv.cu).
+// Shared pieces of the flash-attention kernels. Each kernel has one body
+// (flash_fwd.cuh, flash_bwd_dq.cuh, flash_bwd_dkv.cuh) and two C entry
+// points, one per layout: the flat kernels (flash_fwd.cu, flash_bwd_dq.cu,
+// flash_bwd_dkv.cu) and the [B*H, S, D] kernels (flash_bhsd_fwd.cu,
+// flash_bhsd_bwd_dq.cu, flash_bhsd_bwd_dkv.cu).
 //
-// Layout: every operand stays in the projection layout [B, S, nh * D] that
-// the q/k/v projections produce; head `h` of row `s` starts at
-// ((b * S + s) * nh + h) * D. lse and delta are f32 [B, Sq, H]. No
-// transposes and no host-side padding: rows past the sequence length are
-// masked inside the kernels.
+// Layout: the body reads every operand through strides (Geom). Element d of
+// row r of head h of batch b sits at b * batch + h * head + r * row + d:
+// - flat, the projection layout [B, S, nh * D] that the q/k/v projections
+//   produce: batch = S * nh * D, head = D, row = nh * D; lse and delta are
+//   f32 [B, Sq, H]. No transposes surround these kernels.
+// - bhsd, [B*H, S, D] with kv [B*Hkv, S, D]: the entry point views it as
+//   B*Hkv batches of groups = H / Hkv q heads that share one kv head, so q
+//   row b*H + h reads kv row (b*H + h) / groups, as the JAX index map
+//   b // groups does; lse is f32 [B*H, Sq].
+// No host-side padding: rows past the sequence length are masked inside
+// the kernels.
 //
 // Tiles: 64 rows of q by 64 rows of k, 256 threads. Thread t owns tile
 // rows 4 * (t / 16) + i (i < 4) and tile columns (t % 16) + 16 * j (j < 4);
@@ -16,9 +25,12 @@
 // Arithmetic is f32 FMA on tiles staged in shared memory as f32 (bf16
 // inputs are widened on load). Masking follows the JAX kernels exactly:
 // finite NEG_INF = -1e30 (never -inf, so inf - inf never makes a NaN),
-// p = exp(visible ? s - m : NEG_INF), bottom-right-aligned causal mask
-// col <= row + (kv_len - q_len), and a fully masked row gives out = 0,
-// lse = NEG_INF.
+// p = exp(visible ? s - m : NEG_INF), and a fully masked row gives
+// out = 0, lse = NEG_INF. Without ids the causal mask is bottom-right
+// aligned, col <= row + (kv_len - q_len); with ids (bhsd only) a pair is
+// visible iff col_ids[col] <= row_ids[row], whatever causal says. The
+// bound checks row < q_len, col < kv_len take the place of JAX's +-2^30
+// padding ids.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,6 +55,7 @@ constexpr int CPT = 4;        // tile columns per thread (64 columns / 16 lanes)
 constexpr int MAX_D = 128;
 constexpr int DPT = MAX_D / 16;  // head-dim columns per thread
 constexpr float NEG_INF = -1e30f;
+constexpr int MAX_GRID_YZ = 65535;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -58,44 +71,89 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-__device__ __forceinline__ size_t offset(int b, int row, int seq_len, int nh,
-                                         int head, int D) {
-  return (((size_t)b * seq_len + row) * nh + head) * (size_t)D;
+// Element offsets of (batch, head, row) in one operand.
+struct Strides {
+  size_t batch, head, row;
+  __host__ __device__ __forceinline__ size_t at(int b, int h, int r) const {
+    return (size_t)b * batch + (size_t)h * head + (size_t)r * row;
+  }
+};
+
+// What a launch computes: the grid is (q or k tiles, H, B); q head h reads
+// kv head h / (H / Hkv). qs covers q, out, do and dq; kvs k, v, dk and dv;
+// stats lse and delta.
+struct Geom {
+  int B, H, Hkv, q_len, kv_len, D;
+  float scale;
+  int causal;
+  const int* row_ids;  // [q_len] or null
+  const int* col_ids;  // [kv_len] or null
+  Strides qs, kvs, stats;
+};
+
+inline Geom flat_geom(int B, int q_len, int kv_len, int H, int Hkv, int D,
+                      float scale, int causal) {
+  const size_t d = (size_t)D;
+  return Geom{B, H, Hkv, q_len, kv_len, D, scale, causal, nullptr, nullptr,
+              {(size_t)q_len * H * d, d, (size_t)H * d},
+              {(size_t)kv_len * Hkv * d, d, (size_t)Hkv * d},
+              {(size_t)q_len * H, 1, (size_t)H}};
 }
 
-// 64 rows of one head from a [B, seq_len, nh * D] tensor into shared memory
-// as f32 [64][D + 1] (the +1 keeps column walks free of bank conflicts).
-// Rows at or past seq_len read as zero.
+inline Geom bhsd_geom(int BH, int BHkv, int q_len, int kv_len, int D,
+                      float scale, int causal, const void* row_ids,
+                      const void* col_ids) {
+  // H = 0 (refused by bad_shape) when the kv rows do not divide the q rows.
+  const int groups = (BHkv > 0 && BH % BHkv == 0) ? BH / BHkv : 0;
+  const size_t d = (size_t)D;
+  return Geom{BHkv, groups, 1, q_len, kv_len, D, scale, causal,
+              static_cast<const int*>(row_ids),
+              static_cast<const int*>(col_ids),
+              {(size_t)groups * q_len * d, (size_t)q_len * d, d},
+              {(size_t)kv_len * d, 0, d},
+              {(size_t)groups * q_len, (size_t)q_len, 1}};
+}
+
+inline bool bad_shape(const Geom& g) {
+  return g.B < 1 || g.B > MAX_GRID_YZ || g.H < 1 || g.H > MAX_GRID_YZ ||
+         g.Hkv < 1 || g.H % g.Hkv != 0 || g.q_len < 1 || g.kv_len < 1 ||
+         g.D < 1 || g.D > MAX_D ||
+         (g.row_ids == nullptr) != (g.col_ids == nullptr);
+}
+
+// 64 rows of one head into shared memory as f32 [64][D + 1] (the +1 keeps
+// column walks free of bank conflicts). Rows at or past seq_len read as
+// zero.
 template <typename T>
-__device__ void load_tile(float* dst, const T* __restrict__ src, int b,
-                          int row0, int seq_len, int nh, int head, int D) {
+__device__ void load_tile(float* dst, const T* __restrict__ src,
+                          const Strides& s, int b, int head, int row0,
+                          int seq_len, int D) {
   const int ld = D + 1;
   for (int idx = threadIdx.x; idx < 64 * D; idx += THREADS) {
     const int r = idx / D;
     const int c = idx - r * D;
     const int row = row0 + r;
     float x = 0.f;
-    if (row < seq_len) x = to_f(src[offset(b, row, seq_len, nh, head, D) + c]);
+    if (row < seq_len) x = to_f(src[s.at(b, head, row) + c]);
     dst[r * ld + c] = x;
   }
 }
 
-// 64 entries of one head from an f32 [B, seq_len, nh] tensor (lse, delta).
+// 64 entries of one head of an f32 statistic (lse, delta).
 __device__ __forceinline__ void load_stats(float* dst,
                                            const float* __restrict__ src,
-                                           int b, int row0, int seq_len,
-                                           int nh, int head) {
+                                           const Strides& s, int b, int head,
+                                           int row0, int seq_len) {
   for (int r = threadIdx.x; r < 64; r += THREADS) {
     const int row = row0 + r;
-    dst[r] = row < seq_len ? src[((size_t)b * seq_len + row) * nh + head]
-                           : 0.f;
+    dst[r] = row < seq_len ? src[s.at(b, head, row)] : 0.f;
   }
 }
 
-__device__ __forceinline__ bool visible(int row, int col, int q_len,
-                                        int kv_len, int causal) {
-  return row < q_len && col < kv_len &&
-         (!causal || col <= row + (kv_len - q_len));
+__device__ __forceinline__ bool visible(const Geom& g, int row, int col) {
+  if (row >= g.q_len || col >= g.kv_len) return false;
+  if (g.row_ids != nullptr) return g.col_ids[col] <= g.row_ids[row];
+  return !g.causal || col <= row + (g.kv_len - g.q_len);
 }
 
 // Reductions over the 16 lanes that share a tile row (half a warp).
@@ -112,24 +170,19 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // Number of k tiles a q tile starting at q0 must visit: with causal masking
-// the tiles past the last visible column are dead and skipped.
-__device__ __forceinline__ int live_k_tiles(int q0, int q_len, int kv_len,
-                                            int causal) {
-  int end = kv_len;
-  if (causal) end = min(kv_len, q0 + BQ + (kv_len - q_len));
+// the tiles past the last visible column are dead and skipped. With ids the
+// live set depends on the data, so every tile is visited.
+__device__ __forceinline__ int live_k_tiles(const Geom& g, int q0) {
+  int end = g.kv_len;
+  if (g.causal && g.row_ids == nullptr)
+    end = min(g.kv_len, q0 + BQ + (g.kv_len - g.q_len));
   return end > 0 ? (end + BK - 1) / BK : 0;
 }
 
 // First q tile that can see any column of a k tile starting at k0.
-__device__ __forceinline__ int first_live_q_tile(int k0, int q_len,
-                                                 int kv_len, int causal) {
-  if (!causal) return 0;
-  return max(0, k0 - (kv_len - q_len)) / BQ;
-}
-
-inline bool bad_shape(int B, int q_len, int kv_len, int H, int Hkv, int D) {
-  return B < 1 || q_len < 1 || kv_len < 1 || Hkv < 1 || H % Hkv != 0 ||
-         D < 1 || D > MAX_D;
+__device__ __forceinline__ int first_live_q_tile(const Geom& g, int k0) {
+  if (!g.causal || g.row_ids != nullptr) return 0;
+  return max(0, k0 - (g.kv_len - g.q_len)) / BQ;
 }
 
 }  // namespace flash

@@ -1,12 +1,12 @@
-"""Carry Llama and ResNet weights between the JAX package's Flax trees
-and the port.
+"""Carry Llama, BERT and ResNet weights between the JAX package's Flax
+trees and the port.
 
 The port never sees ``jax``: these functions take and give plain numpy
 arrays (the caller does ``np.asarray`` on the JAX side). The Flax leaf
 ``a/b/c/kernel`` is the port's ``a.b.c.weight``, transposed
-(``kernel [in, out]`` -> ``weight [out, in]``); ``embed/embedding`` is
-``embed.weight`` as it is; RMSNorm ``scale`` keeps its name. Values are
-copied bit for bit.
+(``kernel [in, out]`` -> ``weight [out, in]``); an ``embedding`` is the
+embedding module's ``weight`` as it is; norm ``scale`` and ``bias`` and
+Dense ``bias`` keep their names. Values are copied bit for bit.
 
 ResNet: a conv ``kernel [kh, kw, in, out]`` is ``weight [out, in, kh,
 kw]``, the head's ``kernel [in, out]`` is ``weight [out, in]``; BN
@@ -34,8 +34,7 @@ def _flatten(tree: Mapping, prefix: tuple = ()):
             yield path, value
 
 
-def llama_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
-    """Flax Llama param tree (numpy leaves) -> the port's ``state_dict``."""
+def _from_flax(tree: Mapping, plain: tuple) -> dict[str, torch.Tensor]:
     state = {}
     for path, leaf in _flatten(tree):
         arr = np.asarray(leaf)
@@ -44,25 +43,23 @@ def llama_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
             name, arr = "weight", arr.T
         elif leaf_name == "embedding":
             name = "weight"
-        elif leaf_name == "scale":
-            name = "scale"
+        elif leaf_name in plain:
+            name = leaf_name
         else:
             raise KeyError(f"unexpected Flax leaf {'/'.join(path)!r}")
         state[".".join((*modules, name))] = torch.tensor(arr)  # a copy
     return state
 
 
-def llama_params_to_jax(state: Mapping[str, torch.Tensor]) -> dict:
-    """The inverse: the port's ``state_dict`` (or any name -> tensor map
-    of the same names, e.g. gradients) -> a nested Flax-shaped tree of
-    numpy arrays."""
+def _to_flax(state: Mapping[str, torch.Tensor], plain: tuple,
+             is_embedding) -> dict:
     tree: dict = {}
     for key, tensor in state.items():
         *modules, name = key.split(".")
         arr = tensor.detach().cpu().numpy()
-        if name == "scale":
-            leaf = "scale"
-        elif modules == ["embed"]:
+        if name in plain:
+            leaf = name
+        elif is_embedding(modules):
             leaf = "embedding"
         elif name == "weight":
             leaf, arr = "kernel", arr.T
@@ -73,6 +70,35 @@ def llama_params_to_jax(state: Mapping[str, torch.Tensor]) -> dict:
             node = node.setdefault(m, {})
         node[leaf] = np.ascontiguousarray(arr)
     return tree
+
+
+def llama_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """Flax Llama param tree (numpy leaves) -> the port's ``state_dict``."""
+    return _from_flax(tree, ("scale",))
+
+
+def llama_params_to_jax(state: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse: the port's ``state_dict`` (or any name -> tensor map
+    of the same names, e.g. gradients) -> a nested Flax-shaped tree of
+    numpy arrays."""
+    return _to_flax(state, ("scale",), lambda modules: modules == ["embed"])
+
+
+def bert_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """Flax BERT param tree (numpy leaves) -> the port's parameters by
+    name. A tree made without ``token_types`` has no ``type_embed``: load
+    it with ``load_state_dict(..., strict=False)``, which leaves the
+    port's ``type_embed`` as it was."""
+    return _from_flax(tree, ("scale", "bias"))
+
+
+def bert_params_to_jax(state: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse: the port's ``state_dict`` (or any name -> tensor map
+    of the same names, e.g. gradients) -> a nested Flax-shaped tree of
+    numpy arrays. Drop ``type_embed.weight`` from ``state`` for the tree
+    of a model that never saw token types."""
+    return _to_flax(state, ("scale", "bias"),
+                    lambda modules: modules[-1].endswith("_embed"))
 
 
 _TPU_BN = re.compile(r"^TpuBatchNorm_(\d+)$")

@@ -3,8 +3,9 @@
 
 - bfloat16 compute, float32 parameters, f32 logits for the loss;
 - attention through the hand-written flash kernels
-  (``ops.attention.flash_attention_bshd``) on the projection layout, or
-  the dense oracle;
+  (``ops.attention.flash_attention_bshd``) on the projection layout, the
+  [B*H, S, D] kernels (``flash-bhsd``, behind transposes) or the dense
+  oracle;
 - per-layer activation checkpointing (``remat_policy="full"``) trades
   FLOPs for memory.
 
@@ -44,9 +45,10 @@ class LlamaConfig:
     # the matmul outputs and the flash residuals) is not ported yet.
     remat_policy: str = "full"
     tie_embeddings: bool = False
-    # 'flash' (the CUDA kernels; plain versions on the CPU) or 'dense'
-    # (the oracle). 'ring'/'ulysses' raise until sequence parallelism
-    # is ported.
+    # 'flash' (the CUDA kernels; plain versions on the CPU), 'flash-bhsd'
+    # (the [B*H, S, D] kernels behind transposes: the layout A/B) or
+    # 'dense' (the oracle). 'ring'/'ulysses' raise until sequence
+    # parallelism is ported.
     attention_impl: str = "flash"
     # Sparse MoE FFN: > 0 experts raises until models/moe.py is ported.
     n_experts: int = 0
@@ -170,7 +172,7 @@ class Attention(nn.Module):
         # kernels on q/k/v exactly as RoPE produced them ([B, S, H, D]).
         out = sp_attention_bshd(q, k, v, cfg.attention_impl, causal=True)
         if out is None:
-            # [B, H, S, D] layout: the dense oracle.
+            # [B, H, S, D] layout: flash-bhsd and the dense oracle.
             q, k, v = (t.transpose(1, 2) for t in (q, k, v))
             out = sp_attention(
                 q, k, v, cfg.attention_impl, causal=True

@@ -26,7 +26,8 @@ from ._common import BN_THREADS, DEFAULT_BLOCK_K, DEFAULT_BLOCK_Q
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-HEADERS = ("flash_common.cuh", "bn_common.cuh")
+HEADERS = ("flash_common.cuh", "flash_fwd.cuh", "flash_bwd_dq.cuh",
+           "flash_bwd_dkv.cuh", "bn_common.cuh")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> (source, argtypes). Every pointer and the stream are
@@ -36,6 +37,12 @@ KERNELS = {
     "flash_bwd_dq": ("flash_bwd_dq.cu", [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P]),
     "flash_bwd_dkv": ("flash_bwd_dkv.cu",
                       [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P]),
+    "flash_bhsd_fwd": ("flash_bhsd_fwd.cu",
+                       [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P]),
+    "flash_bhsd_bwd_dq": ("flash_bhsd_bwd_dq.cu",
+                          [_P] * 9 + [_I] * 5 + [_F, _I, _I, _P]),
+    "flash_bhsd_bwd_dkv": ("flash_bhsd_bwd_dkv.cu",
+                           [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P]),
     "bn_stats": ("bn_stats.cu", [_P] * 3 + [_I] * 7 + [_P]),
     "bn_grads": ("bn_grads.cu", [_P] * 6 + [_I] * 8 + [_P]),
 }

@@ -60,7 +60,7 @@ def test_loss_falls_with_grad_accum_and_cosine_schedule(capsys):
 
 
 REFUSED = {
-    "model": (["--model", "bert-base"], "item 11"),
+    "model": (["--model", "vit-tiny"], "item 11"),
     "vit": (["--model", "vit-base"], "item 11"),
     "seq2seq": (["--model", "seq2seq-small"], "item 11"),
     "moe": (["--model", "mixtral-8x7b"], "item 13"),
@@ -131,6 +131,53 @@ def test_resnet_workload_is_the_jax_trainers():
     assert work.model.training
     assert all(isinstance(m, tbn.TpuBatchNorm)
                for m in work.model.modules() if isinstance(m, tbn._BatchNormBase))
+
+
+@pytest.mark.parametrize("layout", ["mask", "positions"])
+def test_bert_tiny_batch_is_the_jax_trainers_and_the_loss_falls(capsys,
+                                                                layout):
+    """The first batch equals the JAX trainer's ``_lm_workload`` draw for
+    the same seed and flags; six AdamW steps on it lower the loss."""
+    import jax
+
+    from mpi_operator_tpu.cmd import train as jtrain
+    from mpi_operator_tpu.parallel import create_mesh as jax_mesh
+
+    argv = ["--model", "bert-tiny", "--seq-len", "32", "--global-batch", "4",
+            "--seed", "5", "--mlm-layout", layout]
+    want = jtrain._lm_workload(jtrain.build_parser().parse_args(argv),
+                               jax_mesh(devices=jax.devices()[:1], dp=1), 1)
+    args = train.build_parser().parse_args(["--device", "cpu", *argv])
+    got = train._lm_workload(args, create_mesh(device="cpu", dp=-1), 1)
+    assert len(got.batch) == len(want.batch) == (4 if layout == "positions"
+                                                  else 3)
+    for g, w in zip(got.batch, want.batch):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got.tokens_per_step == want.tokens_per_step == 4 * 32
+
+    rc = train.main(["--device", "cpu", *argv, "--steps", "6", "--warmup",
+                     "1", "--lr", "1e-2", "--telemetry-every", "0"])
+    assert rc == 0
+    summary = _summary(capsys)
+    assert summary["model"] == "bert-tiny" and summary["steps"] == 6
+    assert JAX_SUMMARY_KEYS <= set(summary)
+    assert summary["loss"] < summary["first_loss"]
+
+
+def test_unknown_bert_names_exit_with_the_jax_message():
+    with pytest.raises(SystemExit, match="bert models are bert-base or "
+                                         "bert-tiny"):
+        train.main(["--device", "cpu", "--model", "bert-large", "--steps",
+                    "1"])
+
+
+def test_bert_sequences_longer_than_the_table_grow_it():
+    args = train.build_parser().parse_args(
+        ["--device", "cpu", "--model", "bert-tiny", "--seq-len", "80",
+         "--global-batch", "2"])
+    work = train._lm_workload(args, create_mesh(device="cpu", dp=-1), 1)
+    assert work.model.config.max_seq_len == 80
+    assert work.model.pos_embed.weight.shape == (80, 32)
 
 
 def test_cuda_without_a_gpu_raises():
