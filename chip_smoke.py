@@ -9,15 +9,20 @@ Phases, in order:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build:
    every CUDA source under ``mpi_operator_tpu_torch/csrc/``, one ``nvcc``
-   each, all started together;
+   each, all started together; each kernel's registers and spills from
+   ptxas (a flash kernel that spills fails the run) and, from
+   ``cuobjdump -sass``, its tensor-core instructions (the bf16 forward and
+   dk/dv bodies must issue wgmma, HGMMA in SASS);
 2. ``kernels``: each kernel against its plain version on the card, with
    times by CUDA events beside the bound and one PyTorch library call:
    - the six flash kernels, flat ([B, S, H*D]) and [B*H, S, D], at the
      Llama training shape (B=2, S=2048, H=32, Hkv=8, D=128, bf16,
      causal) and the BERT-base shape (B=64, S=512, H=12, D=64, bf16,
-     non-causal; timed at both), a padded GQA shape (S=200, f32), a
-     masked-row shape (Sq > Sk, causal, f32) and, for the [B*H, S, D]
-     kernels, an id-masked shape with rows that see nothing;
+     non-causal; timed at both), and in f32 and bf16 a padded GQA shape
+     (S=200), a masked-row shape (Sq > Sk, causal) and, for the
+     [B*H, S, D] kernels, an id-masked shape with rows that see nothing;
+     bf16 also at head dims 80 and 32, which run on the tensor-core
+     bodies' next instantiated width (128, 64);
    - the BN kernels at the ResNet-101 stem ([802816, 64] bf16 at B=64),
      stage 3's widest layer ([3136, 2048] bf16) and a ragged f32 shape
      ([1000, 130]);
@@ -57,16 +62,19 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at the 700 W limit.
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}  # f32: FMA pipes, no TF32
 PEAK_BYTES_PER_S = 3.35e12
 
-# Kernel checks. bf16 operands: the kernel computes in f32 and rounds
-# each output to bf16 once (2^-9 relative), while the plain version runs
-# in f32 on the same bf16 inputs, so the norm-relative error is ~1e-3;
-# 1e-2 leaves room for summation order. f32: only summation order and
-# expf differ (~1e-6 relative over a few hundred terms).
+# Kernel checks. bf16 operands: the kernel accumulates in f32 and rounds
+# each output to bf16 once (2^-9 relative); the tensor-core bodies also
+# round P (forward, dv) and dS (dk) to bf16 before their products, 2^-9
+# relative per term, which averages down over the sum. The plain version
+# runs in f32 on the same bf16 inputs, so the norm-relative error is
+# ~1e-3-2e-3; 1e-2 leaves room for summation order. f32: only summation
+# order and expf differ (~1e-6 relative over a few hundred terms).
 NORM_REL_TOL = {"bf16": 1e-2, "f32": 2e-5}
 LSE_ABS_TOL = {"bf16": 1e-4, "f32": 1e-4}
 # Model check (bf16 compute): the kernel and oracle paths round their
@@ -219,6 +227,21 @@ FLASH_SHAPES = [
     # 16..39 see no column.
     ("id-masked", dict(b=2, sq=96, sk=80, h=4, hkv=2, d=64, dtype="f32",
                        causal=False, ids=True), ("bhsd",)),
+    # The same edges on the bf16 tensor-core bodies: ragged tiles, rows
+    # that see nothing (out = 0, lse = -1e30 exactly), ids.
+    ("padded-gqa-bf16", dict(b=2, sq=200, sk=200, h=8, hkv=2, d=64,
+                             dtype="bf16", causal=False), ("flat", "bhsd")),
+    ("masked-rows-bf16", dict(b=1, sq=130, sk=70, h=4, hkv=2, d=128,
+                              dtype="bf16", causal=True), ("flat", "bhsd")),
+    ("id-masked-bf16", dict(b=2, sq=96, sk=80, h=4, hkv=2, d=64,
+                            dtype="bf16", causal=False, ids=True),
+     ("bhsd",)),
+    # Head dims the bf16 bodies are not instantiated at: they run on the
+    # next width up (128, 64) with the columns past D zero-filled.
+    ("d80-bf16", dict(b=2, sq=150, sk=150, h=4, hkv=2, d=80, dtype="bf16",
+                      causal=True), ("flat", "bhsd")),
+    ("d32-bf16", dict(b=2, sq=100, sk=130, h=4, hkv=4, d=32, dtype="bf16",
+                      causal=True), ("flat", "bhsd")),
 ]
 FLASH_NAMES = {
     "flat": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
@@ -257,6 +280,93 @@ def _flash_calls(attn, layout: str, h: int, scale: float, causal: bool,
             (lambda *a: attn.flash_bhsd_fwd_plain(*a, *tail),
              lambda *a: attn.flash_bhsd_bwd_dq_plain(*a, *tail),
              lambda *a: attn.flash_bhsd_bwd_dkv_plain(*a, *tail)))
+
+
+def _kernel_name(mangled: str) -> str:
+    """``flash::fwd_kernel_tc<64>`` from its mangled name (as far as the
+    names here need), else the mangled name."""
+    m = re.match(r"_ZN(\d+)(\w+)", mangled)
+    if not m:
+        return mangled
+    n = int(m.group(1))
+    ns, rest = m.group(2)[:n], m.group(2)[n:]
+    m = re.match(r"(\d+)(\w+)", rest)
+    if not m:
+        return mangled
+    n = int(m.group(1))
+    name, rest = m.group(2)[:n], m.group(2)[n:]
+    arg = re.match(r"ILi(\d+)E", rest)
+    if arg:
+        name += f"<{arg.group(1)}>"
+    elif rest.startswith("IfE"):
+        name += "<float>"
+    elif rest.startswith("I13__nv_bfloat16E"):
+        name += "<bf16>"
+    return f"{ns}::{name}"
+
+
+def ptxas_report(name: str) -> list:
+    """(kernel, registers, spill store + load bytes) for each kernel of
+    the library ``name``, from ptxas's -v output in its build log."""
+    from mpi_operator_tpu_torch.ops import _build
+
+    rows = []
+    for block in _build.build_log(name).split("Compiling entry function")[1:]:
+        regs = re.findall(r"Used (\d+) registers", block)
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", block)
+        rows.append((_kernel_name(block.split("'")[1]),
+                     int(regs[0]) if regs else -1,
+                     sum(int(a) + int(b) for a, b in spills)))
+    return rows
+
+
+def sass_tensor_ops(name: str) -> dict:
+    """Kernel -> its tensor-core instructions in the built library
+    ``name`` (``cuobjdump -sass``): HGMMA is wgmma, HMMA mma.sync."""
+    from mpi_operator_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
+                          check=True, capture_output=True, text=True,
+                          timeout=300).stdout
+    counts: dict = {}
+    kernel = None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kernel = _kernel_name(m.group(1))
+            counts[kernel] = {"HGMMA": 0, "HMMA": 0}
+        elif kernel is not None:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    counts[kernel][op] += 1
+    return counts
+
+
+# The kernels whose bf16 instantiations are the tensor-core bodies.
+TC_BODIES = ("flash::fwd_kernel_tc", "flash::bwd_dkv_kernel_tc")
+
+
+def check_build() -> None:
+    """Per kernel: registers and spills (ptxas) and tensor-core
+    instructions (SASS). Fails if a flash kernel spills or a tensor-core
+    body issues no wgmma."""
+    from mpi_operator_tpu_torch.ops import _build
+
+    failed = []
+    for name in _build.KERNELS:
+        sass = sass_tensor_ops(name)
+        for kernel, regs, spill in ptxas_report(name):
+            ops = sass.get(kernel, {})
+            log(f"ptxas {name}: {kernel} registers {regs} spill bytes {spill}"
+                f"; SASS HGMMA {ops.get('HGMMA')} HMMA {ops.get('HMMA')}")
+            if name.startswith("flash") and spill:
+                failed.append(f"{kernel} spills {spill} bytes")
+            if kernel.startswith(TC_BODIES) and not ops.get("HGMMA"):
+                failed.append(f"{kernel} issues no wgmma")
+    if failed:
+        raise AssertionError("kernel build checks failed: " + "; ".join(failed))
 
 
 def check_kernels() -> dict:
@@ -355,7 +465,9 @@ def check_kernels() -> dict:
     # to the plain version.
     x16 = torch.zeros(1, 64, 2 * 128, device="cuda", dtype=torch.float16)
     x256 = torch.zeros(1, 64, 2 * 256, device="cuda")
-    for bad, err in ((x16, TypeError), (x256, ValueError)):
+    # bf16 rows are read in 16-byte chunks: a head dim of 20 is refused.
+    x20 = torch.zeros(1, 64, 2 * 20, device="cuda", dtype=torch.bfloat16)
+    for bad, err in ((x16, TypeError), (x256, ValueError), (x20, ValueError)):
         for fn in (lambda x: attn.flash_fwd(x, x, x, 2, 0.1, True),
                    lambda x: attn.flash_bhsd_fwd(
                        x.reshape(2, 64, -1), x.reshape(2, 64, -1),
@@ -1348,15 +1460,7 @@ def main(argv=None) -> int:
     seconds = _build.build()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s wall "
         f"(per source: {json.dumps({k: round(v, 1) for k, v in seconds.items()})})")
-    for name in _build.KERNELS:
-        # One summary line per source: its template instances' registers
-        # and spills.
-        text = _build.build_log(name)
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
-        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", text))
-        log(f"ptxas {name}: {len(regs)} kernel instances, registers "
-            f"{min(regs, default=0)}-{max(regs, default=0)}, spill bytes "
-            f"{spills}")
+    check_build()
 
     records = {}
     if "kernels" in phases:

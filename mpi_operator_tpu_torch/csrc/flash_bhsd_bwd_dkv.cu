@@ -7,8 +7,8 @@
 // What bounds it on an H100: four S x S x D products per q head, ~1.0e11
 // FLOPs at the BERT-base shape (B=64, S=512, H=12, D=64, bf16, non-causal)
 // against ~0.2 GB of operands, so the tensor cores bound it (~0.10 ms).
-// This first kernel uses f32 FMA from shared memory and is bound by that,
-// far above the bound.
+// bf16 runs on the tensor-core body, f32 on the SIMT body
+// (flash_bwd_dkv.cuh).
 //
 // Design: the body is the flat kernel's (flash_bwd_dkv.cuh): one block per
 // (k tile, kv row b*Hkv + hk), looping inside the block over the groups q

@@ -7,9 +7,8 @@
 // What bounds it on an H100: at the BERT-base shape (B=64, S=512, H=12,
 // D=64, bf16, non-causal) the work is ~5.2e10 FLOPs against ~0.2 GB of
 // operands, so the memory bounds it (~0.061 ms); at the causal Llama
-// shape the tensor cores do (~0.07 ms). This first kernel does its products
-// with f32 FMA from shared memory and is bound by that, far above the
-// bound.
+// shape the tensor cores do (~0.07 ms). bf16 runs on the tensor-core body,
+// f32 on the SIMT body (flash_fwd.cuh).
 //
 // Design: the body is the flat kernel's (flash_fwd.cuh), reading these
 // operands by strides: q row b*H + h reads kv row (b*H + h) / groups, never

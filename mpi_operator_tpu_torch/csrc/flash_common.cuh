@@ -16,14 +16,21 @@
 // No host-side padding: rows past the sequence length are masked inside
 // the kernels.
 //
-// Tiles: 64 rows of q by 64 rows of k, 256 threads. Thread t owns tile
+// Two kinds of body:
+// - bf16 forward and dk/dv: tensor-core bodies (wgmma, cp.async rings;
+//   flash_fwd.cuh and flash_bwd_dkv.cuh say their tiles);
+// - dq (both types) and the f32 forward and dk/dv: SIMT bodies, f32 FMA on
+//   tiles staged in shared memory as f32 (bf16 widened on load), with the
+//   thread map below. f32 has no tensor-core path of its precision (TF32
+//   keeps 10 mantissa bits).
+//
+// SIMT tiles: 64 rows of q by 64 rows of k, 256 threads. Thread t owns tile
 // rows 4 * (t / 16) + i (i < 4) and tile columns (t % 16) + 16 * j (j < 4);
 // for the [rows, D] accumulators it owns head-dim columns (t % 16) + 16 * j
 // (j < 8, so D <= 128). The 16 threads that share a row are one half of a
 // warp, so row max / row sum are four xor-shuffles.
 //
-// Arithmetic is f32 FMA on tiles staged in shared memory as f32 (bf16
-// inputs are widened on load). Masking follows the JAX kernels exactly:
+// Masking follows the JAX kernels exactly:
 // finite NEG_INF = -1e30 (never -inf, so inf - inf never makes a NaN),
 // p = exp(visible ? s - m : NEG_INF), and a fully masked row gives
 // out = 0, lse = NEG_INF. Without ids the causal mask is bottom-right
@@ -36,6 +43,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <initializer_list>
+
+#include "hopper.cuh"
 
 #ifndef FLASH_BLOCK_Q
 #define FLASH_BLOCK_Q 64
@@ -55,6 +67,8 @@ constexpr int CPT = 4;        // tile columns per thread (64 columns / 16 lanes)
 constexpr int MAX_D = 128;
 constexpr int DPT = MAX_D / 16;  // head-dim columns per thread
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;  // exp(x) = exp2(x * LOG2E)
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int MAX_GRID_YZ = 65535;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -79,9 +93,10 @@ struct Strides {
   }
 };
 
-// What a launch computes: the grid is (q or k tiles, H, B); q head h reads
-// kv head h / (H / Hkv). qs covers q, out, do and dq; kvs k, v, dk and dv;
-// stats lse and delta.
+// What a launch computes: q head h reads kv head h / (H / Hkv); the SIMT
+// grids are (q or k tiles, H, B), the tensor-core grids (B * H or B * Hkv,
+// tiles). qs covers q, out, do and dq; kvs k, v, dk and dv; stats lse and
+// delta.
 struct Geom {
   int B, H, Hkv, q_len, kv_len, D;
   float scale;
@@ -139,6 +154,29 @@ __device__ void load_tile(float* dst, const T* __restrict__ src,
   }
 }
 
+// ROWS rows of one head (from row0) of a bf16 operand into a swizzled
+// shared tile DP columns wide (hopper.cuh), by 16-byte cp.async from the
+// NT threads of the block; the caller commits. Rows at or past seq_len and
+// columns at or past D (D a multiple of 8) are zero-filled, so they add
+// nothing to any product.
+template <int ROWS, int DP, int NT>
+__device__ __forceinline__ void load_tile_async(
+    uint32_t dst, const __nv_bfloat16* __restrict__ src, const Strides& s,
+    int b, int head, int row0, int seq_len, int D) {
+  constexpr int CPR = DP / 8;  // 16-byte chunks per row
+  static_assert((ROWS * CPR) % NT == 0, "whole chunks per thread");
+#pragma unroll
+  for (int n = 0; n < ROWS * CPR / NT; ++n) {
+    const int idx = n * NT + (int)threadIdx.x;
+    const int r = idx / CPR;
+    const int c = idx % CPR;
+    const int row = row0 + r;
+    const bool ok = row < seq_len && c * 8 < D;
+    hopper::cp_async16(dst + hopper::swizzled(ROWS, r, c),
+                       ok ? src + s.at(b, head, row) + c * 8 : src, ok);
+  }
+}
+
 // 64 entries of one head of an f32 statistic (lse, delta).
 __device__ __forceinline__ void load_stats(float* dst,
                                            const float* __restrict__ src,
@@ -169,20 +207,44 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// Number of k tiles a q tile starting at q0 must visit: with causal masking
-// the tiles past the last visible column are dead and skipped. With ids the
-// live set depends on the data, so every tile is visited.
+// Number of k tiles (of TK rows) a q tile of TQ rows starting at q0 must
+// visit: with causal masking the tiles past the last visible column are
+// dead and skipped. With ids the live set depends on the data, so every
+// tile is visited.
+template <int TQ = BQ, int TK = BK>
 __device__ __forceinline__ int live_k_tiles(const Geom& g, int q0) {
   int end = g.kv_len;
   if (g.causal && g.row_ids == nullptr)
-    end = min(g.kv_len, q0 + BQ + (g.kv_len - g.q_len));
-  return end > 0 ? (end + BK - 1) / BK : 0;
+    end = min(g.kv_len, q0 + TQ + (g.kv_len - g.q_len));
+  return end > 0 ? (end + TK - 1) / TK : 0;
 }
 
-// First q tile that can see any column of a k tile starting at k0.
+// First q tile (of TQ rows) that can see any column of a k tile starting
+// at k0.
+template <int TQ = BQ>
 __device__ __forceinline__ int first_live_q_tile(const Geom& g, int k0) {
   if (!g.causal || g.row_ids != nullptr) return 0;
-  return max(0, k0 - (g.kv_len - g.q_len)) / BQ;
+  return max(0, k0 - (g.kv_len - g.q_len)) / TQ;
+}
+
+// True when every (row, col) of the q tile [q0, q0 + TQ) x k tile
+// [k0, k0 + TK) is visible, so the tile needs no mask: no ids, both tiles
+// inside their sequences, and (causal) the tile's last column visible to
+// its first row. Uniform across a block.
+template <int TQ, int TK>
+__device__ __forceinline__ bool fully_visible(const Geom& g, int q0, int k0) {
+  return g.row_ids == nullptr && q0 + TQ <= g.q_len && k0 + TK <= g.kv_len &&
+         (!g.causal || k0 + TK - 1 <= q0 + (g.kv_len - g.q_len));
+}
+
+// The bf16 tensor-core bodies read 16-byte chunks of rows: the head dim
+// must be a multiple of 8 and every operand 16-byte aligned.
+inline bool bad_tc_operands(const Geom& g,
+                            std::initializer_list<const void*> ptrs) {
+  if (g.D % 8 != 0) return true;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return true;
+  return false;
 }
 
 }  // namespace flash

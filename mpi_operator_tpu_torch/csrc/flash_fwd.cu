@@ -8,9 +8,8 @@
 // What bounds it on an H100: at the Llama shape (B=2, S=2048, H=32, Hkv=8,
 // D=128, bf16, causal) the work is ~6.9e10 FLOPs against ~84 MB of
 // operands, so the bound is the tensor cores (~0.07 ms at 989 TFLOP/s).
-// This first kernel does its products with f32 FMA from shared memory, so
-// in practice it is bound by the FMA pipes and shared-memory reads, far
-// above that bound; the later work is wgmma + TMA.
+// bf16 runs on the tensor-core body (wgmma, cp.async ring), f32 on the
+// SIMT body; flash_fwd.cuh says how.
 //
 // Design: heads sit on the grid, where the TPU kernel looped over them
 // inside the program; the body (flash_fwd.cuh) reads the [B, S, H*D]

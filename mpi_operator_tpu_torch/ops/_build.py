@@ -4,8 +4,9 @@ plain C interface, loaded with ``ctypes``.
 Each kernel source under ``csrc/`` becomes its own library, built at
 first use (or all at once by :func:`build`, one ``nvcc`` process per
 source, all started together) into the git-ignored ``_build/``
-directory. The file name carries a hash of the sources and flags, so an
-edited source is rebuilt and a stale library is never loaded. Nothing
+directory. The file name carries a hash of the source, of every header
+under ``csrc/`` and of the flags, so an edited, added or renamed source
+or header is rebuilt and a stale library is never loaded. Nothing
 here runs at import time: the CPU tests import every module, and this
 machine may have no ``nvcc``.
 """
@@ -26,8 +27,6 @@ from ._common import BN_THREADS, DEFAULT_BLOCK_K, DEFAULT_BLOCK_Q
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-HEADERS = ("flash_common.cuh", "flash_fwd.cuh", "flash_bwd_dq.cuh",
-           "flash_bwd_dkv.cuh", "bn_common.cuh")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> (source, argtypes). Every pointer and the stream are
@@ -71,11 +70,18 @@ NVCC_FLAGS = [
 ]
 
 
+def headers() -> list:
+    """Every header under ``csrc/``, sorted: each one feeds every
+    library's hash, whichever sources include it."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path(name: str) -> Path:
-    source = KERNELS[name][0]
     digest = hashlib.sha256()
-    for f in (source, *HEADERS):
-        digest.update((CSRC / f).read_bytes())
+    digest.update((CSRC / KERNELS[name][0]).read_bytes())
+    for header in headers():
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

@@ -5,19 +5,45 @@ from __future__ import annotations
 import torch
 
 # ----------------------------------------------------------------------
-# Tile plumbing, in ONE place. The flash kernels' thread map (256
-# threads; each thread owns 4 rows x 4 columns of a 64 x 64 score tile
-# and 4 rows x 8 head-dim columns of the accumulators) is built for
-# 64 x 64 tiles: small enough that the three f32 [64, D<=128] operand
-# tiles plus the p tile fit one block's shared memory on Hopper
-# (~116-166 KB of the 227 KB a block may use) and that enough blocks
-# exist to fill 132 SMs at the Llama shape (B=2, S=2048, H=32 -> 2048
-# forward blocks). ops/_build.py passes these to nvcc as -D defines; the
-# kernel's static_assert refuses any other value.
+# Tile plumbing, in ONE place. Two kinds of flash body:
+#
+# - bf16 forward and dk/dv run on the tensor cores (wgmma, cp.async
+#   rings; csrc/flash_fwd.cuh and csrc/flash_bwd_dkv.cuh hold their
+#   tiles): the forward 128 q rows a block (two warpgroups of 64) by
+#   64-row k/v tiles, dk/dv 128 k rows a block by 64-row q tiles. They
+#   are instantiated at head dims 64 and 128; another head dim that is a
+#   multiple of 8 runs on the next one up with its extra columns
+#   zero-filled in shared memory (flash_tc_head_dim).
+# - dq (bf16 and f32) and the f32 forward and dk/dv keep the SIMT thread
+#   map below (256 threads; each thread owns 4 rows x 4 columns of a
+#   64 x 64 score tile and 4 rows x 8 head-dim columns of the
+#   accumulators): f32 FMA on f32 tiles in shared memory. ops/_build.py
+#   passes these to nvcc as -D defines; the kernels' static_assert
+#   refuses any other value.
 # ----------------------------------------------------------------------
 
-DEFAULT_BLOCK_Q = 64   # flash attention q-tile (rows per block)
-DEFAULT_BLOCK_K = 64   # flash attention k-tile (rows per inner step)
+DEFAULT_BLOCK_Q = 64   # SIMT flash q-tile (rows per block)
+DEFAULT_BLOCK_K = 64   # SIMT flash k-tile (rows per inner step)
+FLASH_TC_HEAD_DIMS = (64, 128)  # head dims of the bf16 tensor-core bodies
+
+
+def flash_tc_head_dim(head_dim: int) -> int:
+    """The head dim a bf16 flash launch at ``head_dim`` runs at: the
+    smallest of FLASH_TC_HEAD_DIMS that covers it (the columns past
+    ``head_dim`` are zero-filled in shared memory and never stored).
+    Raises ValueError for a head dim those bodies cannot take: one that
+    is not a multiple of 8 (they load rows in 16-byte chunks) or wider
+    than the widest."""
+    if head_dim < 1 or head_dim % 8:
+        raise ValueError(
+            f"the bf16 flash kernels take head_dim a multiple of 8 (they "
+            f"load rows in 16-byte chunks), got {head_dim}")
+    for width in FLASH_TC_HEAD_DIMS:
+        if head_dim <= width:
+            return width
+    raise ValueError(
+        f"the bf16 flash kernels take head_dim <= {FLASH_TC_HEAD_DIMS[-1]}, "
+        f"got {head_dim}")
 
 # ----------------------------------------------------------------------
 # BN reductions (csrc/bn_stats.cu, csrc/bn_grads.cu) over an [M, C]

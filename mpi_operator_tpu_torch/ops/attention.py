@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from ._common import flash_tc_head_dim
 
 NEG_INF = -1e30  # safe "minus infinity": avoids inf-inf -> nan in masking
 
@@ -265,7 +266,16 @@ def _kernel_device(same_type, others, head_dim: int):
                 f"the flash kernels take head_dim <= {_KERNEL_MAX_D}, got "
                 f"{head_dim}"
             )
+        if tensors[0].dtype == torch.bfloat16:
+            flash_tc_head_dim(head_dim)  # raises for a width bf16 cannot take
     return device
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with its first element 16-byte aligned, as the
+    bf16 bodies' 16-byte loads need: a copy only when it is not so."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_flat(qf, kf, vf, h, *extra):
@@ -323,7 +333,7 @@ def flash_fwd(qf, kf, vf, h: int, sm_scale: float, causal: bool):
     device = _check_flat(qf, kf, vf, h)
     if device.type == "cpu":
         return flash_fwd_plain(qf, kf, vf, h, sm_scale, causal)
-    qf, kf, vf = (t.contiguous() for t in (qf, kf, vf))
+    qf, kf, vf = (_dense(t) for t in (qf, kf, vf))
     b, q_len, kv_len, d, h_kv = _geometry(qf, kf, h)
     out = torch.empty_like(qf)
     lse = torch.empty(b, q_len, h, dtype=torch.float32, device=device)
@@ -337,7 +347,7 @@ def flash_fwd(qf, kf, vf, h: int, sm_scale: float, causal: bool):
 
 def _bwd_operands(qf, kf, vf, do, lse, delta):
     return (
-        qf.contiguous(), kf.contiguous(), vf.contiguous(), do.contiguous(),
+        _dense(qf), _dense(kf), _dense(vf), _dense(do),
         lse.float().contiguous(), delta.float().contiguous(),
     )
 
@@ -399,7 +409,7 @@ def flash_bhsd_fwd(q, k, v, sm_scale: float, causal: bool, row_ids=None,
     if device.type == "cpu":
         return flash_bhsd_fwd_plain(q, k, v, sm_scale, causal, row_ids,
                                     col_ids)
-    q, k, v = (t.contiguous() for t in (q, k, v))
+    q, k, v = (_dense(t) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=device)
     id_ptrs, _ids = _id_pointers(row_ids, col_ids)
@@ -504,7 +514,8 @@ def flash_attention_bshd(
 
     Differentiable: the backward runs the dq and dkv kernels. Tensors on
     a CUDA device go through the kernels (bfloat16 or float32, head_dim
-    <= 128); tensors on the CPU through the plain versions.
+    <= 128, in bfloat16 a multiple of 8); tensors on the CPU through the
+    plain versions.
     """
     if q.ndim != 4:
         raise ValueError(f"expected [B, S, H, D] inputs, got rank {q.ndim}")
@@ -597,8 +608,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
     Causal masking is bottom-right aligned; a row that sees no key gives
     0. Differentiable: the backward runs the dq and dkv kernels. Tensors
     on a CUDA device go through the [B*H, S, D] kernels (bfloat16 or
-    float32, head_dim <= 128); tensors on the CPU through their plain
-    versions."""
+    float32, head_dim <= 128, in bfloat16 a multiple of 8); tensors on
+    the CPU through their plain versions."""
     qr, kr, vr = _bhsd_rows(q, k, v)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
