@@ -11,8 +11,9 @@ Phases, in order:
    every CUDA source under ``mpi_operator_tpu_torch/csrc/``, one ``nvcc``
    each, all started together; each kernel's registers and spills from
    ptxas (a flash kernel that spills fails the run) and, from
-   ``cuobjdump -sass``, its tensor-core instructions (the bf16 forward and
-   dk/dv bodies must issue wgmma, HGMMA in SASS);
+   ``cuobjdump -sass``, its tensor-core instructions (the bf16 forward,
+   dq and dk/dv bodies must be there at both head dims and issue wgmma,
+   HGMMA in SASS);
 2. ``kernels``: each kernel against its plain version on the card, with
    times by CUDA events beside the bound and one PyTorch library call:
    - the six flash kernels, flat ([B, S, H*D]) and [B*H, S, D], at the
@@ -20,9 +21,11 @@ Phases, in order:
      causal) and the BERT-base shape (B=64, S=512, H=12, D=64, bf16,
      non-causal; timed at both), and in f32 and bf16 a padded GQA shape
      (S=200), a masked-row shape (Sq > Sk, causal) and, for the
-     [B*H, S, D] kernels, an id-masked shape with rows that see nothing;
-     bf16 also at head dims 80 and 32, which run on the tensor-core
-     bodies' next instantiated width (128, 64);
+     [B*H, S, D] kernels, an id-masked shape with rows that see nothing
+     (their out, lse and dq must be exactly 0, -1e30 and 0); bf16 also at
+     head dims 80 and 32, which run on the tensor-core bodies' next
+     instantiated width (128, 64); at the two timed shapes the backward
+     pair (dq then dk/dv) is timed too, beside SDPA's whole backward;
    - the BN kernels at the ResNet-101 stem ([802816, 64] bf16 at B=64),
      stage 3's widest layer ([3136, 2048] bf16) and a ragged f32 shape
      ([1000, 130]);
@@ -70,8 +73,8 @@ PEAK_BYTES_PER_S = 3.35e12
 
 # Kernel checks. bf16 operands: the kernel accumulates in f32 and rounds
 # each output to bf16 once (2^-9 relative); the tensor-core bodies also
-# round P (forward, dv) and dS (dk) to bf16 before their products, 2^-9
-# relative per term, which averages down over the sum. The plain version
+# round P (forward, dv) and dS (dk and dq) to bf16 before their products,
+# 2^-9 relative per term, which averages down over the sum. The plain version
 # runs in f32 on the same bf16 inputs, so the norm-relative error is
 # ~1e-3-2e-3; 1e-2 leaves room for summation order. f32: only summation
 # order and expf differ (~1e-6 relative over a few hundred terms).
@@ -344,20 +347,25 @@ def sass_tensor_ops(name: str) -> dict:
     return counts
 
 
-# The kernels whose bf16 instantiations are the tensor-core bodies.
-TC_BODIES = ("flash::fwd_kernel_tc", "flash::bwd_dkv_kernel_tc")
+# The tensor-core body of each flash kernel's library (bf16), each
+# instantiated at the head dims 64 and 128.
+TC_BODIES = ("flash::fwd_kernel_tc", "flash::bwd_dq_kernel_tc",
+             "flash::bwd_dkv_kernel_tc")
+TC_HEAD_DIMS = (64, 128)
 
 
 def check_build() -> None:
     """Per kernel: registers and spills (ptxas) and tensor-core
-    instructions (SASS). Fails if a flash kernel spills or a tensor-core
-    body issues no wgmma."""
+    instructions (SASS). Fails if a flash kernel spills, a flash library
+    lacks a tensor-core body at one of TC_HEAD_DIMS, or a tensor-core body
+    issues no wgmma."""
     from mpi_operator_tpu_torch.ops import _build
 
     failed = []
     for name in _build.KERNELS:
         sass = sass_tensor_ops(name)
-        for kernel, regs, spill in ptxas_report(name):
+        report = ptxas_report(name)
+        for kernel, regs, spill in report:
             ops = sass.get(kernel, {})
             log(f"ptxas {name}: {kernel} registers {regs} spill bytes {spill}"
                 f"; SASS HGMMA {ops.get('HGMMA')} HMMA {ops.get('HMMA')}")
@@ -365,6 +373,12 @@ def check_build() -> None:
                 failed.append(f"{kernel} spills {spill} bytes")
             if kernel.startswith(TC_BODIES) and not ops.get("HGMMA"):
                 failed.append(f"{kernel} issues no wgmma")
+        bodies = sorted(kernel for kernel, _, _ in report
+                        if kernel.startswith(TC_BODIES))
+        dims = sorted(int(k[k.index("<") + 1:-1]) for k in bodies)
+        if name.startswith("flash") and dims != list(TC_HEAD_DIMS):
+            failed.append(f"{name} holds tensor-core bodies {bodies}, "
+                          f"want one at each head dim of {TC_HEAD_DIMS}")
     if failed:
         raise AssertionError("kernel build checks failed: " + "; ".join(failed))
 
@@ -416,9 +430,12 @@ def check_kernels() -> dict:
             dq_p = plains[1](*f32, lse, delta)
             dk_p, dv_p = plains[2](*f32, lse, delta)
             live = lse_p > attn.NEG_INF / 2
+            # Rows that see nothing: out = 0, lse = NEG_INF and dq = 0
+            # exactly (dk and dv get nothing from them).
             dead_rows_ok = bool(
                 torch.all(lse[~live] == attn.NEG_INF)
-                and torch.all(out.reshape(*lse.shape, d)[~live] == 0))
+                and torch.all(out.reshape(*lse.shape, d)[~live] == 0)
+                and torch.all(dq.reshape(*lse.shape, d)[~live] == 0))
             if s.get("ids") and bool(live.all()):
                 raise AssertionError("the id-masked shape has no masked row")
             errs = [
@@ -458,6 +475,16 @@ def check_kernels() -> dict:
                 log(f"kernel {name} [{label}] timing: " + json.dumps(
                     {k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")}))
+            # The backward pair as the autograd backward runs it, against
+            # SDPA's whole backward (dq, dk and dv in one call).
+            pair_ms = time_ms(lambda: (kernels[1](*bwd_args),
+                                       kernels[2](*bwd_args)), 2, 10)
+            for name in FLASH_NAMES[layout][1:]:
+                timed[name, label]["bwd_pair_ms"] = pair_ms
+            log(f"kernel backward pair {layout} [{label}] timing: "
+                + json.dumps({"dq_plus_dkv_ms": pair_ms,
+                              "library_ms": lib_ms["bwd"],
+                              "ratio": pair_ms / lib_ms["bwd"]}))
             del out, lse, delta, dq, dk, dv, bwd_args, ops, qx, kx, vx, dox
         del q4, k4, v4, do4
         torch.cuda.empty_cache()

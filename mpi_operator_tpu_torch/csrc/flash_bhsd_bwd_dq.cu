@@ -6,8 +6,8 @@
 // What bounds it on an H100: three S x S x D products per head, ~7.7e10
 // FLOPs at the BERT-base shape (B=64, S=512, H=12, D=64, bf16, non-causal)
 // against ~0.26 GB of operands, so the tensor cores bound it (~0.078 ms).
-// This first kernel uses f32 FMA from shared memory and is bound by that,
-// far above the bound.
+// bf16 runs on the tensor-core body, f32 on the SIMT body
+// (flash_bwd_dq.cuh).
 //
 // Design: the body is the flat kernel's (flash_bwd_dq.cuh), reading these
 // operands by strides, GQA by index; delta = rowsum(do * o) - dlse comes

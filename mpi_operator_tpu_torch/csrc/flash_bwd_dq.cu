@@ -5,8 +5,8 @@
 //
 // What bounds it on an H100: three S x S x D products per head, ~1.0e11
 // FLOPs at the causal Llama shape against ~0.1 GB of operands, so the bound
-// is the tensor cores (~0.1 ms). This first kernel uses f32 FMA from shared
-// memory and is bound by that, far above the bound.
+// is the tensor cores (~0.1 ms). bf16 runs on the tensor-core body
+// (wgmma, cp.async ring), f32 on the SIMT body (flash_bwd_dq.cuh).
 //
 // Design: the body (flash_bwd_dq.cuh) reads the [B, S, H*D] operands by
 // strides; delta = rowsum(do * o) comes from the wrapper as f32 [B, Sq, H].

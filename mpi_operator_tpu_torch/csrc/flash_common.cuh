@@ -17,12 +17,12 @@
 // the kernels.
 //
 // Two kinds of body:
-// - bf16 forward and dk/dv: tensor-core bodies (wgmma, cp.async rings;
-//   flash_fwd.cuh and flash_bwd_dkv.cuh say their tiles);
-// - dq (both types) and the f32 forward and dk/dv: SIMT bodies, f32 FMA on
-//   tiles staged in shared memory as f32 (bf16 widened on load), with the
-//   thread map below. f32 has no tensor-core path of its precision (TF32
-//   keeps 10 mantissa bits).
+// - bf16 (forward, dq and dk/dv): tensor-core bodies (wgmma, cp.async
+//   rings; flash_fwd.cuh, flash_bwd_dq.cuh and flash_bwd_dkv.cuh say their
+//   tiles);
+// - f32 (forward, dq and dk/dv): SIMT bodies, f32 FMA on tiles staged in
+//   shared memory, with the thread map below. f32 has no tensor-core path
+//   of its precision (TF32 keeps 10 mantissa bits).
 //
 // SIMT tiles: 64 rows of q by 64 rows of k, 256 threads. Thread t owns tile
 // rows 4 * (t / 16) + i (i < 4) and tile columns (t % 16) + 16 * j (j < 4);

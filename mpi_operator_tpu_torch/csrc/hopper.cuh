@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the tensor-core flash bodies
-// (flash_fwd.cuh, flash_bwd_dkv.cuh): 16-byte cp.async with zero fill, the
-// 128-byte swizzle of shared-memory tiles, wgmma matrix descriptors, and
-// the one wgmma shape the bodies issue, m64n64k16 (bf16 in, f32
-// accumulate), with A from shared memory or from registers.
+// (flash_fwd.cuh, flash_bwd_dq.cuh, flash_bwd_dkv.cuh): 16-byte cp.async
+// with zero fill, the 128-byte swizzle of shared-memory tiles, wgmma
+// matrix descriptors, and the one wgmma shape the bodies issue, m64n64k16
+// (bf16 in, f32 accumulate), with A from shared memory or from registers.
 //
 // Shared-memory tiles. An operand tile of R rows by W bf16 columns (W a
 // multiple of 64) is stored as W / 64 column blocks, each R rows of 128
@@ -11,12 +11,12 @@
 // SWIZZLE_128B layout reads. Every block starts 1024-byte aligned.
 //
 // - K-major operand (the reduction runs along the row, as q, k, v and do
-//   are stored for q k^T, k q^T and v do^T): a k16 step is 32 bytes
-//   within the 128-byte row, so step kk starts at block kk / 4, byte
+//   are stored for q k^T, do v^T, k q^T and v do^T): a k16 step is 32
+//   bytes within the 128-byte row, so step kk starts at block kk / 4, byte
 //   32 * (kk % 4); groups of 8 rows lie 1024 bytes apart (SBO).
-// - MN-major operand (the reduction runs down the rows, as v and do, q
-//   are stored for p v, p^T do and ds^T q): a k16 step is 16 rows, 2048
-//   bytes; the two groups of 8 rows in it lie 1024 bytes apart. Each
+// - MN-major operand (the reduction runs down the rows, as v, k, do and q
+//   are stored for p v, ds k, p^T do and ds^T q): a k16 step is 16 rows,
+//   2048 bytes; the two groups of 8 rows in it lie 1024 bytes apart. Each
 //   instruction covers one 64-column block (n = 64), so the stride
 //   between column blocks is never read from the descriptor.
 #pragma once

@@ -7,19 +7,19 @@ import torch
 # ----------------------------------------------------------------------
 # Tile plumbing, in ONE place. Two kinds of flash body:
 #
-# - bf16 forward and dk/dv run on the tensor cores (wgmma, cp.async
-#   rings; csrc/flash_fwd.cuh and csrc/flash_bwd_dkv.cuh hold their
-#   tiles): the forward 128 q rows a block (two warpgroups of 64) by
-#   64-row k/v tiles, dk/dv 128 k rows a block by 64-row q tiles. They
-#   are instantiated at head dims 64 and 128; another head dim that is a
-#   multiple of 8 runs on the next one up with its extra columns
-#   zero-filled in shared memory (flash_tc_head_dim).
-# - dq (bf16 and f32) and the f32 forward and dk/dv keep the SIMT thread
-#   map below (256 threads; each thread owns 4 rows x 4 columns of a
-#   64 x 64 score tile and 4 rows x 8 head-dim columns of the
-#   accumulators): f32 FMA on f32 tiles in shared memory. ops/_build.py
-#   passes these to nvcc as -D defines; the kernels' static_assert
-#   refuses any other value.
+# - bf16 forward, dq and dk/dv run on the tensor cores (wgmma, cp.async
+#   rings; csrc/flash_fwd.cuh, csrc/flash_bwd_dq.cuh and
+#   csrc/flash_bwd_dkv.cuh hold their tiles): the forward and dq 128 q
+#   rows a block (two warpgroups of 64) by 64-row k/v tiles, dk/dv 128 k
+#   rows a block by 64-row q tiles. They are instantiated at head dims 64
+#   and 128; another head dim that is a multiple of 8 runs on the next
+#   one up with its extra columns zero-filled in shared memory
+#   (flash_tc_head_dim).
+# - f32 forward, dq and dk/dv keep the SIMT thread map below (256
+#   threads; each thread owns 4 rows x 4 columns of a 64 x 64 score tile
+#   and 4 rows x 8 head-dim columns of the accumulators): f32 FMA on f32
+#   tiles in shared memory. ops/_build.py passes these to nvcc as -D
+#   defines; the kernels' static_assert refuses any other value.
 # ----------------------------------------------------------------------
 
 DEFAULT_BLOCK_Q = 64   # SIMT flash q-tile (rows per block)
