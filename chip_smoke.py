@@ -24,24 +24,34 @@ Phases, in order:
      [B*H, S, D] kernels, an id-masked shape with rows that see nothing
      (their out, lse and dq must be exactly 0, -1e30 and 0); bf16 also at
      head dims 80 and 32, which run on the tensor-core bodies' next
-     instantiated width (128, 64); at the two timed shapes the backward
-     pair (dq then dk/dv) is timed too, beside SDPA's whole backward;
+     instantiated width (128, 64); the flat kernels also at ViT-B/16's
+     shape (B=64, S=197, H=12, D=64, ragged tiles), seq2seq's cross
+     attention (B=16, Sq=256, Sk=512, H=8, D=64) and its causal decoder
+     (B=16, S=256); at the Llama, BERT, ViT and cross shapes each kernel
+     and the backward pair (dq then dk/dv) are timed, beside SDPA;
    - the BN kernels at the ResNet-101 stem ([802816, 64] bf16 at B=64),
      stage 3's widest layer ([3136, 2048] bf16) and a ragged f32 shape
      ([1000, 130]);
+   - the bf16 head product (cuBLAS bf16 GEMMs with f32 logits) at one
+     Llama head chunk against its plain version;
 3. ``model``: llama3-8b at full width, 2 layers: loss and every gradient
    through the flat kernels and through the [B*H, S, D] kernels
    (``flash-bhsd``) against the dense oracle; ResNet-101 at full width
    and depth, B=8: loss, every gradient and the running statistics
    through the BN kernels against the plain-op BN route; BERT-base at
    full depth and width, B=8, S=512: loss and every gradient through
-   both flash routes against the dense oracle, in f32 and bf16;
+   both flash routes against the dense oracle, in f32 and bf16; ViT-B/16
+   (B=8) and t5-small seq2seq (B=4, src 512, dec 256) through the flat
+   kernels against the dense oracle in f32, and in bf16 against the flat
+   route through the kernels' plain versions;
 4. ``train``: the trainer's own entry point
    (``mpi_operator_tpu_torch.cmd.train.main``) on each main path: Llama
    (full width, 2 layers, S=2048, 6 AdamW steps), ResNet-101 with
    ``--bn-kernel pallas`` (B=64, 224x224, 6 SGD steps) and BERT-base
    (B=64, S=512, ``--mlm-layout positions``, 6 AdamW steps), then 3 steps
-   of the BERT train step on the ``flash-bhsd`` route. Each loss must be
+   of the BERT train step on the ``flash-bhsd`` route, then ViT-B/16
+   (B=64) and t5-small seq2seq (B=16, src 512, dec 256), 6 AdamW steps
+   each. Each loss must be
    finite (and, for the trainer runs, fall), and each run's launch
    counters (set to 0 just before it, read just after) must show exactly
    its own kernels;
@@ -136,6 +146,20 @@ BERT_TRAIN_ARGS = [
     "--mlm-layout", "positions", "--steps", "6", "--warmup", "2", "--lr",
     "1e-4", "--log-every", "1",
 ]
+
+# ViT-B/16 and t5-small seq2seq: the JAX trainer's default batches (64
+# images, 16 pairs a device), seq2seq with src 512 and dec 256; AdamW at
+# 3e-4, Llama's rate here.
+VIT_TRAIN_ARGS = [
+    "--model", "vit-base", "--global-batch", "64", "--steps", "6",
+    "--warmup", "2", "--lr", "3e-4", "--log-every", "1",
+]
+VIT_LAYERS = 12
+S2S_TRAIN_ARGS = [
+    "--model", "seq2seq-small", "--global-batch", "16", "--seq-len", "512",
+    "--steps", "6", "--warmup", "2", "--lr", "3e-4", "--log-every", "1",
+]
+S2S_ATTENTION_CALLS = 18  # 6 encoder self, 6 decoder self, 6 cross
 
 # Kernel -> the TPU kernel it replaces.
 REPLACES = {
@@ -245,7 +269,20 @@ FLASH_SHAPES = [
                       causal=True), ("flat", "bhsd")),
     ("d32-bf16", dict(b=2, sq=100, sk=130, h=4, hkv=4, d=32, dtype="bf16",
                       causal=True), ("flat", "bhsd")),
+    # ViT-B/16 at B=64: 197 = 128 + 69 q rows and 3 x 64 + 5 k rows, so
+    # the last q and k tiles are ragged.
+    ("vit", dict(b=64, sq=197, sk=197, h=12, hkv=12, d=64, dtype="bf16",
+                 causal=False), ("flat",)),
+    # t5-small seq2seq at B=16, src 512, dec 256: cross attention has
+    # twice as many k tiles as q tiles; the decoder's self attention is
+    # causal.
+    ("s2s-cross", dict(b=16, sq=256, sk=512, h=8, hkv=8, d=64, dtype="bf16",
+                       causal=False), ("flat",)),
+    ("s2s-dec", dict(b=16, sq=256, sk=256, h=8, hkv=8, d=64, dtype="bf16",
+                     causal=True), ("flat",)),
 ]
+# The shapes timed (kernel, plain version, SDPA) besides being checked.
+TIMED_SHAPES = ("llama", "bert", "vit", "s2s-cross")
 FLASH_NAMES = {
     "flat": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
     "bhsd": ("flash_bhsd_fwd", "flash_bhsd_bwd_dq", "flash_bhsd_bwd_dkv"),
@@ -385,8 +422,7 @@ def check_build() -> None:
 
 def check_kernels() -> dict:
     """Each flash kernel against its plain version at every shape of
-    FLASH_SHAPES in each of its layouts, timed at the Llama and BERT
-    shapes. Returns a record per kernel (errors, times, bounds), plus
+    FLASH_SHAPES in each of its layouts, timed at TIMED_SHAPES. Returns a record per kernel (errors, times, bounds), plus
     ``flash_fwd_d64``: the flat forward at the BERT shape, the record for
     hack/headdim_probe.py's packed d=64 kernel."""
     import torch
@@ -409,7 +445,7 @@ def check_kernels() -> dict:
         q4, k4, v4, do4 = (rand(b, n, ln, d) for n, ln in
                            ((h, sq), (hkv, sk), (hkv, sk), (h, sq)))
         lib_ms = None
-        if label in ("llama", "bert"):
+        if label in TIMED_SHAPES:
             lib_ms = _sdpa_ms(q4, k4, v4, do4, causal)
         for layout in layouts:
             if layout == "flat":
@@ -675,6 +711,78 @@ def check_bn_kernels() -> dict:
     return records
 
 
+# The head product (ops/losses.py HeadProduct) against its plain version.
+# Logits: both sides multiply the same bf16 values with f32 accumulation,
+# in another order (cuBLAS against an f32 GEMM of the upcast operands),
+# ~1e-6 norm-relative over D=4096. dh and dw: the card rounds the f32
+# cotangent to bf16 first (2^-9 relative an element, ~1.7e-3 of the
+# product's norm, measured on the H100) where the plain version keeps it
+# in f32, and both round their result to bf16 once.
+HEAD_TOL = {"logits": 5e-5, "dh": 1e-2, "dw": 1e-2}
+
+
+def check_head() -> dict:
+    """The bf16 head product (``HeadProduct``: cuBLAS bf16 x bf16 GEMMs
+    with f32 output) at the Llama head's shape, one ``--xent-chunk 1024``
+    chunk of the B=2 batch (h [2048, 4096], w [4096, 128256]): the logits
+    must be f32, and logits, dh and dw agree with the plain version
+    (upcast operands, f32 products, the f32 cotangent) within HEAD_TOL.
+    Returns the errors and times (the three GEMMs of a forward and
+    backward against the plain version's three f32 GEMMs, and the bound:
+    their operations at the bf16 peak)."""
+    import torch
+
+    from mpi_operator_tpu_torch.ops import losses
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n, d, v = 2 * 1024, 4096, 128256
+    h = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(d, v, generator=gen, device="cuda") * d ** -0.5).to(
+        torch.bfloat16)
+    g = torch.randn(n, v, generator=gen, device="cuda") / n
+    hg, wg = h.clone().requires_grad_(), w.clone().requires_grad_()
+    logits = losses.HeadProduct.apply(hg, wg)
+    dh, dw = torch.autograd.grad(logits, (hg, wg), g)
+    torch.cuda.synchronize()
+    errs = {"logits": norm_rel(logits, losses.head_logits_plain(h, w))}
+    dh_p, dw_p = losses.head_grads_plain(h, w, g)
+    errs["dh"], errs["dw"] = norm_rel(dh, dh_p), norm_rel(dw, dw_p)
+    del dh_p, dw_p
+    dtypes = (logits.dtype, dh.dtype, dw.dtype)
+    ok = (dtypes == (torch.float32, torch.bfloat16, torch.bfloat16)
+          and all(errs[k] <= HEAD_TOL[k] for k in errs)
+          and math.isfinite(float(logits.float().abs().max())))
+    del logits, dh, dw
+
+    def fwd_bwd():
+        out = losses.HeadProduct.apply(hg, wg)
+        torch.autograd.grad(out, (hg, wg), g)
+
+    def plain():
+        losses.head_logits_plain(h, w)
+        losses.head_grads_plain(h, w, g)
+
+    rec = {"shape": [n, d, v], "norm_rel_err": errs, "tol": HEAD_TOL,
+           "dtypes": [str(t).removeprefix("torch.") for t in dtypes],
+           "fwd_bwd_ms": time_ms(fwd_bwd, 2, 5),
+           "plain_ms": time_ms(plain, 1, 2),
+           "bound_ms": 3 * 2 * n * d * v / PEAK_FLOPS["bf16"] * 1e3,
+           "bound_by": "operations"}
+    log(f"head bf16 product {json.dumps(rec)} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the bf16 head product disagrees with its plain "
+                             "version")
+    try:
+        losses.HeadProduct.apply(h.float(), w)
+    except TypeError as e:
+        log(f"head product refuses f32 operands: {e}")
+    else:
+        raise AssertionError("the head product accepted f32 operands")
+    del h, w, g, hg, wg
+    torch.cuda.empty_cache()
+    return rec
+
+
 def check_model() -> None:
     """llama3-8b, full width, 2 layers, B=1, S=256: loss and gradients
     through the flat kernels (``flash``) and the [B*H, S, D] kernels
@@ -731,30 +839,6 @@ def check_model() -> None:
                              f"dense oracle")
     del results, gd, state
     torch.cuda.empty_cache()
-
-
-def _bert_pass(impl: str, dtype, state, batch):
-    """One forward + backward of BERT-base (mask layout, full [B, S, V]
-    logits) on the attention route ``impl`` in ``dtype`` compute from
-    ``state``: (loss, f32 gradients by name, attention launches)."""
-    import torch
-
-    from mpi_operator_tpu_torch.models import bert as lib
-    from mpi_operator_tpu_torch.ops import attention as attn
-
-    model = lib.Bert(lib.bert_base(attention_impl=impl, dtype=dtype),
-                     device="cuda")
-    model.load_state_dict(state)
-    attn.reset_launch_counts()
-    loss = lib.mlm_loss(model, *batch)
-    loss.backward()
-    torch.cuda.synchronize()
-    out = (float(loss.detach()),
-           {n: p.grad.float() for n, p in model.named_parameters()
-            if p.grad is not None},
-           dict(attn.LAUNCHES))
-    del model, loss
-    return out
 
 
 def _grad_errors(got: dict, want: dict, tiny: float = 0.0) -> dict:
@@ -815,47 +899,164 @@ def check_bert_model() -> None:
     lib.init_params(model, torch.Generator(device="cuda").manual_seed(0))
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
     del model
-    runs = {(impl, dt): _bert_pass(impl, getattr(torch, dt), state, batch)
+    runs = {(impl, dt): _route_pass(
+                lambda: lib.Bert(lib.bert_base(attention_impl=impl,
+                                               dtype=getattr(torch, dt)),
+                                 device="cuda"),
+                state, lib.mlm_loss, batch)
             for dt in ("float32", "bfloat16")
             for impl in ("dense", "flash", "flash-bhsd")}
+    _hold_routes("bert-base B=8 S=512", runs, BERT_LAYERS)
+    del runs, state
+    torch.cuda.empty_cache()
+
+
+def _hold_routes(label: str, runs: dict, n_calls: int) -> None:
+    """Hold each attention route of one model against the f32 dense
+    oracle: ``runs[impl, dtype]`` = (loss, f32 gradients by name, launch
+    counts) for impl among dense, flash and flash-bhsd and dtype float32
+    and bfloat16. Each kernel route must have launched its own three
+    kernels ``n_calls`` times each (one forward + backward) and no other.
+
+    f32: a kernel route and the oracle differ only in the order of f32
+    sums and must agree directly (BERT_F32_TOL), leaf by leaf. bf16: each
+    route rounds at other points, so every bf16 route is held against the
+    f32 oracle: a kernel route may be at most BERT_ERROR_RATIO x as far
+    from it as the dense bf16 route, plus a floor. The worst leaf there
+    leaves out the leaves whose gradient is below BERT_TINY_LEAF of their
+    layer's largest (``check_bert_model`` says why); they still count in
+    the all-leaf error."""
     ref_loss, ref_grads, _ = runs["dense", "float32"]
+    # The bf16 yardstick: the flat route through the kernels' plain
+    # versions where the runs have it, else the dense route.
+    yard = "flash-plain" if ("flash-plain", "bfloat16") in runs else "dense"
     ok_all = True
     for (impl, dt), (loss, grads, launches) in runs.items():
         own = {"flash": FLASH_NAMES["flat"], "flash-bhsd": FLASH_NAMES["bhsd"],
-               "dense": ()}[impl]
-        launches_ok = all(n == (BERT_LAYERS if k in own else 0)
+               "dense": (), "flash-plain": ()}[impl]
+        launches_ok = all(n == (n_calls if k in own else 0)
                           for k, n in launches.items())
         err = {"loss": abs(loss - ref_loss) / abs(ref_loss),
                **_grad_errors(grads, ref_grads,
                               BERT_TINY_LEAF if dt == "bfloat16" else 0.0)}
-        if impl == "dense":
+        if impl in ("dense", "flash-plain"):
             ok = launches_ok and math.isfinite(loss)
-            want = "the yardstick"
+            want = "a yardstick"
         elif dt == "float32":
             ok = (launches_ok and err["loss"] <= BERT_F32_TOL["loss"]
                   and err["worst_leaf"] <= BERT_F32_TOL["grads"])
             want = f"tol {BERT_F32_TOL}"
         else:
-            plain = _grad_errors(runs["dense", dt][1], ref_grads,
+            plain = _grad_errors(runs[yard, dt][1], ref_grads,
                                  BERT_TINY_LEAF)
-            plain["loss"] = abs(runs["dense", dt][0] - ref_loss) / abs(ref_loss)
+            plain["loss"] = abs(runs[yard, dt][0] - ref_loss) / abs(ref_loss)
             ok = launches_ok and all(
                 err[k] <= BERT_ERROR_RATIO * plain[k] + BERT_BF16_FLOOR
                 for k in ("loss", "grads", "worst_leaf"))
-            want = (f"<= {BERT_ERROR_RATIO}x the dense {dt} route's "
+            want = (f"<= {BERT_ERROR_RATIO}x the {yard} {dt} route's "
                     f"{ {k: f'{plain[k]:.3e}' for k in ('loss', 'grads', 'worst_leaf')} }"
                     f" + {BERT_BF16_FLOOR:.0e}")
         ok_all = ok_all and ok
-        log(f"model bert-base B=8 S=512 {impl} {dt} vs the f32 dense oracle "
+        log(f"model {label} {impl} {dt} vs the f32 dense oracle "
             f"(loss {ref_loss:.6f}): loss {loss:.6f}, "
             + json.dumps({k: (f"{v:.3e}" if isinstance(v, float) else v)
                           for k, v in err.items()})
             + f" ({want}); launches {launches} -> {'ok' if ok else 'FAIL'}")
     if not ok_all:
-        raise AssertionError("a BERT kernel route disagrees with the dense "
-                             "oracle")
-    del runs, state, ref_grads
-    torch.cuda.empty_cache()
+        raise AssertionError(f"a {label} kernel route disagrees with the "
+                             f"dense oracle")
+
+
+@contextlib.contextmanager
+def _plain_flat_flash():
+    """The flat flash route with the kernels' plain versions standing in
+    for the kernel wrappers (on CUDA tensors too), for as long as the
+    context lasts: the same algorithm, delta from the bf16 output
+    included, in f32 arithmetic."""
+    from mpi_operator_tpu_torch.ops import attention as attn
+
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    kernels = {n: getattr(attn, n) for n in names}
+    try:
+        for n in names:
+            setattr(attn, n, getattr(attn, n + "_plain"))
+        yield
+    finally:
+        for n, fn in kernels.items():
+            setattr(attn, n, fn)
+
+
+def _route_pass(make_model, state, loss_fn, batch):
+    """One forward + backward of ``make_model()`` loaded from ``state``:
+    (loss, f32 gradients by name, attention launches)."""
+    import torch
+
+    from mpi_operator_tpu_torch.ops import attention as attn
+
+    model = make_model()
+    model.load_state_dict(state)
+    attn.reset_launch_counts()
+    loss = loss_fn(model, *batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    out = (float(loss.detach()),
+           {n: p.grad.float() for n, p in model.named_parameters()
+            if p.grad is not None},
+           dict(attn.LAUNCHES))
+    del model, loss
+    return out
+
+
+def check_vit_seq2seq_models() -> None:
+    """ViT-B/16 (B=8, 224x224) and t5-small seq2seq (B=4, src 512, dec
+    256), full depth and width: loss and every gradient through the flat
+    flash kernels against the dense oracle on the same weights and batch,
+    in f32 and bf16, held as BERT's routes are (``_hold_routes``), except
+    that the bf16 kernel route's yardstick is the same route through the
+    kernels' plain versions. The dense bf16 route is no fair yardstick
+    here: the flash backward takes delta = rowsum(do * o) from the
+    bf16-rounded output, as the JAX kernels do, and in the deeper decoder
+    layers of seq2seq (measured on the CPU at t5-small's widths) that
+    puts a few q and k projections' gradients 3x as far from the f32
+    oracle as the dense route's, above BERT_TINY_LEAF of their layer's
+    largest. The plain versions share that delta, so the kernels are
+    held to what their own algorithm gives. One forward + backward
+    launches each flat kernel 12 times in ViT and 18 times in seq2seq (6
+    encoder, 6 decoder self and 6 cross attention calls)."""
+    import numpy as np
+    import torch
+
+    from mpi_operator_tpu_torch.models import seq2seq as s2s
+    from mpi_operator_tpu_torch.models import vit
+
+    rng = np.random.RandomState(2)
+    images = torch.as_tensor(
+        rng.standard_normal((8, 224, 224, 3)).astype(np.float32), device="cuda")
+    labels = torch.as_tensor(rng.randint(0, 1000, (8,)), device="cuda")
+    src = torch.as_tensor(rng.randint(1, 32128, (4, 512)), device="cuda")
+    cases = [
+        ("vit-base B=8", vit, vit.vit_base, vit.ViT, (images, labels), 12),
+        ("seq2seq-small B=4 src 512 dec 256", s2s, s2s.t5_small_shape,
+         s2s.Seq2Seq, (src, src[:, :256]), 18),
+    ]
+    for label, lib, config, cls, batch, n_calls in cases:
+        model = cls(config(), device="cuda")
+        lib.init_params(model, torch.Generator(device="cuda").manual_seed(0))
+        state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        del model
+        def run(impl, dt):
+            return _route_pass(
+                lambda: cls(config(attention_impl=impl,
+                                   dtype=getattr(torch, dt)), device="cuda"),
+                state, lib.loss_fn, batch)
+
+        runs = {(impl, dt): run(impl, dt) for dt in ("float32", "bfloat16")
+                for impl in ("dense", "flash")}
+        with _plain_flat_flash():
+            runs["flash-plain", "bfloat16"] = run("flash", "bfloat16")
+        _hold_routes(label, runs, n_calls)
+        del runs, state
+        torch.cuda.empty_cache()
 
 
 def _resnet_pass(impl: str, dtype, state, images, labels):
@@ -1122,6 +1323,70 @@ def run_bert_train() -> tuple[dict, dict]:
     return summary, launches
 
 
+def _s2s_flops_per_pair(src_len: int = 512, dec_len: int = 256) -> float:
+    """bench.py's seq2seq accounting (2 x MAC, fwd + bwd = 3 x fwd) with
+    the source and decoder lengths apart: 6 x the encoder's matmul
+    parameters on the source tokens, 6 x every other parameter (the tied
+    table counted once, as the head) on the decoder tokens, 12*L*S^2*d
+    for the encoder's self attention, 6*L*S_dec^2*d for the decoder's
+    causal self attention and 12*L*S_dec*S_src*d for cross attention."""
+    from mpi_operator_tpu_torch.models import seq2seq as lib
+
+    cfg = lib.t5_small_shape()
+    n_params = sum(p.numel() for p in
+                   lib.Seq2Seq(cfg, device="meta").parameters())
+    d, le, ld = cfg.dim, cfg.n_enc_layers, cfg.n_dec_layers
+    enc_params = le * (4 * d * d + 2 * d * cfg.ffn_dim)
+    return (6 * enc_params * src_len + 6 * (n_params - enc_params) * dec_len
+            + 12 * le * src_len * src_len * d
+            + 6 * ld * dec_len * dec_len * d
+            + 12 * ld * dec_len * src_len * d)
+
+
+def run_flat_train(label: str, argv, n_calls: int, flops_per_example: float
+                   ) -> tuple[dict, dict]:
+    """The trainer's own entry point on a model whose every attention call
+    takes the flat flash kernels (``n_calls`` a step): a finite, falling
+    loss over 6 steps and exactly ``n_calls`` x 6 launches of each flat
+    kernel and none of any other; returns (the summary line with MFU,
+    ``flops_per_example`` per example fwd + bwd at the bf16 peak; the
+    launch counts)."""
+    import torch
+
+    summary, launches = _drive_trainer(argv)
+    summary["mfu_bf16_peak"] = (summary["examples_per_sec"]
+                                * flops_per_example / PEAK_FLOPS["bf16"])
+    steps = summary["steps"]
+    want = _want_launches({k: n_calls * steps for k in FLASH_NAMES["flat"]})
+    ok = (steps == 6 and math.isfinite(summary["loss"])
+          and summary["loss"] < summary["first_loss"] and launches == want)
+    log(f"train {label} summary: " + json.dumps(summary))
+    log(f"train {label} launches {launches} (want {want}); loss "
+        f"{summary['first_loss']:.4f} -> {summary['loss']:.4f}; examples/s "
+        f"{summary['examples_per_sec']} step_ms {summary['step_ms']} MFU "
+        f"{summary['mfu_bf16_peak']:.4f} peak {summary['peak_mem_gb']:.2f} GB "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} training run failed its checks")
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def run_vit_seq2seq_train() -> dict:
+    """ViT-B/16 (B=64) and t5-small seq2seq (B=16, src 512, dec 256)
+    through the trainer, 6 steps each (``run_flat_train``); returns
+    label -> (summary, launch counts)."""
+    from mpi_operator_tpu_torch.models import vit
+
+    return {
+        "vit-base": run_flat_train("vit-base", VIT_TRAIN_ARGS, VIT_LAYERS,
+                                   3 * vit.flops_per_image(vit.vit_base())),
+        "seq2seq-small": run_flat_train(
+            "seq2seq-small", S2S_TRAIN_ARGS, S2S_ATTENTION_CALLS,
+            _s2s_flops_per_pair()),
+    }
+
+
 def _bert_bhsd_workload():
     """(model, step, batch) as the trainer builds them for BERT_TRAIN_ARGS
     -- the same init, batch draw and AdamW -- with attention_impl
@@ -1193,11 +1458,13 @@ def profile_bert_step() -> None:
     events; its device time as a CUDA-graph replay of the forward and
     backward plus the AdamW update timed alone; a profiler pass over
     graph replays for device time by kind; and the attention kernels'
-    share."""
+    share. Before that, the MLM head's forward and backward alone."""
     import torch
+    import torch.nn.functional as F
 
     from mpi_operator_tpu_torch.cmd import train
     from mpi_operator_tpu_torch.models import bert as lib
+    from mpi_operator_tpu_torch.ops.losses import f32_logits
     from mpi_operator_tpu_torch.parallel.mesh import create_mesh
 
     work = train._lm_workload(train.build_parser().parse_args(BERT_TRAIN_ARGS),
@@ -1206,6 +1473,22 @@ def profile_bert_step() -> None:
                         work.optimizer)}
     model, step, batch = _bert_bhsd_workload()
     routes["flash-bhsd"] = (model, step, batch, None)
+    # The MLM head alone at the train shape (64 x 76 gathered positions
+    # against the tied [30522, 768] table): the table's bf16 cast, the head
+    # product, the cross-entropy and their backward.
+    table = work.model.tok_embed.weight
+    h = torch.randn(64, 76, 768, device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    targets = work.batch[2].reshape(-1)
+
+    def head():
+        logits = f32_logits(h, table.to(torch.bfloat16).t())
+        F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                        targets).backward()
+
+    log("profile bert-base mlm head: " + json.dumps(
+        {"mlm_head_fwd_bwd_ms": time_ms(head, 2, 5)}))
+    del h
     for route, (model, step, batch, optimizer) in routes.items():
         step_ms = time_ms(lambda: step(*batch), 2, 5)
 
@@ -1278,11 +1561,56 @@ def profile_step() -> None:
 
 
 def _llama_kind(name: str) -> str:
+    """A kernel's kind by name: the flash kernels, GEMMs (bf16 operands;
+    f32 x f32 ones apart), AdamW, the rest."""
+    low = name.lower()
+    gemm = any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass"))
     return ("flash" if "flash::" in name else
+            "gemm" if gemm and "bf16" in low else
             "gemm_f32" if "f32f32" in name or "sgemm" in name else
-            "gemm" if any(s in name.lower() for s in
-                          ("gemm", "nvjet", "xmma", "cutlass")) else
+            "gemm" if gemm else
             "adamw" if "multi_tensor_apply" in name else "other")
+
+
+def profile_flat_train_step(label: str, argv, loss_fn) -> None:
+    """Where one training step's time goes for a model on the flat flash
+    kernels (ViT, seq2seq; opt-in phase ``profile``), on the trainer's own
+    workload at the ``train`` shape: the eager step by CUDA events; its
+    device time as a CUDA-graph replay of the forward and backward
+    (``loss_fn(model, *batch)``) plus the AdamW update timed alone, which
+    gives the idle share; and a torch.profiler pass over two eager steps
+    for device time by kind (with its coverage of the replay's time)."""
+    import torch
+
+    from mpi_operator_tpu_torch.cmd import train
+    from mpi_operator_tpu_torch.parallel.mesh import create_mesh
+
+    work = train.build_workload(train.build_parser().parse_args(argv),
+                                create_mesh(device="cuda", dp=-1), 1)
+    step_ms = time_ms(lambda: work.step_fn(*work.batch), 2, 5)
+
+    def fwd_bwd():
+        work.model.zero_grad(set_to_none=True)
+        loss_fn(work.model, *work.batch).backward()
+
+    graph = _captured(fwd_bwd)
+    device_ms = {"fwd_bwd": time_ms(graph.replay, 2, 5),
+                 "adamw_eager": time_ms(work.optimizer.step, 1, 3)}
+    del graph
+    busy, wall, kinds, kernels = _profile_steps(
+        lambda: work.step_fn(*work.batch), _llama_kind)
+    log(f"profile {label}: " + json.dumps({
+        "step_ms": step_ms, "device_ms_per_step": device_ms,
+        "device_idle_share": 1 - sum(device_ms.values()) / step_ms,
+        "profiled_wall_ms_per_step": wall,
+        "profiler_device_ms_per_step": busy,
+        "profiler_coverage": busy / sum(device_ms.values()),
+        "profiler_device_ms_per_step_by_kind": kinds,
+    }))
+    for ms, name in kernels[:10]:
+        log(f"profile {label} kernel {ms:9.3f} ms/step  {name}")
+    del work
+    torch.cuda.empty_cache()
 
 
 def _resnet_kind(name: str) -> str:
@@ -1492,20 +1820,30 @@ def main(argv=None) -> int:
     records = {}
     if "kernels" in phases:
         records = {**check_kernels(), **check_bn_kernels()}
+        check_head()
     if "model" in phases:
         check_model()
         check_resnet_model()
         check_bert_model()
+        check_vit_seq2seq_models()
     if "profile" in phases:
         profile_step()
         profile_resnet_step()
         profile_bert_step()
+        from mpi_operator_tpu_torch.models import seq2seq, vit
+
+        profile_flat_train_step("vit-base", VIT_TRAIN_ARGS, vit.loss_fn)
+        profile_flat_train_step("seq2seq-small", S2S_TRAIN_ARGS,
+                                seq2seq.loss_fn)
     if "train" in phases:
         # Each main path's own run gives its kernels' launch counts.
         summary, launches = run_train()
         r_summary, r_launches = run_resnet_train()
         b_summary, b_launches = run_bert_train()
         bhsd_launches = run_bert_bhsd_steps()
+        flat_runs = run_vit_seq2seq_train()
+        v_summary, s_summary = (flat_runs[k][0]
+                                for k in ("vit-base", "seq2seq-small"))
         runs = {"flash_fwd_d64": (b_launches, "flash_fwd")}
         for name, rec in records.items():
             counts, key = runs.get(name, (
@@ -1513,11 +1851,20 @@ def main(argv=None) -> int:
                 bhsd_launches if name.startswith("flash_bhsd_") else
                 launches, name))
             rec["launches"] = counts[key]
+            if name in FLASH_NAMES["flat"]:
+                # The other paths through the flat kernels, each counted
+                # in its own run.
+                rec["launches_by_path"] = {
+                    "llama3-8b": launches[name], "bert-base": b_launches[name],
+                    **{k: c[name] for k, (_, c) in flat_runs.items()}}
         log(f"card: {card}; train llama tokens/s "
             f"{summary.get('tokens_per_sec')} step_ms {summary['step_ms']}; "
             f"train resnet101 images/s {r_summary['examples_per_sec']} "
             f"step_ms {r_summary['step_ms']}; train bert-base sequences/s "
-            f"{b_summary['examples_per_sec']} step_ms {b_summary['step_ms']}")
+            f"{b_summary['examples_per_sec']} step_ms {b_summary['step_ms']}; "
+            f"train vit-base images/s {v_summary['examples_per_sec']} step_ms "
+            f"{v_summary['step_ms']}; train seq2seq-small pairs/s "
+            f"{s_summary['examples_per_sec']} step_ms {s_summary['step_ms']}")
     if records:
         log(json.dumps({"kernels": list(records.values())}))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """Training entrypoint -- the port of ``mpi_operator_tpu/cmd/train.py``,
-ResNet, Llama and BERT arms, one process on one device:
+ResNet, Llama, BERT, ViT and seq2seq arms, one process on one device:
 
     python -m mpi_operator_tpu_torch.cmd.train      # resnet101, 224x224, B=64
     python -m mpi_operator_tpu_torch.cmd.train --model resnet101 \\
@@ -10,10 +10,14 @@ ResNet, Llama and BERT arms, one process on one device:
     python -m mpi_operator_tpu_torch.cmd.train --model bert-base \\
         --global-batch 64 --seq-len 512 --mlm-layout positions \\
         --steps 6 --warmup 2 --lr 1e-4
+    python -m mpi_operator_tpu_torch.cmd.train --model vit-base \\
+        --global-batch 64 --steps 6 --warmup 2 --lr 1e-4
+    python -m mpi_operator_tpu_torch.cmd.train --model seq2seq-small \\
+        --global-batch 16 --seq-len 512 --steps 6 --warmup 2 --lr 1e-4
 
 Flow: rendezvous (launcher.bootstrap, single process) -> one-device mesh
--> model + optimizer (ResNet: SGD nesterov momentum 0.9; Llama and BERT:
-AdamW)
+-> model + optimizer (ResNet: SGD nesterov momentum 0.9; Llama, BERT,
+ViT and seq2seq: AdamW)
 -> step loop with warmup boundary, log cadence, SIGTERM stop,
 step-slowdown chaos and telemetry -> one JSON summary line on stdout
 with the JAX trainer's keys.
@@ -29,8 +33,9 @@ Runs on ``cuda`` by default and raises when no GPU is present;
 Flags whose machinery is a later slice of the port refuse loudly with
 the ROADMAP.md item that brings them; none is silently ignored.
 
-Data: synthetic images and labels, tokens, or BERT's masked-LM batch
-(``--mlm-layout mask`` or ``positions``), from
+Data: synthetic images and labels, tokens, BERT's masked-LM batch
+(``--mlm-layout mask`` or ``positions``) or seq2seq's copy task (targets
+= the source's first half), from
 ``np.random.RandomState(--seed)``, drawn exactly as the JAX trainer
 draws them, so both trainers see one batch.
 """
@@ -52,7 +57,8 @@ from ..utils.logging import get_logger
 log = get_logger("train")
 
 PORTED_MODELS = ("resnet18", "resnet50", "resnet101", "llama3-8b",
-                 "llama-tiny", "bert-base", "bert-tiny")
+                 "llama-tiny", "bert-base", "bert-tiny", "vit-base",
+                 "vit-tiny", "seq2seq-small", "seq2seq-tiny")
 
 
 def parse_mesh_spec(spec: str) -> dict[str, int]:
@@ -72,15 +78,16 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tpujob-train-torch",
         description="PyTorch/CUDA trainer for TPUJob workloads (ResNet, "
-                    "Llama, BERT)",
+                    "Llama, BERT, ViT, seq2seq)",
     )
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where to train; cuda raises when no GPU is present "
                         "(the run never moves to the CPU on its own)")
     p.add_argument("--model", default="resnet101",
                    help="ported: resnet18|resnet50|resnet101|llama3-8b|"
-                        "llama-tiny|bert-base|bert-tiny (the JAX trainer's "
-                        "other names are refused until ported)")
+                        "llama-tiny|bert-base|bert-tiny|vit-base|vit-tiny|"
+                        "seq2seq-small|seq2seq-tiny (the JAX trainer's MoE "
+                        "names are refused until ported)")
     p.add_argument("--mesh", default="",
                    help="axis spec, e.g. dp=-1; every axis must be 1 "
                         "(multi-device meshes are not ported yet)")
@@ -89,8 +96,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--global-batch", type=int, default=0,
-                   help="0 = pick per model (resnet: 64/device; lm: "
-                        "8/device)")
+                   help="0 = pick per model (resnet, vit: 64/device; "
+                        "seq2seq: 16/device; lm: 8/device)")
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--bn-kernel", choices=["xla", "pallas"], default="xla",
                    help="resnet BN reduction path: xla = plain PyTorch "
@@ -148,12 +155,10 @@ def refuse_unported(args) -> None:
     def refuse(what: str, item: str):
         raise SystemExit(f"{what} is not ported yet (ROADMAP.md {item})")
 
-    # Other bert-* names exit in the workload with the JAX trainer's message.
-    if args.model not in PORTED_MODELS and not args.model.startswith("bert"):
-        item = ("item 13" if args.model.startswith(("mixtral", "llama-moe"))
-                else "item 11")
-        refuse(f"--model {args.model!r} (the port trains "
-               f"{', '.join(PORTED_MODELS)})", f"queue (a) {item}")
+    # Other names exit in the workload as unknown models.
+    if args.model.startswith(("mixtral", "llama-moe")):
+        refuse(f"--model {args.model!r} (mixture of experts; the port trains "
+               f"{', '.join(PORTED_MODELS)})", "queue (a) item 13")
     if args.checkpoint_dir:
         refuse("--checkpoint-dir", "queue (a) item 9")
     if args.data:
@@ -365,10 +370,21 @@ def _lm_workload(args, mesh, n_devices: int) -> Workload:
             rng.randint(0, cfg.vocab_size, (global_batch, args.seq_len)),
             dtype=torch.long, device=mesh.device,
         ),)
+    return _adamw_workload(args, model, make_step, batch, global_batch,
+                           tokens_per_step=global_batch * args.seq_len)
+
+
+def _adamw_workload(args, model, make_step, batch: tuple, global_batch: int,
+                    tokens_per_step: int = 0) -> Workload:
+    """The Workload of a model trained with ``optax.adamw`` in the JAX
+    trainer: its defaults b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4
+    (torch's own default decay is 0.01), --lr or --lr-schedule, and
+    ``make_step(model, optimizer, accum_steps, lr_schedule)``'s step with
+    --grad-accum microbatches."""
+    import torch
+
     lr = _make_learning_rate(args)
     schedule = lr if callable(lr) else None
-    # optax.adamw's defaults: b1 0.9, b2 0.999, eps 1e-8, weight decay
-    # 1e-4 (torch's own default decay is 0.01).
     optimizer = torch.optim.AdamW(
         model.parameters(), lr=schedule(0) if schedule else lr,
         betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4,
@@ -382,13 +398,76 @@ def _lm_workload(args, mesh, n_devices: int) -> Workload:
         step_fn=step_fn,
         batch=batch,
         examples_per_step=global_batch,
-        tokens_per_step=global_batch * args.seq_len,
+        tokens_per_step=tokens_per_step,
     )
+
+
+def _config(lib, args):
+    """``lib.CONFIGS[--model]()``; an unknown name exits, so a typo never
+    trains another config."""
+    if args.model not in lib.CONFIGS:
+        raise SystemExit(f"unknown --model {args.model!r}; choose from "
+                         f"{sorted(lib.CONFIGS)}")
+    return lib.CONFIGS[args.model]()
+
+
+def _vit_workload(args, mesh, n_devices: int) -> Workload:
+    """ViT on synthetic NHWC images and labels (the JAX trainer's
+    ``_vit_workload``): B = 64 a device by default; images drawn first,
+    then labels, from RandomState(--seed)."""
+    import numpy as np
+    import torch
+
+    from ..models import vit as lib
+
+    cfg = _config(lib, args)
+    global_batch = args.global_batch or 64 * n_devices
+    model = lib.ViT(cfg, device=mesh.device)
+    lib.init_params(
+        model, torch.Generator(device=mesh.device).manual_seed(args.seed))
+    rng = np.random.RandomState(args.seed)
+    images = rng.standard_normal(
+        (global_batch, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
+    labels = rng.randint(0, cfg.num_classes, (global_batch,))
+    batch = (torch.as_tensor(images, device=mesh.device),
+             torch.as_tensor(labels, dtype=torch.long, device=mesh.device))
+    return _adamw_workload(args, model, lib.make_train_step, batch,
+                           global_batch)
+
+
+def _seq2seq_workload(args, mesh, n_devices: int) -> Workload:
+    """Encoder-decoder on the synthetic copy task of the JAX trainer's
+    ``_seq2seq_workload`` (targets = the source's first half): B = 16 a
+    device by default, src_len = min(--seq-len, max_seq_len), dec_len =
+    src_len // 2; tokens per step count both sides."""
+    import numpy as np
+    import torch
+
+    from ..models import seq2seq as lib
+
+    cfg = _config(lib, args)
+    global_batch = args.global_batch or 16 * n_devices
+    src_len = min(args.seq_len or 64, cfg.max_seq_len)
+    dec_len = max(src_len // 2, 1)
+    model = lib.Seq2Seq(cfg, device=mesh.device)
+    lib.init_params(
+        model, torch.Generator(device=mesh.device).manual_seed(args.seed))
+    rng = np.random.RandomState(args.seed)
+    src = rng.randint(1, cfg.vocab_size, (global_batch, src_len))
+    batch = tuple(torch.as_tensor(x, dtype=torch.long, device=mesh.device)
+                  for x in (src, src[:, :dec_len]))
+    return _adamw_workload(args, model, lib.make_train_step, batch,
+                           global_batch,
+                           tokens_per_step=global_batch * (src_len + dec_len))
 
 
 def build_workload(args, mesh, n_devices: int) -> Workload:
     if args.model.startswith("resnet"):
         return _resnet_workload(args, mesh, n_devices)
+    if args.model.startswith("vit"):
+        return _vit_workload(args, mesh, n_devices)
+    if args.model.startswith("seq2seq"):
+        return _seq2seq_workload(args, mesh, n_devices)
     if args.model.startswith(("bert", "llama")):
         return _lm_workload(args, mesh, n_devices)
     raise SystemExit(f"unknown --model {args.model!r}")

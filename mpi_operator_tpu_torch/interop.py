@@ -1,5 +1,5 @@
-"""Carry Llama, BERT and ResNet weights between the JAX package's Flax
-trees and the port.
+"""Carry Llama, BERT, ViT, seq2seq and ResNet weights between the JAX
+package's Flax trees and the port.
 
 The port never sees ``jax``: these functions take and give plain numpy
 arrays (the caller does ``np.asarray`` on the JAX side). The Flax leaf
@@ -7,6 +7,9 @@ arrays (the caller does ``np.asarray`` on the JAX side). The Flax leaf
 (``kernel [in, out]`` -> ``weight [out, in]``); an ``embedding`` is the
 embedding module's ``weight`` as it is; norm ``scale`` and ``bias`` and
 Dense ``bias`` keep their names. Values are copied bit for bit.
+
+ViT's ``cls``, ``pos_embed`` and ``head`` are parameters of the model
+itself, stored as in Flax (``head`` [dim, classes] is not transposed).
 
 ResNet: a conv ``kernel [kh, kw, in, out]`` is ``weight [out, in, kh,
 kw]``, the head's ``kernel [in, out]`` is ``weight [out, in]``; BN
@@ -99,6 +102,35 @@ def bert_params_to_jax(state: Mapping[str, torch.Tensor]) -> dict:
     of a model that never saw token types."""
     return _to_flax(state, ("scale", "bias"),
                     lambda modules: modules[-1].endswith("_embed"))
+
+
+_VIT_PLAIN = ("scale", "bias", "cls", "pos_embed", "head")
+
+
+def vit_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """Flax ViT param tree (numpy leaves) -> the port's ``state_dict``."""
+    return _from_flax(tree, _VIT_PLAIN)
+
+
+def vit_params_to_jax(state: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse: the port's ``state_dict`` (or any name -> tensor map
+    of the same names, e.g. gradients) -> a nested Flax-shaped tree of
+    numpy arrays."""
+    return _to_flax(state, _VIT_PLAIN, lambda modules: False)
+
+
+def seq2seq_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """Flax seq2seq param tree (numpy leaves) -> the port's
+    ``state_dict``."""
+    return _from_flax(tree, ("scale", "bias"))
+
+
+def seq2seq_params_to_jax(state: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse: the port's ``state_dict`` (or any name -> tensor map
+    of the same names, e.g. gradients) -> a nested Flax-shaped tree of
+    numpy arrays."""
+    return _to_flax(state, ("scale", "bias"),
+                    lambda modules: modules in (["embed"], ["pos_embed"]))
 
 
 _TPU_BN = re.compile(r"^TpuBatchNorm_(\d+)$")

@@ -75,8 +75,10 @@ CONFIGS = {"bert-base": bert_base, "bert-tiny": tiny}
 
 def _dense(x, layer: nn.Linear, dtype):
     """nn.Dense(dtype=compute, param_dtype=f32): input, kernel and bias
-    rounded to the compute dtype, the bias added in it."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
+    rounded to the compute dtype, the bias (where the layer has one)
+    added in it."""
+    y = F.linear(x.to(dtype), layer.weight.to(dtype))
+    return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
 class LayerNorm(nn.Module):
@@ -185,25 +187,37 @@ class Bert(nn.Module):
 
 
 @torch.no_grad()
-def init_params(model: Bert, generator: torch.Generator) -> Bert:
-    """Initialize ``model`` in place from Flax's default distributions:
-    ``nn.Dense`` kernels lecun-normal (truncated at two standard
-    deviations, std 1/sqrt(fan_in)) with zero biases, ``nn.Embed`` tables
-    normal(std 1/sqrt(dim)), LayerNorm scale 1 and bias 0. ``generator``
-    (seeded, on the parameters' device) makes it reproducible; its
-    numbers differ from jax.random's."""
-    for name, p in model.named_parameters():
-        if name.endswith("scale"):
-            p.fill_(1.0)
-        elif name.endswith("bias"):
-            p.zero_()
-        elif name.split(".")[-2].endswith("_embed"):
+def flax_default_init(model: nn.Module, generator: torch.Generator):
+    """Initialize ``model``'s ``nn.Linear``, ``nn.Embedding`` and
+    :class:`LayerNorm` modules in place from Flax's default
+    distributions: ``nn.Dense`` kernels lecun-normal (truncated at two
+    standard deviations, std 1/sqrt(fan_in)) with zero biases,
+    ``nn.Embed`` tables normal(std 1/sqrt(dim)), LayerNorm scale 1 and
+    bias 0, drawing from ``generator`` in module order. Parameters of
+    other modules are left as they are."""
+    for module in model.modules():
+        if isinstance(module, LayerNorm):
+            module.scale.fill_(1.0)
+            module.bias.zero_()
+        elif isinstance(module, nn.Embedding):
+            p = module.weight
             p.normal_(0.0, p.shape[1] ** -0.5, generator=generator)
-        else:  # Dense [out, in] kernels: fan_in = in
+        elif isinstance(module, nn.Linear):  # weight [out, in]: fan_in = in
+            p = module.weight
             # 0.8796...: the std of a unit normal truncated to [-2, 2].
             std = p.shape[1] ** -0.5 / 0.87962566103423978
             nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
+            if module.bias is not None:
+                module.bias.zero_()
+
+
+def init_params(model: Bert, generator: torch.Generator) -> Bert:
+    """Initialize ``model`` in place from Flax's default distributions
+    (:func:`flax_default_init`). ``generator`` (seeded, on the
+    parameters' device) makes it reproducible; its numbers differ from
+    jax.random's."""
+    flax_default_init(model, generator)
     return model
 
 

@@ -1,5 +1,6 @@
 """The port's trainer entry point (``mpi_operator_tpu_torch.cmd.train``)
-on the CPU: the summary line of both arms (ResNet and Llama), the loud
+on the CPU: the summary line of every arm (ResNet, Llama, BERT, ViT,
+seq2seq), each arm's synthetic batch against the JAX trainer's, the loud
 refusal of every flag a later slice brings, and no quiet move to the CPU
 when ``cuda`` is asked for.
 """
@@ -60,10 +61,8 @@ def test_loss_falls_with_grad_accum_and_cosine_schedule(capsys):
 
 
 REFUSED = {
-    "model": (["--model", "vit-tiny"], "item 11"),
-    "vit": (["--model", "vit-base"], "item 11"),
-    "seq2seq": (["--model", "seq2seq-small"], "item 11"),
     "moe": (["--model", "mixtral-8x7b"], "item 13"),
+    "moe-tiny": (["--model", "llama-moe-tiny"], "item 13"),
     "checkpoint": (["--checkpoint-dir", "/nonexistent"], "item 9"),
     "data": (["--data", "corpus.bin"], "item 5"),
     "heartbeat": (["--heartbeat-every", "2"], "item 10"),
@@ -162,6 +161,79 @@ def test_bert_tiny_batch_is_the_jax_trainers_and_the_loss_falls(capsys,
     assert summary["model"] == "bert-tiny" and summary["steps"] == 6
     assert JAX_SUMMARY_KEYS <= set(summary)
     assert summary["loss"] < summary["first_loss"]
+
+
+def _jax_workload(argv):
+    import jax
+
+    from mpi_operator_tpu.cmd import train as jtrain
+    from mpi_operator_tpu.parallel import create_mesh as jax_mesh
+
+    return jtrain.build_workload(jtrain.build_parser().parse_args(argv),
+                                 jax_mesh(devices=jax.devices()[:1], dp=1), 1)
+
+
+ARMS = {
+    "vit": ["--model", "vit-tiny", "--global-batch", "4", "--seed", "5"],
+    "seq2seq": ["--model", "seq2seq-tiny", "--global-batch", "4",
+                "--seq-len", "40", "--seed", "5"],
+}
+
+
+@pytest.mark.parametrize("arm", sorted(ARMS))
+def test_vit_and_seq2seq_batches_are_the_jax_trainers(arm):
+    """Each arm's synthetic batch equals the JAX trainer's for one seed
+    (ViT: NHWC images, then labels; seq2seq: the copy task, src_len =
+    min(--seq-len, max_seq_len), targets = the source's first half), with
+    the JAX trainer's examples and tokens per step."""
+    argv = ARMS[arm]
+    want = _jax_workload(argv)
+    args = train.build_parser().parse_args(["--device", "cpu", *argv])
+    got = train.build_workload(args, create_mesh(device="cpu", dp=-1), 1)
+    assert len(got.batch) == len(want.batch) == 2
+    for g, w in zip(got.batch, want.batch):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got.examples_per_step == want.examples_per_step == 4
+    assert got.tokens_per_step == want.tokens_per_step
+    if arm == "seq2seq":
+        assert got.batch[0].shape == (4, 40) and got.batch[1].shape == (4, 20)
+        assert got.tokens_per_step == 4 * (40 + 20)
+    assert isinstance(got.optimizer, torch.optim.AdamW)
+    assert got.optimizer.param_groups[0]["weight_decay"] == 1e-4
+
+
+@pytest.mark.parametrize("model", ["vit-tiny", "seq2seq-tiny"])
+def test_vit_and_seq2seq_cpu_runs_print_the_jax_keys_and_learn(capsys,
+                                                                model):
+    rc = train.main(["--device", "cpu", "--model", model, "--global-batch",
+                     "4", "--seq-len", "32", "--steps", "6", "--warmup", "1",
+                     "--lr", "1e-2", "--grad-accum", "2",
+                     "--telemetry-every", "0"])
+    assert rc == 0
+    summary = _summary(capsys)
+    want_keys = (JAX_SUMMARY_KEYS if model.startswith("seq2seq")
+                 else JAX_VISION_SUMMARY_KEYS)
+    assert want_keys <= set(summary)
+    assert ("tokens_per_sec" in summary) == model.startswith("seq2seq")
+    assert summary["model"] == model and summary["steps"] == 6
+    assert math.isfinite(summary["loss"])
+    assert summary["loss"] < summary["first_loss"]
+
+
+def test_default_batches_and_unknown_names():
+    """ViT trains 64 images a device and seq2seq 16 pairs by default, as
+    in the JAX trainer; an unknown name of either family exits."""
+    mesh = create_mesh(device="cpu", dp=-1)
+    for model, want in (("vit-tiny", 64), ("seq2seq-tiny", 16)):
+        args = train.build_parser().parse_args(
+            ["--device", "cpu", "--model", model])
+        work = train.build_workload(args, mesh, 1)
+        assert work.examples_per_step == want
+    # --seq-len past the table: seq2seq clamps src_len to max_seq_len.
+    assert work.batch[0].shape == (16, 64) and work.batch[1].shape == (16, 32)
+    for name in ("vit-large", "seq2seq-base"):
+        with pytest.raises(SystemExit, match=f"unknown --model '{name}'"):
+            train.main(["--device", "cpu", "--model", name, "--steps", "1"])
 
 
 def test_unknown_bert_names_exit_with_the_jax_message():
