@@ -51,12 +51,29 @@ Phases, in order:
    (B=64, S=512, ``--mlm-layout positions``, 6 AdamW steps), then 3 steps
    of the BERT train step on the ``flash-bhsd`` route, then ViT-B/16
    (B=64) and t5-small seq2seq (B=16, src 512, dec 256), 6 AdamW steps
-   each. Each loss must be
+   each. Then the data, checkpoint and eval layers: the Llama run again
+   on a token file (``--data``, 5 sequences of 2048 written from a seed,
+   so step 2 straddles an epoch); BERT-base with ``--data`` (100 x 512
+   tokens) and ``--save-every 2``, straight to step 4 and, in a fresh
+   directory, to step 2 then resumed to step 4, once with the synchronous
+   manager and once with ``--async-checkpoint``: the resumed loss and
+   every parameter held against the straight run at
+   ``tests/test_train.py``'s tolerance (rtol 1e-5, atol 1e-6) plus twice
+   the sync-to-async straight runs' own difference (the gathered
+   positions' backward adds with atomics); ``cmd.eval`` on a llama-tiny
+   checkpoint the trainer wrote on the card (flash forward only, held
+   against the same command on the CPU), and ``cmd.eval.evaluate`` at
+   llama3-8b width (2 layers, S=2048, B=2, 4 batches) through the flat
+   kernel against the dense route. Each loss must be
    finite (and, for the trainer runs, fall), and each run's launch
    counters (set to 0 just before it, read just after) must show exactly
    its own kernels;
 5. ``profile`` (opt-in, ``--phases profile``): where one training step's
-   time goes, for each arm (device kernel time by kind, idle share).
+   time goes, for each arm (device kernel time by kind, idle share);
+6. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
+   step, as a same-call A/B: the Llama and the BERT-base train runs
+   synthetic and on a token file in turns (S D D S, four times), 10 steps
+   each, with every run's step_ms and each side's median.
 
 Any failure raises and exits non-zero. The second-to-last line is the
 ``{"kernels": [...]}`` record; the last is
@@ -74,6 +91,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -160,6 +178,22 @@ S2S_TRAIN_ARGS = [
     "--steps", "6", "--warmup", "2", "--lr", "3e-4", "--log-every", "1",
 ]
 S2S_ATTENTION_CALLS = 18  # 6 encoder self, 6 decoder self, 6 cross
+
+# The data, checkpoint and eval checks of the train phase.
+# llama3-8b on 5 x 2048 tokens: at B=2, step 2 takes positions 4 and 5,
+# the last of epoch 0 and the first of epoch 1.
+DATA_SEQUENCES = 5
+# BERT-base resume: --data on 100 x 512 tokens, a save every 2 steps,
+# straight to 4 against 2 then resume to 4. The JAX resume test's
+# tolerance (tests/test_train.py test_resume_restores_parameters).
+RESUME_SEQUENCES = 100
+RESUME_ARGS = BERT_TRAIN_ARGS + ["--save-every", "2"]
+RESUME_RTOL, RESUME_ATOL = 1e-5, 1e-6
+# cmd.eval at llama3-8b width: 4 batches of 2 x 2048.
+EVAL_BATCH, EVAL_BATCHES, EVAL_SEQ = 2, 4, 2048
+# The card's f32 flash kernel against its CPU plain version on the same
+# llama-tiny checkpoint: only the order of f32 sums differs.
+TINY_EVAL_RTOL = 1e-5
 
 # Kernel -> the TPU kernel it replaces.
 REPLACES = {
@@ -1451,6 +1485,309 @@ def run_bert_bhsd_steps() -> dict:
     return launches
 
 
+def _token_file(path: Path, n_seq: int, seq_len: int, vocab: int,
+                seed: int) -> str:
+    """A uint32 token file of ``n_seq`` sequences, ids below ``vocab``,
+    from RandomState(seed)."""
+    import numpy as np
+
+    from mpi_operator_tpu_torch.data import write_token_file
+
+    write_token_file(path, np.random.RandomState(seed).randint(
+        0, vocab, n_seq * seq_len))
+    return str(path)
+
+
+def run_llama_data_train(tmp: Path, synthetic: dict) -> tuple[dict, dict]:
+    """The Llama path of ``run_train`` fed from a token file (``--data``):
+    a finite, falling loss and the synthetic run's launch counts; its
+    step_ms printed beside the synthetic run's. No checkpoint is taken
+    (the state is 1.49 G f32 parameters plus AdamW's two moments)."""
+    import torch
+
+    from mpi_operator_tpu_torch.models import llama as lib
+
+    data = _token_file(tmp / "llama.u32", DATA_SEQUENCES, 2048,
+                       lib.llama3_8b().vocab_size, seed=1)
+    summary, launches = _drive_trainer([*TRAIN_ARGS, "--data", data])
+    layers, steps = 2, summary["steps"]
+    want = _want_launches({"flash_fwd": 2 * layers * steps,
+                           "flash_bwd_dq": layers * steps,
+                           "flash_bwd_dkv": layers * steps})
+    ok = (steps == 6 and math.isfinite(summary["loss"])
+          and summary["loss"] < summary["first_loss"] and launches == want)
+    log("train llama3-8b --data summary: " + json.dumps(summary))
+    log(f"train llama3-8b --data launches {launches} (want {want}); loss "
+        f"{summary['first_loss']:.4f} -> {summary['loss']:.4f}; step_ms "
+        f"{summary['step_ms']} (synthetic {synthetic['step_ms']}), "
+        f"tokens/s {summary.get('tokens_per_sec')} (synthetic "
+        f"{synthetic.get('tokens_per_sec')}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("llama3-8b --data run failed its checks")
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def _checkpoint_seconds() -> dict:
+    """(count, sum) of the snapshot and write histograms so far."""
+    from mpi_operator_tpu_torch.utils import checkpoint as ck
+
+    out = {}
+    for name, hist in (("snapshot", ck.checkpoint_snapshot_seconds),
+                       ("write", ck.checkpoint_write_seconds)):
+        _, total, count = hist._series.get((), (None, 0.0, 0))
+        out[name] = (count, total)
+    return out
+
+
+def _seconds_since(before: dict) -> dict:
+    after = _checkpoint_seconds()
+    return {k: {"saves": after[k][0] - before[k][0],
+                "s": round(after[k][1] - before[k][1], 4)} for k in after}
+
+
+def _final_params(directory: Path, step: int) -> dict:
+    from mpi_operator_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        committed_steps,
+    )
+
+    got, state = CheckpointManager(str(directory)).read_latest()
+    if got != step or step not in (committed_steps(str(directory)) or ()):
+        raise AssertionError(f"{directory}: newest step {got}, want a "
+                             f"committed step {step}")
+    return state["params"]
+
+
+def run_bert_resume(tmp: Path) -> dict:
+    """BERT-base on a token file with checkpoints every 2 steps: straight
+    to step 4, and in a fresh directory to step 2 then resumed to 4, with
+    the synchronous and then the async manager. The resumed summary must
+    read final_step 4 after 2 steps; its loss and every parameter must
+    match its manager's straight run at the JAX resume test's tolerance
+    plus twice the difference between the two straight runs (which differ
+    only by the card's atomics). A failed read or a torn fallback starts
+    the resume cold, and its step count fails the check. Returns each
+    manager's mean snapshot and write seconds a save and the GB a step."""
+    import torch
+
+    from mpi_operator_tpu_torch.models import bert
+
+    data = _token_file(tmp / "bert.u32", RESUME_SEQUENCES, 512,
+                       bert.bert_base().vocab_size, seed=2)
+    base = [*RESUME_ARGS, "--data", data]
+    runs, costs = {}, {}
+    for manager in ("sync", "async"):
+        extra = ["--async-checkpoint"] if manager == "async" else []
+        straight_dir = tmp / f"bert-{manager}-straight"
+        resumed_dir = tmp / f"bert-{manager}-resumed"
+        before = _checkpoint_seconds()
+        straight, s_launches = _drive_trainer(
+            [*base, *extra, "--steps", "4", "--checkpoint-dir",
+             str(straight_dir)])
+        first, _ = _drive_trainer([*base, *extra, "--steps", "2",
+                                   "--checkpoint-dir", str(resumed_dir)])
+        resumed, r_launches = _drive_trainer(
+            [*base, *extra, "--steps", "4", "--checkpoint-dir",
+             str(resumed_dir)])
+        seconds = _seconds_since(before)
+        size = sum(f.stat().st_size for f in (resumed_dir / "4").iterdir())
+        counts_ok = (
+            s_launches == _want_launches(
+                {k: BERT_LAYERS * 4 for k in FLASH_NAMES["flat"]})
+            and r_launches == _want_launches(
+                {k: BERT_LAYERS * 2 for k in FLASH_NAMES["flat"]}))
+        steps_ok = ((straight["final_step"], straight["steps"]) == (4, 4)
+                    and first["final_step"] == 2
+                    and (resumed["final_step"], resumed["steps"]) == (4, 2))
+        log(f"resume bert-base {manager}: straight loss "
+            f"{straight['loss']:.6f} step_ms {straight['step_ms']}; resumed "
+            f"final_step {resumed['final_step']} steps {resumed['steps']} "
+            f"loss {resumed['loss']:.6f}; checkpoint "
+            f"{size / 1e9:.3f} GB a step; snapshot and write seconds "
+            f"(saves, total) {json.dumps(seconds)}; launches ok {counts_ok}")
+        if not (counts_ok and steps_ok):
+            raise AssertionError(f"BERT {manager} resume: wrong steps or "
+                                 f"launch counts")
+        runs[manager] = (straight, resumed,
+                         _final_params(straight_dir, 4),
+                         _final_params(resumed_dir, 4))
+        costs[manager] = {k: v["s"] / max(v["saves"], 1)
+                          for k, v in seconds.items()}
+        costs[manager]["gb"] = size / 1e9
+        torch.cuda.empty_cache()
+
+    sync_params, async_params = runs["sync"][2], runs["async"][2]
+    if sync_params.keys() != async_params.keys():
+        raise AssertionError("the straight runs saved different parameters")
+    spread = {k: max_abs(sync_params[k], async_params[k])
+              for k in sync_params}
+    loss_spread = abs(runs["sync"][0]["loss"] - runs["async"][0]["loss"])
+    failed = []
+    for manager, (straight, resumed, s_params, r_params) in runs.items():
+        worst, worst_name, worst_err = -math.inf, "", 0.0
+        for name, want in s_params.items():
+            got = r_params[name]
+            allowed = (RESUME_ATOL + RESUME_RTOL * want.double().abs()
+                       + 2 * spread[name])
+            excess = float(((got.double() - want.double()).abs()
+                            - allowed).max())
+            if excess > worst:
+                worst, worst_name = excess, name
+                worst_err = max_abs(got, want)
+        loss_err = abs(resumed["loss"] - straight["loss"])
+        loss_ok = loss_err <= (RESUME_RTOL * abs(straight["loss"])
+                               + 2 * loss_spread)
+        ok = worst <= 0 and loss_ok
+        log(f"resume bert-base {manager} vs straight: loss |diff| "
+            f"{loss_err:.3e} (straight-to-straight {loss_spread:.3e}); "
+            f"params: worst leaf {worst_name} max |diff| {worst_err:.3e} "
+            f"(its straight-to-straight {spread[worst_name]:.3e}; "
+            f"largest straight-to-straight of any leaf "
+            f"{max(spread.values()):.3e}); tolerance rtol {RESUME_RTOL} atol "
+            f"{RESUME_ATOL} + 2 x straight-to-straight -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(manager)
+    if failed:
+        raise AssertionError(f"resumed BERT runs {failed} diverge from the "
+                             f"straight runs")
+    return costs
+
+
+def _eval_line(argv) -> dict:
+    from mpi_operator_tpu_torch.cmd import eval as eval_cmd
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = eval_cmd.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cmd.eval returned {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def run_eval_checks(tmp: Path) -> tuple[dict, dict]:
+    """``cmd.eval`` on the card. (1) The command on a llama-tiny checkpoint
+    the trainer wrote on the card: n_layers x batches launches of the
+    flash forward and none of the backward kernels, its loss against the
+    same command on the CPU. (2) ``evaluate()`` at llama3-8b width, 2
+    layers, through the flat kernel against the dense route on the same
+    weights, at the Llama model check's loss tolerance, after one untimed
+    batch on each route. Returns (the llama3-8b flat run's launch counts,
+    its line)."""
+    import torch
+
+    from mpi_operator_tpu_torch.cmd import eval as eval_cmd
+    from mpi_operator_tpu_torch.data import TokenDataset
+    from mpi_operator_tpu_torch.models import llama as lib
+
+    ckpt = tmp / "tiny-ckpt"
+    _drive_trainer(["--model", "llama-tiny", "--steps", "2", "--warmup", "1",
+                    "--global-batch", "8", "--seq-len", "16", "--lr", "1e-3",
+                    "--checkpoint-dir", str(ckpt), "--save-every", "1",
+                    "--log-every", "1"])
+    argv = ["--checkpoint-dir", str(ckpt), "--model", "llama-tiny", "--data",
+            _token_file(tmp / "tiny.u32", 256, 16, 256, seed=3), "--batch",
+            "4", "--batches", "3", "--seq-len", "16"]
+    _reset_all_launch_counts()
+    line = _eval_line(argv)
+    launches = _all_launch_counts()
+    cpu = _eval_line([*argv, "--device", "cpu"])
+    want = _want_launches({"flash_fwd": 2 * 3})
+    rel = abs(line["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    ok = (launches == want and line["step"] == 2 and line["batches"] == 3
+          and line["tokens"] == 3 * 4 * 15 and math.isfinite(line["loss"])
+          and rel <= TINY_EVAL_RTOL)
+    log(f"eval llama-tiny (cmd.eval, card): {json.dumps(line)}; CPU "
+        f"{json.dumps(cpu)}; loss rel {rel:.3e} (tol {TINY_EVAL_RTOL:.0e}); "
+        f"launches {launches} (want {want}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("cmd.eval on the llama-tiny checkpoint failed")
+
+    ds = TokenDataset(
+        _token_file(tmp / "eval.u32", EVAL_BATCH * EVAL_BATCHES, EVAL_SEQ,
+                    lib.llama3_8b().vocab_size, seed=4), EVAL_SEQ)
+    results, state = {}, None
+    for impl in ("flash", "dense"):
+        model = lib.Llama(lib.llama3_8b(n_layers=2, attention_impl=impl),
+                          device="cuda")
+        if state is None:
+            lib.init_params(model,
+                            torch.Generator(device="cuda").manual_seed(0))
+            state = {k: v.detach().clone()
+                     for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(state)
+        # One untimed batch first: the logits' first allocation and the
+        # GEMMs' first calls at these shapes stay out of tokens/s.
+        eval_cmd.evaluate(model, ds, EVAL_BATCH, 1, torch.device("cuda"))
+        torch.cuda.synchronize()
+        _reset_all_launch_counts()
+        t0 = time.perf_counter()
+        mean, tokens = eval_cmd.evaluate(model, ds, EVAL_BATCH, EVAL_BATCHES,
+                                         torch.device("cuda"))
+        elapsed = time.perf_counter() - t0
+        results[impl] = (mean, tokens, elapsed, _all_launch_counts())
+        del model
+    ds.close()
+    del state
+    torch.cuda.empty_cache()
+    (lf, tokens, elapsed, launches), (ld, _, dense_s, dense_launches) = (
+        results["flash"], results["dense"])
+    rel = abs(lf - ld) / abs(ld)
+    want = _want_launches({"flash_fwd": 2 * EVAL_BATCHES})
+    ok = (math.isfinite(lf) and rel <= MODEL_LOSS_REL_TOL
+          and launches == want and dense_launches == _want_launches({})
+          and tokens == EVAL_BATCH * EVAL_BATCHES * (EVAL_SEQ - 1))
+    line = {"loss": lf, "dense_loss": ld, "tokens": tokens,
+            "tokens_per_sec": tokens / elapsed,
+            "dense_tokens_per_sec": tokens / dense_s}
+    log(f"eval llama3-8b/2 layers B={EVAL_BATCH} S={EVAL_SEQ} x "
+        f"{EVAL_BATCHES} batches: flash loss {lf:.6f} dense {ld:.6f} rel "
+        f"{rel:.3e} (tol {MODEL_LOSS_REL_TOL:.0e}); eval tokens/s "
+        f"{line['tokens_per_sec']:.1f} (dense route "
+        f"{line['dense_tokens_per_sec']:.1f}); launches {launches} (want "
+        f"{want}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("llama3-8b eval failed its checks")
+    return launches, line
+
+
+def ab_data_step(blocks: int = 4, steps: int = 10) -> None:
+    """Opt-in phase ``data``: each of the Llama and BERT-base trainer runs
+    without and with ``--data``, in the order S D D S repeated ``blocks``
+    times in this one call, ``steps`` steps each (the first two untimed).
+    Prints every run's step_ms, each side's median and the synthetic
+    side's quartile spread; checks nothing beyond the trainer's own
+    launch counts."""
+    import statistics
+
+    from mpi_operator_tpu_torch.models import bert
+    from mpi_operator_tpu_torch.models import llama as lib
+
+    arms = {
+        "llama3-8b": (TRAIN_ARGS, 2048, lib.llama3_8b().vocab_size, 2),
+        "bert-base": (BERT_TRAIN_ARGS, 512, bert.bert_base().vocab_size, 64),
+    }
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        for label, (argv, seq, vocab, batch) in arms.items():
+            data = _token_file(Path(tmp) / f"{label}.u32", 4 * batch + 1,
+                               seq, vocab, seed=5)
+            times = {"synthetic": [], "data": []}
+            for side in ["synthetic", "data", "data", "synthetic"] * blocks:
+                extra = ["--data", data] if side == "data" else []
+                summary, _ = _drive_trainer([*argv, *extra, "--steps",
+                                             str(steps)])
+                times[side].append(summary["step_ms"])
+            quart = statistics.quantiles(times["synthetic"], n=4)
+            med = {k: statistics.median(v) for k, v in times.items()}
+            log(f"data A/B {label} ({blocks} x S D D S, {steps} steps, "
+                f"{steps - 2} timed): step_ms synthetic {times['synthetic']} "
+                f"data {times['data']}; medians {med['synthetic']:.2f} / "
+                f"{med['data']:.2f} ({(med['data'] / med['synthetic'] - 1):+.2%})"
+                f"; synthetic quartiles {quart[0]:.2f}-{quart[2]:.2f}")
+
+
 def profile_bert_step() -> None:
     """Where one BERT-base training step's time goes (opt-in phase
     ``profile``), at the ``train`` shape on the trainer's own workload
@@ -1793,7 +2130,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default="kernels,model,train",
                         help="comma-separated subset of kernels,model,train "
-                             "and the opt-in profile")
+                             "and the opt-in profile and data")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1835,6 +2172,8 @@ def main(argv=None) -> int:
         profile_flat_train_step("vit-base", VIT_TRAIN_ARGS, vit.loss_fn)
         profile_flat_train_step("seq2seq-small", S2S_TRAIN_ARGS,
                                 seq2seq.loss_fn)
+    if "data" in phases:
+        ab_data_step()
     if "train" in phases:
         # Each main path's own run gives its kernels' launch counts.
         summary, launches = run_train()
@@ -1844,6 +2183,10 @@ def main(argv=None) -> int:
         flat_runs = run_vit_seq2seq_train()
         v_summary, s_summary = (flat_runs[k][0]
                                 for k in ("vit-base", "seq2seq-small"))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            d_summary, d_launches = run_llama_data_train(Path(tmp), summary)
+            costs = run_bert_resume(Path(tmp))
+            e_launches, e_line = run_eval_checks(Path(tmp))
         runs = {"flash_fwd_d64": (b_launches, "flash_fwd")}
         for name, rec in records.items():
             counts, key = runs.get(name, (
@@ -1856,7 +2199,9 @@ def main(argv=None) -> int:
                 # in its own run.
                 rec["launches_by_path"] = {
                     "llama3-8b": launches[name], "bert-base": b_launches[name],
-                    **{k: c[name] for k, (_, c) in flat_runs.items()}}
+                    **{k: c[name] for k, (_, c) in flat_runs.items()},
+                    "llama3-8b --data": d_launches[name],
+                    "eval": e_launches[name]}
         log(f"card: {card}; train llama tokens/s "
             f"{summary.get('tokens_per_sec')} step_ms {summary['step_ms']}; "
             f"train resnet101 images/s {r_summary['examples_per_sec']} "
@@ -1864,7 +2209,14 @@ def main(argv=None) -> int:
             f"{b_summary['examples_per_sec']} step_ms {b_summary['step_ms']}; "
             f"train vit-base images/s {v_summary['examples_per_sec']} step_ms "
             f"{v_summary['step_ms']}; train seq2seq-small pairs/s "
-            f"{s_summary['examples_per_sec']} step_ms {s_summary['step_ms']}")
+            f"{s_summary['examples_per_sec']} step_ms {s_summary['step_ms']}; "
+            f"train llama --data step_ms {d_summary['step_ms']}; eval "
+            f"llama3-8b/2 tokens/s {e_line['tokens_per_sec']:.1f}; "
+            f"bert-base checkpoint {costs['sync']['gb']:.3f} GB: sync "
+            f"snapshot {costs['sync']['snapshot']:.4f} s + write "
+            f"{costs['sync']['write']:.4f} s a save, async snapshot "
+            f"{costs['async']['snapshot']:.4f} s (write "
+            f"{costs['async']['write']:.4f} s behind the steps)")
     if records:
         log(json.dumps({"kernels": list(records.values())}))
     log(json.dumps({"ok": True, "device": {

@@ -11,8 +11,12 @@ ENV_PROCESS_ID = "TPUJOB_PROCESS_ID"
 # step's wall time by this factor. Unset/1.0 = no-op.
 ENV_STEP_SLOWDOWN = "TPUJOB_CHAOS_STEP_SLOWDOWN"
 
-# Grace budget (seconds) for the preempted final checkpoint save (read
-# once checkpointing is ported).
+# Chaos torn-write hook: when set (non-empty, not "0"), the async
+# checkpoint writer withholds the NEXT commit marker, leaving the step
+# data without its marker, as a writer killed mid-commit would.
+ENV_TORN_WRITE = "TPUJOB_CHAOS_TORN_WRITE"
+
+# Grace budget (seconds) for the preempted final checkpoint save.
 ENV_CHECKPOINT_GRACE = "TPUJOB_CHECKPOINT_GRACE_S"
 
 # Cross-process trace propagation: "<trace_id>-<span_id>".

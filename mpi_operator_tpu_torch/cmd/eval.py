@@ -1,0 +1,158 @@
+"""Held-out evaluation (loss / perplexity) from a trainer checkpoint (port
+of ``mpi_operator_tpu/cmd/eval.py``).
+
+Reads the newest checkpoint the port's ``cmd.train`` wrote (its
+``params`` entry only), streams a pre-tokenized corpus through the Llama
+model with no optimizer and no autograd, and prints one JSON line with
+the token-weighted mean cross-entropy and perplexity, with the JAX
+command's keys and rounding:
+
+    python -m mpi_operator_tpu_torch.cmd.eval \\
+        --checkpoint-dir /ckpt/llama --model llama-tiny \\
+        --data corpus.u32 --batch 8 --batches 50
+
+Runs on ``cuda`` by default (raising when no GPU is present) and on the
+CPU with ``--device cpu``. Attention takes the flash forward kernel
+(``ops/attention.py``); no backward kernel runs. A sharded eval
+(``--mesh`` with an axis > 1) and a multi-process world are later slices
+of the port and refuse.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="tpujob-eval-torch",
+        description="held-out loss/perplexity from a cmd.train checkpoint",
+    )
+    p.add_argument("--checkpoint-dir", required=True)
+    p.add_argument("--model", default="llama-tiny",
+                   help="llama3-8b|llama-tiny (must match the training run; "
+                        "the JAX command's MoE names are refused until "
+                        "ported)")
+    p.add_argument("--data", required=True,
+                   help="binary little-endian uint32 token file "
+                        "(data/loader.py format, same as cmd.train --data)")
+    p.add_argument("--batch", type=int, default=8, help="global batch size")
+    p.add_argument("--batches", type=int, default=0,
+                   help="number of batches to evaluate (0 = one full "
+                        "epoch of distinct sequences)")
+    p.add_argument("--seq-len", type=int, default=0,
+                   help="sequence length (0 = the model's max_seq_len)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="epoch-shuffle seed (fixed seed = fixed eval set)")
+    p.add_argument("--mesh", default="",
+                   help="axis=size pairs; every axis must be 1 (sharded "
+                        "eval is not ported yet)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where to evaluate; cuda raises when no GPU is "
+                        "present (the run never moves to the CPU on its own)")
+    return p
+
+
+def evaluate(model, ds, batch: int, n_batches: int, device) -> tuple:
+    """Token-weighted mean next-token cross-entropy of ``model`` over
+    batches 0..n_batches-1 of ``ds`` (rows ``ds.rows(b, batch, 0,
+    batch)``, as the JAX command reads them). Returns ``(mean, tokens)``.
+
+    Each batch's ids are checked on the host against the vocabulary (on
+    the card an out-of-range id is a device-side assert that kills the
+    context). The loss sum and token count accumulate on the device; the
+    one host sync is at the end."""
+    import numpy as np
+    import torch
+
+    from ..models import llama as lib
+
+    vocab = model.config.vocab_size
+    totals = torch.zeros(2, dtype=torch.float64, device=device)
+    with torch.inference_mode():
+        for b in range(n_batches):
+            rows = ds.rows(b, batch, 0, batch)
+            top = int(rows.max())
+            if top >= vocab:
+                raise SystemExit(
+                    f"batch {b} holds token id {top}, outside the "
+                    f"{vocab}-token vocabulary of the model"
+                )
+            tokens = torch.as_tensor(rows.astype(np.int64)).to(
+                device, non_blocking=True)
+            n = (tokens.shape[1] - 1) * tokens.shape[0]
+            loss = lib.loss_fn(model, tokens)
+            totals[0] += loss.double() * n
+            totals[1] += n
+    total, count = totals.tolist()
+    return total / max(count, 1.0), int(count)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.batch < 1:
+        raise SystemExit("--batch must be >= 1")
+    if args.batches < 0:
+        raise SystemExit("--batches must be >= 0 (0 = one full epoch)")
+    from .train import parse_mesh_spec
+
+    wide = {a: n for a, n in parse_mesh_spec(args.mesh).items() if n > 1}
+    if wide:
+        raise SystemExit(f"--mesh {wide} (sharded eval) is not ported yet "
+                         f"(ROADMAP.md queue (a) item 7)")
+
+    # A multi-process world raises here until world formation is ported.
+    from ..launcher import bootstrap
+
+    bootstrap.initialize()
+
+    import math
+
+    from ..data import TokenDataset
+    from ..models import llama as lib
+    from ..ops._common import require_device
+    from ..utils.checkpoint import read_llama_params
+
+    device = require_device(args.device)
+    if args.model.startswith(("mixtral", "llama-moe")):
+        raise SystemExit(f"--model {args.model!r} (mixture of experts) is "
+                         f"not ported yet (ROADMAP.md queue (a) item 13)")
+    try:
+        cfg = lib.config_for(args.model, attention_impl="flash")
+    except KeyError:
+        raise SystemExit(f"unknown --model {args.model!r} (llama family only)")
+    seq_len = args.seq_len or cfg.max_seq_len
+    if seq_len > cfg.max_seq_len:
+        raise SystemExit(
+            f"--seq-len {seq_len} exceeds the model context {cfg.max_seq_len}"
+        )
+
+    step, params = read_llama_params(args.checkpoint_dir, args.model)
+    model = lib.Llama(cfg, device=device)
+    try:
+        model.load_state_dict(params)
+    except RuntimeError as e:
+        raise SystemExit(f"checkpoint at step {step} does not fit "
+                         f"--model {args.model}: {e}") from None
+    model.eval()
+
+    ds = TokenDataset(args.data, seq_len, seed=args.seed)
+    try:
+        n_batches = args.batches or max(1, ds.num_sequences // args.batch)
+        mean, tokens = evaluate(model, ds, args.batch, n_batches, device)
+    finally:
+        ds.close()
+    print(json.dumps({
+        "step": step,
+        "model": args.model,
+        "batches": n_batches,
+        "tokens": tokens,
+        "loss": round(mean, 6),
+        "perplexity": round(math.exp(mean), 4),
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -14,13 +14,20 @@ ResNet, Llama, BERT, ViT and seq2seq arms, one process on one device:
         --global-batch 64 --steps 6 --warmup 2 --lr 1e-4
     python -m mpi_operator_tpu_torch.cmd.train --model seq2seq-small \\
         --global-batch 16 --seq-len 512 --steps 6 --warmup 2 --lr 1e-4
+    python -m mpi_operator_tpu_torch.cmd.train --model bert-base \\
+        --global-batch 64 --seq-len 512 --mlm-layout positions \\
+        --data corpus.u32 --checkpoint-dir /ckpt/bert --save-every 100 \\
+        --async-checkpoint --steps 1000 --lr 1e-4
 
 Flow: rendezvous (launcher.bootstrap, single process) -> one-device mesh
 -> model + optimizer (ResNet: SGD nesterov momentum 0.9; Llama, BERT,
-ViT and seq2seq: AdamW)
--> step loop with warmup boundary, log cadence, SIGTERM stop,
-step-slowdown chaos and telemetry -> one JSON summary line on stdout
-with the JAX trainer's keys.
+ViT and seq2seq: AdamW) -> resume from ``--checkpoint-dir``
+(``utils/checkpoint.py``; ``--steps`` is an ABSOLUTE target)
+-> step loop with warmup boundary, log cadence, a checkpoint save after
+every step (the manager's interval decides), SIGTERM stop, step-slowdown
+chaos and telemetry -> the preempted-or-final save drained inside the
+grace budget -> one JSON summary line on stdout with the JAX trainer's
+keys.
 
 ``--bn-kernel`` keeps the JAX values so that a TPUJob's args mean the
 same on both packages: ``xla`` (the default) normalizes with plain
@@ -37,12 +44,17 @@ Data: synthetic images and labels, tokens, BERT's masked-LM batch
 (``--mlm-layout mask`` or ``positions``) or seq2seq's copy task (targets
 = the source's first half), from
 ``np.random.RandomState(--seed)``, drawn exactly as the JAX trainer
-draws them, so both trainers see one batch.
+draws them, so both trainers see one batch. ``--data`` feeds Llama and
+BERT from a uint32 token file instead (``data/loader.py``: the
+Feistel-shuffled stream, one fresh batch a step, assembled ahead by a
+``Prefetcher``; BERT's masking drawn from ``RandomState(seed + step)``),
+again batch for batch the JAX trainer's.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import signal
@@ -159,10 +171,6 @@ def refuse_unported(args) -> None:
     if args.model.startswith(("mixtral", "llama-moe")):
         refuse(f"--model {args.model!r} (mixture of experts; the port trains "
                f"{', '.join(PORTED_MODELS)})", "queue (a) item 13")
-    if args.checkpoint_dir:
-        refuse("--checkpoint-dir", "queue (a) item 9")
-    if args.data:
-        refuse("--data (the token-file stream)", "queue (a) item 5")
     if args.heartbeat_every > 0:
         refuse("--heartbeat-every (step heartbeats, device-memory samples)",
                "queue (a) item 10")
@@ -196,8 +204,9 @@ def _make_learning_rate(args):
 
 class Workload:
     """A model adapted to the trainer loop: ``step_fn(*batch) -> loss``
-    updates the model in place; the fixed synthetic ``batch`` is reused
-    every step."""
+    updates the model in place. ``batch_fn(step)``, when set (``--data``),
+    returns step's batch as host tensors (pinned on the card); otherwise
+    the fixed synthetic ``batch`` is reused every step."""
 
     def __init__(self, *, model, optimizer, step_fn: Callable, batch: tuple,
                  examples_per_step: int, tokens_per_step: int = 0):
@@ -207,6 +216,7 @@ class Workload:
         self.batch = batch
         self.examples_per_step = examples_per_step
         self.tokens_per_step = tokens_per_step
+        self.batch_fn: Optional[Callable[[int], tuple]] = None
 
 
 def _resnet_workload(args, mesh, n_devices: int) -> Workload:
@@ -291,6 +301,58 @@ def _mlm_positions_batch(rows, rand):
     )
 
 
+def _mlm_batch(rows, rand, layout: str) -> tuple:
+    """BERT's masked-LM batch from a token matrix and a uniform [B, S]
+    draw, in the order the train step takes it: ``positions`` ->
+    (inputs, positions, targets, weights); ``mask`` -> (inputs with the
+    15%% masked slots zeroed, mask, targets)."""
+    import numpy as np
+
+    if layout == "positions":
+        pos, tg, inputs, w = _mlm_positions_batch(rows, rand)
+        return inputs, pos, tg, w
+    mask = rand < 0.15
+    return np.where(mask, 0, rows), mask.astype(np.float32), rows
+
+
+def _as_tensors(arrays, device=None, pin: bool = False) -> tuple:
+    """numpy arrays -> tensors: ids as int64, floats as float32; on
+    ``device``, or on the host (pinned when ``pin``)."""
+    import torch
+
+    out = []
+    for a in arrays:
+        dtype = torch.float32 if a.dtype.kind == "f" else torch.long
+        t = torch.as_tensor(a, dtype=dtype, device=device)
+        out.append(t.pin_memory() if pin else t)
+    return tuple(out)
+
+
+def _token_batch_fn(args, vocab: int, global_batch: int, device):
+    """``batch_fn(step)`` for ``--data`` (the JAX trainer's
+    ``_token_stream`` and BERT ``batch_fn``): Feistel-shuffled rows
+    ``ds.batch(step, B) % vocab``; BERT layers its masking on top, drawn
+    from ``RandomState(seed + step)`` for the global batch. Returns host
+    tensors, pinned on the card: the consuming thread copies them to the
+    device on its own stream."""
+    import numpy as np
+
+    from ..data import TokenDataset
+
+    ds = TokenDataset(args.data, args.seq_len, seed=args.seed)
+    is_bert = args.model.startswith("bert")
+    pin = device.type == "cuda"
+
+    def batch_fn(step: int) -> tuple:
+        rows = ds.batch(step, global_batch).astype(np.int64) % vocab
+        if not is_bert:
+            return _as_tensors((rows,), pin=pin)
+        rand = np.random.RandomState(args.seed + step).rand(*rows.shape)
+        return _as_tensors(_mlm_batch(rows, rand, args.mlm_layout), pin=pin)
+
+    return batch_fn
+
+
 def _bert_model(args, device, rng, global_batch: int):
     """(model, make_step, batch) for a bert-* --model: the config the JAX
     trainer builds (its attention_impl default; max_seq_len grown to
@@ -314,21 +376,13 @@ def _bert_model(args, device, rng, global_batch: int):
         cfg = dataclasses.replace(cfg, max_seq_len=args.seq_len)
     model = lib.Bert(cfg, device=device)
     lib.init_params(model, torch.Generator(device=device).manual_seed(args.seed))
-
-    def on_device(x, dtype=torch.long):
-        return torch.as_tensor(x, dtype=dtype, device=device)
-
     rows = rng.randint(0, cfg.vocab_size, (global_batch, args.seq_len))
-    if args.mlm_layout == "positions":
-        pos, tg, inputs, w = _mlm_positions_batch(
-            rows, rng.rand(global_batch, args.seq_len))
-        batch = (on_device(inputs), on_device(pos), on_device(tg),
-                 on_device(w, torch.float32))
-        return model, lib.make_train_step_positions, batch
-    mask = rng.rand(global_batch, args.seq_len) < 0.15
-    batch = (on_device(np.where(mask, 0, rows)),
-             on_device(mask, torch.float32), on_device(rows))
-    return model, lib.make_train_step, batch
+    batch = _as_tensors(
+        _mlm_batch(rows, rng.rand(global_batch, args.seq_len),
+                   args.mlm_layout), device)
+    make_step = (lib.make_train_step_positions
+                 if args.mlm_layout == "positions" else lib.make_train_step)
+    return model, make_step, batch
 
 
 def _lm_workload(args, mesh, n_devices: int) -> Workload:
@@ -370,8 +424,12 @@ def _lm_workload(args, mesh, n_devices: int) -> Workload:
             rng.randint(0, cfg.vocab_size, (global_batch, args.seq_len)),
             dtype=torch.long, device=mesh.device,
         ),)
-    return _adamw_workload(args, model, make_step, batch, global_batch,
+    work = _adamw_workload(args, model, make_step, batch, global_batch,
                            tokens_per_step=global_batch * args.seq_len)
+    if args.data:
+        work.batch_fn = _token_batch_fn(args, model.config.vocab_size,
+                                        global_batch, mesh.device)
+    return work
 
 
 def _adamw_workload(args, model, make_step, batch: tuple, global_batch: int,
@@ -462,6 +520,14 @@ def _seq2seq_workload(args, mesh, n_devices: int) -> Workload:
 
 
 def build_workload(args, mesh, n_devices: int) -> Workload:
+    if args.data and not args.model.startswith(("bert", "llama")):
+        # The JAX trainer reads --data only in its Llama and BERT arms;
+        # the port ignores no flag silently.
+        raise SystemExit(
+            f"--data is a token file, which only the token models (llama, "
+            f"bert) read; --model {args.model} trains on its synthetic "
+            f"batch, as in the JAX trainer"
+        )
     if args.model.startswith("resnet"):
         return _resnet_workload(args, mesh, n_devices)
     if args.model.startswith("vit"):
@@ -478,6 +544,57 @@ def _sync(device) -> None:
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def train_state(work: Workload) -> dict:
+    """The live model and optimizer as the checkpointed state: the JAX
+    trainer's top-level keys (``params``, ``opt_state``) over the port's
+    module names (``get_state_dict``)."""
+    from torch.distributed.checkpoint.state_dict import get_state_dict
+
+    params, opt_state = get_state_dict(work.model, work.optimizer)
+    return {"params": params, "opt_state": opt_state}
+
+
+def restore_train_state(ckpt, work: Workload) -> int:
+    """Load the newest committed, readable checkpoint into the model and
+    optimizer; returns its step, or 0 for a cold start."""
+    from torch.distributed.checkpoint.state_dict import (
+        StateDictOptions,
+        set_state_dict,
+    )
+
+    # AdamW and SGD keep per-parameter state only for parameters that got
+    # a gradient (BERT's type_embed gets none).
+    step, state = ckpt.restore_latest(train_state(work),
+                                      optional=("opt_state", "state"))
+    if step is None:
+        # get_state_dict made the optimizer's state with one zero-lr step
+        # (AdamW's step count 1); a cold start begins with none, as a
+        # fresh optimizer does.
+        work.optimizer.state.clear()
+        return 0
+    # Not strict: the read above already required every parameter; only
+    # the optimizer state of a parameter that never got a gradient may be
+    # absent, as it is from the optimizer that saved it.
+    set_state_dict(work.model, work.optimizer,
+                   model_state_dict=state["params"],
+                   optim_state_dict=state["opt_state"],
+                   options=StateDictOptions(strict=False))
+    return step
+
+
+def _grace_seconds() -> float:
+    """The final save's budget: ``TPUJOB_CHECKPOINT_GRACE_S``, else the
+    default under kube's 30 s termination grace."""
+    from ..api.v2beta1 import constants
+    from ..utils.checkpoint import DEFAULT_FINAL_GRACE_S
+
+    raw = os.environ.get(constants.ENV_CHECKPOINT_GRACE, "")
+    try:
+        return float(raw) if raw else DEFAULT_FINAL_GRACE_S
+    except ValueError:
+        return DEFAULT_FINAL_GRACE_S
 
 
 def main(argv=None) -> int:
@@ -506,8 +623,33 @@ def main(argv=None) -> int:
 
     work = build_workload(args, mesh, n_devices)
 
+    ckpt = None
     start_step = 0
+    if args.checkpoint_dir:
+        from ..utils.checkpoint import AsyncCheckpointManager, CheckpointManager
+
+        manager_cls = (AsyncCheckpointManager if args.async_checkpoint
+                       else CheckpointManager)
+        ckpt = manager_cls(args.checkpoint_dir,
+                           save_interval_steps=args.save_every)
+        start_step = restore_train_state(ckpt, work)
+        if start_step:
+            log.info("resumed at step %d", start_step)
+
+    # --steps is an ABSOLUTE target: a restarted gang resumes at the
+    # checkpoint step and runs only the remainder.
     end = args.steps
+    if start_step >= end:
+        log.info("checkpoint already at step %d >= --steps %d; nothing to do",
+                 start_step, end)
+        ckpt.close()
+        print(json.dumps({
+            "model": args.model, "steps": 0, "final_step": start_step,
+            "loss": None, "examples_per_sec": 0.0, "step_ms": 0.0,
+            "goodput": 0.0, "devices": n_devices, "device": str(device),
+            "preempted": False,
+        }))
+        return 0
     # Warmup steps are real optimizer steps and count toward the step
     # number; only the timing excludes them, so kernel builds and
     # allocator warmup stay out of the throughput number.
@@ -517,7 +659,7 @@ def main(argv=None) -> int:
     preempted = threading.Event()
 
     def _on_sigterm(signum, frame):
-        log.warning("SIGTERM: stopping at the next step boundary")
+        log.warning("SIGTERM: checkpointing at the next step boundary")
         preempted.set()
 
     prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
@@ -540,6 +682,18 @@ def main(argv=None) -> int:
     if step_slowdown > 1.0:
         log.warning("chaos: step clock slowed by factor %.2f", step_slowdown)
 
+    # Built only for a step that is saved.
+    state_fn = functools.partial(train_state, work)
+
+    prefetcher = batches = None
+    if work.batch_fn is not None:
+        from ..data import Prefetcher
+
+        # The stateless data order restarts cleanly at start_step.
+        prefetcher = Prefetcher(work.batch_fn, start_step, end,
+                                depth=max(args.prefetch_depth, 1))
+        batches = iter(prefetcher)
+
     t0 = t_log = None
     first_loss: Optional[object] = None
     step = last_log_step = start_step
@@ -550,7 +704,14 @@ def main(argv=None) -> int:
             _sync(device)
             t0 = t_log = time.perf_counter()
             last_log_step = step
-        loss = work.step_fn(*work.batch)
+        if batches is not None:
+            # Host batch -> device on this thread's stream, ordered before
+            # the step's kernels (pinned: the copy is asynchronous).
+            batch = tuple(t.to(device, non_blocking=True)
+                          for t in next(batches)[1])
+        else:
+            batch = work.batch
+        loss = work.step_fn(*batch)
         if first_loss is None:
             first_loss = loss
         step += 1
@@ -572,13 +733,32 @@ def main(argv=None) -> int:
                 t_log, last_log_step = now, step
             else:  # still inside warmup: loss only, no bogus timing
                 log.info("step %d: loss=%.4f (warmup)", step, loss_val)
+        if ckpt is not None:
+            t_ckpt = time.perf_counter()
+            ckpt.save(step, state_fn)
+            telem.record_checkpoint(time.perf_counter() - t_ckpt)
         if preempted.is_set():
+            # The post-loop force-save commits this exact step.
             log.warning("preemption: stopping at step %d", step)
             break
+    if prefetcher is not None:
+        prefetcher.close()
     _sync(device)
     timed_steps = max(step - timed_from, 0)
     elapsed = (time.perf_counter() - t0) if t0 is not None else 0.0
     final_loss = float(loss)
+
+    if ckpt is not None:
+        from ..utils.checkpoint import drain_final_save
+
+        # FinalOnce-latched: exactly one final save lands however the
+        # loop exited, and an in-flight async write is drained inside
+        # the grace budget instead of being abandoned to a torn commit.
+        drain_final_save(ckpt, step, state_fn, telem,
+                         grace_s=_grace_seconds())
+        ckpt.close()
+    # Only after the checkpoint is durable: a second SIGTERM during the
+    # commit must not kill the process mid-write.
     signal.signal(signal.SIGTERM, prev_handler)
 
     telem.close(step, final=preempted.is_set())

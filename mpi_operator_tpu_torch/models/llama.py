@@ -37,6 +37,8 @@ class LlamaConfig:
     n_heads: int = 32
     n_kv_heads: int = 8
     ffn_dim: int = 14336
+    # The context cmd.eval holds --seq-len to (RoPE itself has no table).
+    max_seq_len: int = 8192
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16
@@ -73,7 +75,7 @@ def tiny(**overrides) -> LlamaConfig:
     """Test-scale config: real structure, toy widths."""
     base = LlamaConfig(
         vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
-        ffn_dim=128, dtype=torch.float32, remat=False,
+        ffn_dim=128, max_seq_len=128, dtype=torch.float32, remat=False,
         attention_impl="dense",
     )
     return dataclasses.replace(base, **overrides)

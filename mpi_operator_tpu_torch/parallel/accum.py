@@ -9,6 +9,9 @@ from typing import Callable, Optional
 
 import torch
 
+# The param-group key of the update count the LR schedule reads.
+SCHEDULE_COUNT = "schedule_count"
+
 
 def make_update_step(loss_of_batch: Callable, optimizer, accum_steps: int = 1,
                      lr_schedule: Optional[Callable[[int], float]] = None):
@@ -23,13 +26,18 @@ def make_update_step(loss_of_batch: Callable, optimizer, accum_steps: int = 1,
 
     ``lr_schedule(count)``, when given, sets the learning rate before the
     ``count``-th update (count starts at 0), as an optax schedule does.
+    The count lives in the optimizer's state, as optax keeps it in
+    ``opt_state``: each param group's ``schedule_count`` (for AdamW and
+    SGD alike; SGD keeps no step of its own), so it is saved and restored
+    with the optimizer and a resumed run carries on from the step it
+    stopped at.
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    updates = 0
+    for group in optimizer.param_groups:
+        group.setdefault(SCHEDULE_COUNT, 0)
 
     def train_step(*batch):
-        nonlocal updates
         optimizer.zero_grad(set_to_none=True)
         if accum_steps == 1:
             loss = loss_of_batch(*batch)
@@ -54,10 +62,12 @@ def make_update_step(loss_of_batch: Callable, optimizer, accum_steps: int = 1,
                 loss = loss + micro.detach()
             loss = loss / accum_steps
         if lr_schedule is not None:
+            lr = lr_schedule(optimizer.param_groups[0][SCHEDULE_COUNT])
             for group in optimizer.param_groups:
-                group["lr"] = lr_schedule(updates)
+                group["lr"] = lr
         optimizer.step()
-        updates += 1
+        for group in optimizer.param_groups:
+            group[SCHEDULE_COUNT] += 1
         return loss.detach()
 
     return train_step

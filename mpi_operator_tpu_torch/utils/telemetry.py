@@ -7,7 +7,9 @@ port's copy of ``TrainingTelemetry`` and ``FinalOnce`` from
 - a compact ``train_telemetry`` JSONL record is emitted every ``interval``
   steps (and on ``close()``) to a file or stderr, stamped with this
   worker's identity (``TPU_WORKER_ID`` and hostname);
-- goodput = productive (post-warmup) step time over total wall time.
+- goodput = productive (post-warmup) step time over total wall time;
+  checkpoint seconds (``record_checkpoint``) stay in the denominator and
+  are reported apart as ``checkpoint_s``.
 
 The windowed step heartbeats and device-memory samples of the JAX
 version come with the device samplers (ROADMAP.md queue (a) item 10).
@@ -25,7 +27,7 @@ import socket
 import sys
 import threading
 import time
-from typing import Optional, TextIO
+from typing import Callable, Optional, TextIO
 
 from ..api.v2beta1 import constants
 from . import metrics
@@ -72,11 +74,12 @@ class TrainingTelemetry:
         registry: Optional[metrics.Registry] = None,
         interval: int = 0,
         jsonl_path: str = "",
+        clock: Callable[[], float] = time.perf_counter,
     ):
         self.tokens_per_step = tokens_per_step
         self.examples_per_step = examples_per_step
         self.interval = interval
-        self._clock = time.perf_counter
+        self._clock = clock
         self._file: Optional[TextIO] = None
         if jsonl_path:
             self._file = open(jsonl_path, "a", buffering=1)
@@ -126,6 +129,7 @@ class TrainingTelemetry:
         self._last_emit_step = 0
         self._last_emit_time: Optional[float] = None
         self._last_emit_productive = 0.0
+        self._checkpoint_s = 0.0
 
     def _out(self) -> TextIO:
         return self._file if self._file is not None else sys.stderr
@@ -148,6 +152,13 @@ class TrainingTelemetry:
                 self.examples_total.inc(self.examples_per_step)
         if self.interval and step % self.interval == 0:
             self.emit(step)
+
+    def record_checkpoint(self, duration_s: float) -> None:
+        """Charge durable-save wall time. Checkpoint seconds stay in the
+        goodput denominator (they are not productive step time) but are
+        reported separately so the operator-side goodput ledger can carve
+        them out of the job's productive phase."""
+        self._checkpoint_s += max(0.0, duration_s)
 
     def _stamp_identity(self, rec: dict) -> dict:
         if self.worker_id is not None:
@@ -190,6 +201,8 @@ class TrainingTelemetry:
             rec["tokens_per_sec"] = round(rate * self.tokens_per_step, 1)
         if self.examples_per_step:
             rec["examples_per_sec"] = round(rate * self.examples_per_step, 1)
+        if self._checkpoint_s > 0:
+            rec["checkpoint_s"] = round(self._checkpoint_s, 3)
         self.goodput.set(round(goodput, 6))
         self.throughput.set(
             round(rate * (self.tokens_per_step or self.examples_per_step), 3)

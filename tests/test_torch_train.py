@@ -2,7 +2,8 @@
 on the CPU: the summary line of every arm (ResNet, Llama, BERT, ViT,
 seq2seq), each arm's synthetic batch against the JAX trainer's, the loud
 refusal of every flag a later slice brings, and no quiet move to the CPU
-when ``cuda`` is asked for.
+when ``cuda`` is asked for; the ``--data`` batches against the JAX
+trainer's ``batch_fn``. Checkpoint resume is ``test_torch_resume.py``.
 """
 
 import json
@@ -63,8 +64,6 @@ def test_loss_falls_with_grad_accum_and_cosine_schedule(capsys):
 REFUSED = {
     "moe": (["--model", "mixtral-8x7b"], "item 13"),
     "moe-tiny": (["--model", "llama-moe-tiny"], "item 13"),
-    "checkpoint": (["--checkpoint-dir", "/nonexistent"], "item 9"),
-    "data": (["--data", "corpus.bin"], "item 5"),
     "heartbeat": (["--heartbeat-every", "2"], "item 10"),
     "profile": (["--profile-dir", "/nonexistent"], "item 10"),
     "mesh": (["--mesh", "dp=2"], "items 6-7"),
@@ -361,3 +360,67 @@ def test_mesh_is_one_device():
     assert mesh.sizes == {"dp": 1, "tp": 1}
     with pytest.raises(ValueError, match="items 6-7"):
         create_mesh(device="cpu", fsdp=2)
+
+
+# -- --data: the token stream -------------------------------------------
+
+def _corpus(tmp_path, n_seq: int, seq_len: int, high: int, seed: int = 0):
+    from mpi_operator_tpu_torch.data import write_token_file
+
+    path = tmp_path / "corpus.u32"
+    write_token_file(path, np.random.RandomState(seed).randint(
+        0, high, n_seq * seq_len))
+    return str(path)
+
+
+DATA_ARMS = {
+    "llama": ["--model", "llama-tiny"],
+    "bert-mask": ["--model", "bert-tiny", "--mlm-layout", "mask"],
+    "bert-positions": ["--model", "bert-tiny", "--mlm-layout", "positions"],
+}
+
+
+@pytest.mark.parametrize("arm", sorted(DATA_ARMS))
+def test_data_batches_are_the_jax_trainers(monkeypatch, tmp_path, arm):
+    """10 sequences, B=4: step 2 takes positions 8..11, two from epoch 0
+    and two from epoch 1, and steps 0-4 walk into epoch 2. Ids up to
+    1000 exercise the ``% vocab`` of both trainers."""
+    import os
+
+    from mpi_operator_tpu.ops import attention as jattn
+
+    # The reference's _flat_pack reads os.environ, but its module never
+    # imports os (tests/test_torch_llama.py): supply the module global.
+    monkeypatch.setattr(jattn, "os", os, raising=False)
+    data = _corpus(tmp_path, 10, 16, 1000)
+    argv = [*DATA_ARMS[arm], "--seq-len", "16", "--global-batch", "4",
+            "--seed", "3", "--data", data]
+    want = _jax_workload(argv)
+    args = train.build_parser().parse_args(["--device", "cpu", *argv])
+    got = train.build_workload(args, create_mesh(device="cpu", dp=-1), 1)
+    assert got.batch_fn is not None
+    for step in range(5):
+        ours, theirs = got.batch_fn(step), want.batch_fn(step)
+        assert len(ours) == len(theirs) == len(got.batch)
+        for g, w, synthetic in zip(ours, theirs, got.batch):
+            assert g.device.type == "cpu" and g.dtype == synthetic.dtype
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("model", ["resnet18", "vit-tiny", "seq2seq-tiny"])
+def test_data_is_refused_where_the_jax_trainer_ignores_it(model):
+    with pytest.raises(SystemExit, match="only the token models"):
+        train.main(["--device", "cpu", "--model", model, "--steps", "1",
+                    "--data", "corpus.u32"])
+
+
+def test_llama_trains_from_a_token_file(capsys, tmp_path):
+    data = _corpus(tmp_path, 5, 32, 256)
+    rc = train.main(["--device", "cpu", "--model", "llama-tiny", "--steps",
+                     "6", "--warmup", "1", "--seq-len", "32",
+                     "--global-batch", "2", "--lr", "1e-2", "--data", data,
+                     "--telemetry-every", "0"])
+    assert rc == 0
+    summary = _summary(capsys)
+    assert summary["final_step"] == 6 and math.isfinite(summary["loss"])
+    assert summary["loss"] < summary["first_loss"]
