@@ -68,9 +68,27 @@ Phases, in order:
    finite (and, for the trainer runs, fall), and each run's launch
    counters (set to 0 just before it, read just after) must show exactly
    its own kernels;
-5. ``profile`` (opt-in, ``--phases profile``): where one training step's
+5. ``world``: the port across processes. A one-process NCCL world formed
+   by the launcher's own ``form_world``, with the healthcheck's collective
+   probe and its JSON line. Then one gang of two processes on the one
+   card (``python3 chip_smoke.py --world-child``, the rendezvous env, the
+   gang barrier, ``cmd.train.main``; gloo, since NCCL refuses two ranks
+   on one GPU) runs in turn: BERT-base at full size (B=64 global, S=512,
+   ``--mlm-layout positions``) with ``--mesh dp=2``, six steps, its loss
+   curve held against the one-process run of the same call (rtol 2e-3)
+   and each rank's flash launches against that run's; three steps each
+   with ``fsdp=2`` (FSDP2) and ``tp=2`` (the tensor-parallel plan); a
+   checkpoint saved sharded by ``fsdp=2`` at step 2 and resumed on
+   ``dp=2`` to step 3; the resume check on a token file (straight to
+   step 4 against step 2 then resumed to 4, a save every 2 steps);
+   SIGTERM to rank 1 alone (both
+   ranks stop at step 2 and commit it, then resume to ``--steps``); and
+   ``cmd.eval --mesh dp=2`` on a llama-tiny checkpoint the pair wrote,
+   against the one-process eval. Its step times measure gloo staging
+   every collective through the host, not the port on a multi-GPU node;
+6. ``profile`` (opt-in, ``--phases profile``): where one training step's
    time goes, for each arm (device kernel time by kind, idle share);
-6. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
+7. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
    step, as a same-call A/B: the Llama and the BERT-base train runs
    synthetic and on a token file in turns (S D D S, four times), 10 steps
    each, with every run's step_ms and each side's median.
@@ -2126,11 +2144,365 @@ def profile_resnet_step() -> None:
     torch.cuda.empty_cache()
 
 
+
+# -- world: the port across processes on the one card --------------------
+
+# Two processes share the card (NCCL refuses two ranks on one GPU), so
+# the gang's default process group is gloo, which stages each collective
+# through the host: its step times measure gloo on one card, not the
+# port on a multi-GPU node.
+WORLD_PROCESSES = 2
+WORLD_ARGS = BERT_TRAIN_ARGS + ["--mesh", "dp=2"]
+# The mesh runs that gloo carries on CUDA tensors (FSDP2 and the DTensor
+# tensor-parallel plan), three steps each.
+WORLD_MESH_STEPS = 3
+# A loss of the dp=2 curve against the one-process curve of the same
+# call: bf16 keeps 8 significant bits (3.9e-3 a rounding); the loss
+# averages 64 x 76 predictions, and the runs differ only in the GEMMs'
+# row counts and the order of the gradient sums. 2e-3 is half a bf16
+# rounding at the loss.
+WORLD_LOSS_RTOL = 2e-3
+WORLD_TIMEOUT_S = 600
+
+
+@contextlib.contextmanager
+def _recorded(train, curve: list, sigterm_after: int = 0):
+    """Each step's (local) loss appended to ``curve``; with
+    ``sigterm_after``, SIGTERM this process after that many steps, as a
+    kubelet preempting its pod."""
+    import signal
+
+    real = train.build_workload
+
+    def build(*a, **kw):
+        work = real(*a, **kw)
+        step_fn = work.step_fn
+
+        def step(*batch):
+            loss = step_fn(*batch)
+            curve.append(loss.detach().clone())
+            if len(curve) == sigterm_after:
+                signal.raise_signal(signal.SIGTERM)
+            return loss
+
+        work.step_fn = step
+        return work
+
+    train.build_workload = build
+    try:
+        yield
+    finally:
+        train.build_workload = real
+
+
+def _world_job(job: dict) -> dict:
+    """One ``cmd.train`` or ``cmd.eval`` call in this process, with every
+    launch counter set to 0 just before it and read just after; returns
+    its last JSON line (None when it printed none), the counts and the
+    curve of its local losses."""
+    from mpi_operator_tpu_torch.cmd import eval as eval_cmd
+    from mpi_operator_tpu_torch.cmd import train
+
+    entry = eval_cmd.main if job.get("cmd") == "eval" else train.main
+    curve, buf = [], io.StringIO()
+    _reset_all_launch_counts()
+    with _recorded(train, curve, job.get("sigterm_after", 0)), \
+            contextlib.redirect_stdout(buf):
+        rc = entry(job["argv"])
+    launches = _all_launch_counts()
+    if rc != 0:
+        raise AssertionError(f"{job['argv']} returned {rc}")
+    lines = [json.loads(line) for line in buf.getvalue().splitlines()
+             if line.startswith("{")]
+    return {"line": lines[-1] if lines else None, "launches": launches,
+            "curve": [float(x) for x in curve]}
+
+
+def world_child(spec: str) -> int:
+    """A rank of the world phase's gang (the rendezvous env set by the
+    parent): each job of ``spec`` in turn, one JSON result line each."""
+    import os
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["TPUJOB_PROCESS_ID"])
+    for job in json.loads(Path(spec).read_text()):
+        if job.get("sigterm_rank", rank) != rank:
+            job = {**job, "sigterm_after": 0}
+        print(json.dumps({"result": _world_job(job)}), flush=True)
+    return 0
+
+
+def _run_gang(jobs: list, tmp: Path) -> list:
+    """``jobs`` in each of WORLD_PROCESSES processes of one world on the
+    card (``python3 chip_smoke.py --world-child``, gloo). A rank that
+    fails stops every rank and fails the phase, naming the rank and
+    showing the end of its log. Returns each rank's job results."""
+    import os
+
+    from mpi_operator_tpu_torch.utils.net import free_port_pair
+
+    spec = tmp / "world_jobs.json"
+    spec.write_text(json.dumps(jobs))
+    port = free_port_pair()
+    procs, logs = [], []
+    for rank in range(WORLD_PROCESSES):
+        env = {**os.environ,
+               "TPUJOB_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+               "TPUJOB_NUM_PROCESSES": str(WORLD_PROCESSES),
+               "TPUJOB_PROCESS_ID": str(rank), "TPU_WORKER_ID": str(rank),
+               "TPUJOB_DIST_BACKEND": "gloo"}
+        out, err = tmp / f"rank{rank}.out", tmp / f"rank{rank}.err"
+        logs.append((out, err))
+        procs.append(subprocess.Popen(
+            [sys.executable, __file__, "--world-child", str(spec)], env=env,
+            stdout=out.open("w"), stderr=err.open("w")))
+    deadline = time.monotonic() + WORLD_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            for rank, p in enumerate(procs):
+                if p.poll() not in (None, 0):
+                    raise AssertionError(
+                        f"world rank {rank} exited {p.returncode}:\n"
+                        f"{logs[rank][1].read_text()[-6000:]}")
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"world ranks still running after {WORLD_TIMEOUT_S} s")
+            time.sleep(0.5)
+        for rank, p in enumerate(procs):
+            if p.returncode != 0:
+                raise AssertionError(
+                    f"world rank {rank} exited {p.returncode}:\n"
+                    f"{logs[rank][1].read_text()[-6000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [[json.loads(line)["result"]
+             for line in out.read_text().splitlines()
+             if line.startswith('{"result"')] for out, _ in logs]
+
+
+def _nccl_probe() -> dict:
+    """A one-process NCCL world formed through the launcher's own
+    function, the healthcheck's collective probe on it, its JSON line."""
+    from mpi_operator_tpu_torch.launcher import bootstrap, healthcheck
+    from mpi_operator_tpu_torch.utils.net import free_port_pair
+
+    cfg = bootstrap.RendezvousConfig(
+        coordinator_address=f"127.0.0.1:{free_port_pair()}",
+        num_processes=1)
+    bootstrap.form_world(cfg, device_type="cuda", backend="nccl")
+    try:
+        import torch.distributed as dist
+
+        backend = dist.get_backend()
+        line = healthcheck.run_healthcheck(cfg, device_type="cuda")
+    finally:
+        bootstrap.shutdown()
+    log(json.dumps(line, sort_keys=True))
+    log(f"world NCCL probe: backend {backend} -> "
+        f"{'ok' if line['ok'] and backend == 'nccl' else 'FAIL'}")
+    if not (line["ok"] and backend == "nccl"):
+        raise AssertionError("the one-process NCCL world failed its probe")
+    return line
+
+
+def _close(got: list, want: list, rtol: float) -> bool:
+    return len(got) == len(want) and all(
+        math.isfinite(g) and abs(g - w) <= rtol * abs(w)
+        for g, w in zip(got, want))
+
+
+def run_world(tmp: Path) -> dict:
+    """Phase ``world``: the NCCL probe; then BERT-base at full size on two
+    processes over gloo (one gang, the jobs in turn): ``--mesh dp=2`` six
+    steps against the one-process run of the same call; ``fsdp=2`` and
+    ``tp=2`` steps; an ``fsdp=2`` checkpoint resumed on ``dp=2``; the
+    resume check (straight to step 4 against step 2
+    then resumed to 4, on a token file, a save every 2 steps); SIGTERM to
+    rank 1 alone, then the resume to ``--steps``; ``cmd.eval --mesh dp=2``
+    on a llama-tiny checkpoint the pair wrote, against the one-process
+    eval. Returns each path's launch counts (rank 0's) for the kernel
+    record."""
+    import torch
+
+    from mpi_operator_tpu_torch.models import bert
+    from mpi_operator_tpu_torch.utils.checkpoint import committed_steps
+
+    _nccl_probe()
+    # The one-process reference: the same call, its loss curve recorded.
+    one = _world_job({"argv": BERT_TRAIN_ARGS})
+    torch.cuda.empty_cache()
+
+    data = _token_file(tmp / "world.u32", RESUME_SEQUENCES, 512,
+                       bert.bert_base().vocab_size, seed=2)
+    resume = [*RESUME_ARGS, "--mesh", "dp=2", "--data", data]
+    straight, resumed = tmp / "world-straight", tmp / "world-resumed"
+    preempted, tiny = tmp / "world-preempted", tmp / "world-tiny"
+    moved = tmp / "world-moved"
+    mesh_argv = [*BERT_TRAIN_ARGS, "--steps", str(WORLD_MESH_STEPS)]
+    tiny_eval = ["--checkpoint-dir", str(tiny), "--model", "llama-tiny",
+                 "--data", _token_file(tmp / "tiny-world.u32", 256, 16, 256,
+                                       seed=3),
+                 "--batch", "4", "--batches", "3", "--seq-len", "16"]
+    jobs = {
+        "dp=2": {"argv": WORLD_ARGS},
+        "fsdp=2": {"argv": [*mesh_argv, "--mesh", "fsdp=2"]},
+        "tp=2": {"argv": [*mesh_argv, "--mesh", "tp=2"]},
+        # Saved sharded by FSDP2 at step 2, resumed on dp=2 to step 3.
+        "fsdp save": {"argv": [*BERT_TRAIN_ARGS, "--steps", "2", "--mesh",
+                               "fsdp=2", "--save-every", "2",
+                               "--checkpoint-dir", str(moved)]},
+        "dp resume": {"argv": [*BERT_TRAIN_ARGS, "--steps", "3", "--mesh",
+                               "dp=2", "--save-every", "2",
+                               "--checkpoint-dir", str(moved)]},
+        "straight": {"argv": [*resume, "--steps", "4", "--checkpoint-dir",
+                              str(straight)]},
+        "first": {"argv": [*resume, "--steps", "2", "--checkpoint-dir",
+                           str(resumed)]},
+        "resumed": {"argv": [*resume, "--steps", "4", "--checkpoint-dir",
+                             str(resumed)]},
+        "preempted": {"argv": [*resume, "--steps", "4", "--save-every", "100",
+                               "--checkpoint-dir", str(preempted)],
+                      "sigterm_rank": 1, "sigterm_after": 2},
+        "after": {"argv": [*resume, "--steps", "4", "--save-every", "100",
+                           "--checkpoint-dir", str(preempted)]},
+        "tiny": {"argv": ["--model", "llama-tiny", "--mesh", "dp=2",
+                          "--steps", "2", "--warmup", "1", "--global-batch",
+                          "8", "--seq-len", "16", "--lr", "1e-3",
+                          "--checkpoint-dir", str(tiny), "--save-every", "1",
+                          "--log-every", "1"]},
+        "eval": {"cmd": "eval", "argv": [*tiny_eval, "--mesh", "dp=2"]},
+    }
+    t0 = time.perf_counter()
+    ranks = _run_gang(list(jobs.values()), tmp)
+    gang_s = time.perf_counter() - t0
+    got = {name: [r[i] for r in ranks] for i, name in enumerate(jobs)}
+    failed = []
+
+    def check(name: str, ok: bool, msg: str) -> None:
+        log(f"world {name}: {msg} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(name)
+
+    flat = FLASH_NAMES["flat"]
+    # dp=2 against one process: the global curve is the mean of the
+    # ranks' local curves (equal-sized halves, equal MLM weight counts).
+    curve = [sum(c) / WORLD_PROCESSES
+             for c in zip(*(r["curve"] for r in got["dp=2"]))]
+    want = _want_launches({k: BERT_LAYERS * 6 for k in flat})
+    lines = [r["line"] for r in got["dp=2"]]
+    check("bert-base dp=2",
+          _close(curve, one["curve"], WORLD_LOSS_RTOL)
+          and all(r["launches"] == want == one["launches"]
+                  for r in got["dp=2"])
+          and all(line["devices"] == 2 and line["steps"] == 6
+                  for line in lines)
+          and curve[-1] < curve[0],
+          f"curve {[round(x, 6) for x in curve]} vs one process "
+          f"{[round(x, 6) for x in one['curve']]} (rtol {WORLD_LOSS_RTOL}); "
+          f"step_ms {[line['step_ms'] for line in lines]} (one process "
+          f"{one['line']['step_ms']}); sequences/s "
+          f"{[line['examples_per_sec'] for line in lines]}; launches a rank "
+          f"{[r['launches'] for r in got['dp=2']]} (one process "
+          f"{one['launches']})")
+    for mesh in ("fsdp=2", "tp=2"):
+        curve = [sum(c) / WORLD_PROCESSES
+                 for c in zip(*(r["curve"] for r in got[mesh]))]
+        want = _want_launches({k: BERT_LAYERS * WORLD_MESH_STEPS
+                               for k in flat})
+        lines = [r["line"] for r in got[mesh]]
+        check(f"bert-base {mesh}",
+              _close(curve, one["curve"][:WORLD_MESH_STEPS], WORLD_LOSS_RTOL)
+              and all(r["launches"] == want for r in got[mesh])
+              and all(line["devices"] == 2 for line in lines),
+              f"curve {[round(x, 6) for x in curve]} (one process "
+              f"{[round(x, 6) for x in one['curve'][:WORLD_MESH_STEPS]]}); "
+              f"step_ms {[line['step_ms'] for line in lines]}; launches a "
+              f"rank {[r['launches'] for r in got[mesh]]}")
+
+    # Onto another mesh: the dp=2 run's one step from the fsdp=2 sharded
+    # checkpoint is the one-process curve's third.
+    lines = [r["line"] for r in got["dp resume"]]
+    check("bert-base fsdp=2 -> dp=2 resume",
+          all((line["final_step"], line["steps"]) == (3, 1)
+              for line in lines)
+          and _close([lines[0]["loss"]], one["curve"][2:3], WORLD_LOSS_RTOL),
+          f"resumed at step {lines[0]['final_step'] - lines[0]['steps']} to "
+          f"{lines[0]['final_step']}, loss {lines[0]['loss']:.6f} (one "
+          f"process at step 3: {one['curve'][2]:.6f}; rtol "
+          f"{WORLD_LOSS_RTOL})")
+
+    # Resume, as the train phase's check holds it: the resumed loss and
+    # every parameter against the straight run.
+    s_line, r_line = got["straight"][0]["line"], got["resumed"][0]["line"]
+    s_params = _final_params(straight, 4)
+    r_params = _final_params(resumed, 4)
+    worst = max(
+        float(((r_params[k].double() - v.double()).abs()
+               - (RESUME_ATOL + RESUME_RTOL * v.double().abs())).max())
+        for k, v in s_params.items())
+    steps_ok = all((r["line"]["final_step"], r["line"]["steps"]) == (4, 2)
+                   for r in got["resumed"])
+    check("bert-base dp=2 resume",
+          steps_ok and worst <= 0 and s_params.keys() == r_params.keys()
+          and abs(r_line["loss"] - s_line["loss"])
+          <= RESUME_RTOL * abs(s_line["loss"]),
+          f"straight loss {s_line['loss']:.6f} step_ms {s_line['step_ms']}; "
+          f"resumed loss {r_line['loss']:.6f} (steps {r_line['steps']}); "
+          f"worst parameter excess over rtol {RESUME_RTOL} atol "
+          f"{RESUME_ATOL}: {worst:.3e}")
+
+    # SIGTERM to rank 1 alone.
+    stop = [r["line"] for r in got["preempted"]]
+    after = [r["line"] for r in got["after"]]
+    commits = committed_steps(str(preempted))
+    check("bert-base dp=2 SIGTERM on rank 1",
+          all(line["preempted"] and line["final_step"] == 2 for line in stop)
+          and [len(r["curve"]) for r in got["preempted"]] == [2, 2]
+          and 2 in commits and max(commits) == 4
+          and all((line["final_step"], line["steps"], line["preempted"])
+                  == (4, 2, False) for line in after),
+          f"stopped at {[line['final_step'] for line in stop]} "
+          f"(preempted {[line['preempted'] for line in stop]}); committed "
+          f"steps {sorted(commits)}; resumed to "
+          f"{[line['final_step'] for line in after]}")
+
+    # Eval on the pair's llama-tiny checkpoint, against one process.
+    e0, e1 = got["eval"]
+    single = _world_job({"cmd": "eval", "argv": tiny_eval})
+    want = _want_launches({"flash_fwd": 2 * 3})
+    rel = abs(e0["line"]["loss"] - single["line"]["loss"]) / abs(
+        single["line"]["loss"])
+    check("eval dp=2",
+          e1["line"] is None
+          and e0["line"]["tokens"] == single["line"]["tokens"]
+          and rel <= TINY_EVAL_RTOL and e0["launches"] == want
+          and e1["launches"] == want,
+          f"{json.dumps(e0['line'])} (rank 1 printed "
+          f"{e1['line']}); one process {json.dumps(single['line'])}; loss rel "
+          f"{rel:.3e} (tol {TINY_EVAL_RTOL:.0e}); launches a rank "
+          f"{e0['launches']}, {e1['launches']} (want {want})")
+    log(f"world gang: {WORLD_PROCESSES} processes on one card over gloo, "
+        f"{len(jobs)} jobs in {gang_s:.1f} s")
+    if failed:
+        raise AssertionError(f"world checks failed: {failed}")
+    return {"bert-base dp=2": got["dp=2"][0]["launches"],
+            "bert-base fsdp=2": got["fsdp=2"][0]["launches"],
+            "bert-base tp=2": got["tp=2"][0]["launches"],
+            "eval dp=2": e0["launches"]}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="kernels,model,train",
-                        help="comma-separated subset of kernels,model,train "
-                             "and the opt-in profile and data")
+    parser.add_argument("--phases", default="kernels,model,train,world",
+                        help="comma-separated subset of kernels,model,train,"
+                             "world and the opt-in profile and data")
+    parser.add_argument("--world-child", default="", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2139,6 +2511,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 1
+    if args.world_child:  # a rank of the world phase's gang
+        return world_child(args.world_child)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2217,6 +2591,14 @@ def main(argv=None) -> int:
             f"{costs['sync']['write']:.4f} s a save, async snapshot "
             f"{costs['async']['snapshot']:.4f} s (write "
             f"{costs['async']['write']:.4f} s behind the steps)")
+    if "world" in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_world_") as tmp:
+            by_path = run_world(Path(tmp))
+        for name in FLASH_NAMES["flat"]:
+            if name in records:
+                records[name].setdefault("launches_by_path", {}).update(
+                    {f"world {k}": c[name] for k, c in by_path.items()})
+        log(f"card: {card}; world phase done")
     if records:
         log(json.dumps({"kernels": list(records.values())}))
     log(json.dumps({"ok": True, "device": {

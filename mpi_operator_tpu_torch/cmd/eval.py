@@ -13,9 +13,13 @@ command's keys and rounding:
 
 Runs on ``cuda`` by default (raising when no GPU is present) and on the
 CPU with ``--device cpu``. Attention takes the flash forward kernel
-(``ops/attention.py``); no backward kernel runs. A sharded eval
-(``--mesh`` with an axis > 1) and a multi-process world are later slices
-of the port and refuse.
+(``ops/attention.py``); no backward kernel runs.
+
+Across processes (the rendezvous env, as ``cmd.train`` reads it) with
+``--mesh`` over dp, fsdp and tp (dp over every process by default): each
+process evaluates its rows of each batch (``ds.rows``) with the
+parameters laid out as the trainer lays them out, the summed loss and
+token count are added across the world, and only process 0 prints.
 """
 
 from __future__ import annotations
@@ -46,33 +50,43 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0,
                    help="epoch-shuffle seed (fixed seed = fixed eval set)")
     p.add_argument("--mesh", default="",
-                   help="axis=size pairs; every axis must be 1 (sharded "
-                        "eval is not ported yet)")
+                   help="axis=size pairs over dp, fsdp and tp (default: dp "
+                        "over every process)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where to evaluate; cuda raises when no GPU is "
                         "present (the run never moves to the CPU on its own)")
     return p
 
 
-def evaluate(model, ds, batch: int, n_batches: int, device) -> tuple:
+def evaluate(model, ds, batch: int, n_batches: int, device,
+             mesh=None) -> tuple:
     """Token-weighted mean next-token cross-entropy of ``model`` over
-    batches 0..n_batches-1 of ``ds`` (rows ``ds.rows(b, batch, 0,
-    batch)``, as the JAX command reads them). Returns ``(mean, tokens)``.
+    batches 0..n_batches-1 of ``ds`` (rows ``ds.rows(b, batch, lo, hi)``,
+    as the JAX command reads them: all of them, or this process's rows on
+    a ``mesh`` of several processes). Returns ``(mean, tokens)`` over the
+    whole batches.
 
     Each batch's ids are checked on the host against the vocabulary (on
     the card an out-of-range id is a device-side assert that kills the
     context). The loss sum and token count accumulate on the device; the
-    one host sync is at the end."""
+    one host sync (and, across processes, the one collective) is at the
+    end."""
     import numpy as np
     import torch
 
     from ..models import llama as lib
+    from ..parallel.mesh import TP, world_size
+    from ..parallel.sharding import local_rows
 
     vocab = model.config.vocab_size
+    ranges = [(0, batch)] if mesh is None else local_rows(batch, mesh)
     totals = torch.zeros(2, dtype=torch.float64, device=device)
-    with torch.inference_mode():
+    # no_grad rather than inference_mode: sharded parameters (DTensor,
+    # FSDP2) take part in autograd-aware dispatch even here.
+    with torch.no_grad():
         for b in range(n_batches):
-            rows = ds.rows(b, batch, 0, batch)
+            rows = np.concatenate([ds.rows(b, batch, lo, hi)
+                                   for lo, hi in ranges])
             top = int(rows.max())
             if top >= vocab:
                 raise SystemExit(
@@ -85,6 +99,14 @@ def evaluate(model, ds, batch: int, n_batches: int, device) -> tuple:
             loss = lib.loss_fn(model, tokens)
             totals[0] += loss.double() * n
             totals[1] += n
+    if world_size() > 1:
+        import torch.distributed as dist
+
+        # A tp rank holds its peers' rows: the world's sums count each
+        # row tp times, which the mean does not see; the token count is
+        # divided back.
+        dist.all_reduce(totals)
+        totals /= mesh.axis_size(TP) if mesh is not None else 1
     total, count = totals.tolist()
     return total / max(count, 1.0), int(count)
 
@@ -97,24 +119,29 @@ def main(argv=None) -> int:
         raise SystemExit("--batches must be >= 0 (0 = one full epoch)")
     from .train import parse_mesh_spec
 
-    wide = {a: n for a, n in parse_mesh_spec(args.mesh).items() if n > 1}
-    if wide:
-        raise SystemExit(f"--mesh {wide} (sharded eval) is not ported yet "
-                         f"(ROADMAP.md queue (a) item 7)")
-
-    # A multi-process world raises here until world formation is ported.
-    from ..launcher import bootstrap
-
-    bootstrap.initialize()
+    sizes = parse_mesh_spec(args.mesh)
+    bad = [a for a, n in sizes.items() if a not in ("dp", "fsdp", "tp")
+           and n > 1]
+    if bad:
+        raise SystemExit(f"eval meshes take dp/fsdp/tp; {bad} have no "
+                         f"eval-time meaning here")
 
     import math
 
     from ..data import TokenDataset
+    from ..launcher import bootstrap
     from ..models import llama as lib
     from ..ops._common import require_device
+    from ..parallel.mesh import batch_shards, create_mesh
+    from ..parallel.sharding import shard_params
     from ..utils.checkpoint import read_llama_params
 
     device = require_device(args.device)
+    # Forms the world of a multi-process job (idempotent); a one-process
+    # job skips it.
+    rdzv = bootstrap.initialize(device_type=device.type)
+    if rdzv.is_distributed:
+        device = bootstrap.process_device(rdzv.process_id, device.type)
     if args.model.startswith(("mixtral", "llama-moe")):
         raise SystemExit(f"--model {args.model!r} (mixture of experts) is "
                          f"not ported yet (ROADMAP.md queue (a) item 13)")
@@ -128,6 +155,14 @@ def main(argv=None) -> int:
             f"--seq-len {seq_len} exceeds the model context {cfg.max_seq_len}"
         )
 
+    try:
+        mesh = create_mesh(device=device, **sizes)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {args.mesh!r}: {e}") from None
+    if args.batch % batch_shards(mesh):
+        raise SystemExit(f"--batch {args.batch} not divisible by the dp*fsdp "
+                         f"shard count {batch_shards(mesh)}")
+
     step, params = read_llama_params(args.checkpoint_dir, args.model)
     model = lib.Llama(cfg, device=device)
     try:
@@ -136,13 +171,18 @@ def main(argv=None) -> int:
         raise SystemExit(f"checkpoint at step {step} does not fit "
                          f"--model {args.model}: {e}") from None
     model.eval()
+    shard_params(model, mesh, tp_plan=lambda: lib.tensor_parallel_plan(
+        model, mesh.axis_size("tp")))
 
     ds = TokenDataset(args.data, seq_len, seed=args.seed)
     try:
         n_batches = args.batches or max(1, ds.num_sequences // args.batch)
-        mean, tokens = evaluate(model, ds, args.batch, n_batches, device)
+        mean, tokens = evaluate(model, ds, args.batch, n_batches, device,
+                                mesh)
     finally:
         ds.close()
+    if rdzv.process_id != 0:
+        return 0  # one JSON line per job, not per process
     print(json.dumps({
         "step": step,
         "model": args.model,
@@ -155,4 +195,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    from .train import run_as_process
+
+    raise SystemExit(run_as_process(main))

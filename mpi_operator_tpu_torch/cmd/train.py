@@ -1,5 +1,5 @@
 """Training entrypoint -- the port of ``mpi_operator_tpu/cmd/train.py``,
-ResNet, Llama, BERT, ViT and seq2seq arms, one process on one device:
+ResNet, Llama, BERT, ViT and seq2seq arms, one process per device:
 
     python -m mpi_operator_tpu_torch.cmd.train      # resnet101, 224x224, B=64
     python -m mpi_operator_tpu_torch.cmd.train --model resnet101 \\
@@ -19,15 +19,26 @@ ResNet, Llama, BERT, ViT and seq2seq arms, one process on one device:
         --data corpus.u32 --checkpoint-dir /ckpt/bert --save-every 100 \\
         --async-checkpoint --steps 1000 --lr 1e-4
 
-Flow: rendezvous (launcher.bootstrap, single process) -> one-device mesh
--> model + optimizer (ResNet: SGD nesterov momentum 0.9; Llama, BERT,
-ViT and seq2seq: AdamW) -> resume from ``--checkpoint-dir``
+Flow: rendezvous (launcher.bootstrap: a one-process job skips it; a
+larger one forms its torch.distributed world from the controller's env)
+-> the mesh from ``--mesh`` over the world -> model, placed on the mesh
+(``parallel/sharding.py``: a tensor-parallel plan on tp, FSDP2 on fsdp,
+HSDP on dp x fsdp, gradient averaging on dp alone) + optimizer (ResNet:
+SGD nesterov momentum 0.9; Llama, BERT, ViT and seq2seq: AdamW) ->
+resume from ``--checkpoint-dir``
 (``utils/checkpoint.py``; ``--steps`` is an ABSOLUTE target)
 -> step loop with warmup boundary, log cadence, a checkpoint save after
-every step (the manager's interval decides), SIGTERM stop, step-slowdown
+every step (the manager's interval decides), SIGTERM stop (agreed by
+every process each step, so the gang stops at one step), step-slowdown
 chaos and telemetry -> the preempted-or-final save drained inside the
-grace budget -> one JSON summary line on stdout with the JAX trainer's
-keys.
+grace budget -> one JSON summary line on stdout from every process, with
+the JAX trainer's keys: ``loss`` is the global batch's, ``devices`` the
+world size.
+
+    # two processes, data parallel (the controller renders this env):
+    TPUJOB_COORDINATOR_ADDRESS=host0:8476 TPUJOB_NUM_PROCESSES=2 \
+    TPUJOB_PROCESS_ID=0 python -m mpi_operator_tpu_torch.cmd.train \
+        --model bert-base --mesh dp=2 ...
 
 ``--bn-kernel`` keeps the JAX values so that a TPUJob's args mean the
 same on both packages: ``xla`` (the default) normalizes with plain
@@ -44,7 +55,8 @@ Data: synthetic images and labels, tokens, BERT's masked-LM batch
 (``--mlm-layout mask`` or ``positions``) or seq2seq's copy task (targets
 = the source's first half), from
 ``np.random.RandomState(--seed)``, drawn exactly as the JAX trainer
-draws them, so both trainers see one batch. ``--data`` feeds Llama and
+draws them, so both trainers see one global batch; each process keeps
+its rows of it. ``--data`` feeds Llama and
 BERT from a uint32 token file instead (``data/loader.py``: the
 Feistel-shuffled stream, one fresh batch a step, assembled ahead by a
 ``Prefetcher``; BERT's masking drawn from ``RandomState(seed + step)``),
@@ -101,8 +113,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "seq2seq-small|seq2seq-tiny (the JAX trainer's MoE "
                         "names are refused until ported)")
     p.add_argument("--mesh", default="",
-                   help="axis spec, e.g. dp=-1; every axis must be 1 "
-                        "(multi-device meshes are not ported yet)")
+                   help="axis spec over the world's processes, e.g. dp=-1, "
+                        "dp=2,fsdp=2 or tp=2 (sp, pp and ep are not ported "
+                        "yet)")
     p.add_argument("--steps", type=int, default=100,
                    help="ABSOLUTE target step")
     p.add_argument("--warmup", type=int, default=3)
@@ -178,9 +191,6 @@ def refuse_unported(args) -> None:
         refuse("--profile-dir (device profiler traces)", "queue (a) item 10")
     if args.remat_policy == "dots":
         refuse("--remat-policy dots", "queue (a) item 4")
-    wide = {a: n for a, n in parse_mesh_spec(args.mesh).items() if n > 1}
-    if wide:
-        refuse(f"--mesh {wide} (multi-device meshes)", "queue (a) items 6-7")
 
 
 def _make_learning_rate(args):
@@ -200,6 +210,14 @@ def _make_learning_rate(args):
         return peak * 0.5 * (1.0 + math.cos(math.pi * t / decay))
 
     return schedule
+
+
+def _local_tensors(arrays, mesh, accum_steps: int = 1) -> tuple:
+    """This process's rows of global-batch arrays, as tensors on the
+    mesh's device."""
+    from ..parallel.sharding import shard_batch
+
+    return _as_tensors(shard_batch(arrays, mesh, accum_steps), mesh.device)
 
 
 class Workload:
@@ -225,6 +243,7 @@ def _resnet_workload(args, mesh, n_devices: int) -> Workload:
 
     from ..models import resnet as lib
     from ..ops.bn import require_single_device
+    from ..parallel.sharding import average_gradients, shard_params
 
     if args.grad_accum > 1:
         raise SystemExit(
@@ -240,6 +259,7 @@ def _resnet_workload(args, mesh, n_devices: int) -> Workload:
     lib.init_params(
         model, torch.Generator(device=mesh.device).manual_seed(args.seed)
     )
+    shard_params(model, mesh)
     lr = _make_learning_rate(args)
     schedule = lr if callable(lr) else None
     # optax.sgd(lr, momentum=0.9, nesterov=True): no dampening, no decay.
@@ -247,14 +267,15 @@ def _resnet_workload(args, mesh, n_devices: int) -> Workload:
         model.parameters(), lr=schedule(0) if schedule else lr,
         momentum=0.9, nesterov=True, dampening=0, weight_decay=0,
     )
+    average_gradients(optimizer, mesh)
     rng = np.random.RandomState(args.seed)
     images = rng.standard_normal(
         (global_batch, args.image_size, args.image_size, 3)
     ).astype(np.float32)
     labels = rng.randint(0, 1000, (global_batch,))
+    images, labels = _local_tensors((images, labels), mesh)
     # NHWC as drawn -> [N, 3, H, W] in channels_last memory (a view).
-    images = torch.as_tensor(images, device=mesh.device).permute(0, 3, 1, 2)
-    labels = torch.as_tensor(labels, dtype=torch.long, device=mesh.device)
+    images = images.permute(0, 3, 1, 2)
     return Workload(
         model=model,
         optimizer=optimizer,
@@ -328,26 +349,33 @@ def _as_tensors(arrays, device=None, pin: bool = False) -> tuple:
     return tuple(out)
 
 
-def _token_batch_fn(args, vocab: int, global_batch: int, device):
+def _token_batch_fn(args, vocab: int, global_batch: int, mesh):
     """``batch_fn(step)`` for ``--data`` (the JAX trainer's
-    ``_token_stream`` and BERT ``batch_fn``): Feistel-shuffled rows
-    ``ds.batch(step, B) % vocab``; BERT layers its masking on top, drawn
-    from ``RandomState(seed + step)`` for the global batch. Returns host
-    tensors, pinned on the card: the consuming thread copies them to the
-    device on its own stream."""
+    ``_token_stream`` and BERT ``batch_fn``): this process's Feistel-
+    shuffled rows of the global batch, ``ds.rows(step, B, lo, hi) %
+    vocab`` (the stream is stateless, so each process assembles only its
+    rows); BERT layers its masking on top, drawn from ``RandomState(seed
+    + step)`` for the global batch and sliced to the same rows. Returns
+    host tensors, pinned on the card: the consuming thread copies them to
+    the device on its own stream."""
     import numpy as np
 
     from ..data import TokenDataset
+    from ..parallel.sharding import local_rows
 
     ds = TokenDataset(args.data, args.seq_len, seed=args.seed)
     is_bert = args.model.startswith("bert")
-    pin = device.type == "cuda"
+    pin = mesh.device.type == "cuda"
+    ranges = local_rows(global_batch, mesh, args.grad_accum)
 
     def batch_fn(step: int) -> tuple:
-        rows = ds.batch(step, global_batch).astype(np.int64) % vocab
+        rows = np.concatenate([ds.rows(step, global_batch, lo, hi)
+                               for lo, hi in ranges]).astype(np.int64) % vocab
         if not is_bert:
             return _as_tensors((rows,), pin=pin)
-        rand = np.random.RandomState(args.seed + step).rand(*rows.shape)
+        rand = np.random.RandomState(args.seed + step).rand(
+            global_batch, args.seq_len)
+        rand = np.concatenate([rand[lo:hi] for lo, hi in ranges])
         return _as_tensors(_mlm_batch(rows, rand, args.mlm_layout), pin=pin)
 
     return batch_fn
@@ -356,7 +384,8 @@ def _token_batch_fn(args, vocab: int, global_batch: int, device):
 def _bert_model(args, device, rng, global_batch: int):
     """(model, make_step, batch) for a bert-* --model: the config the JAX
     trainer builds (its attention_impl default; max_seq_len grown to
-    --seq-len) and its batch, drawn from ``rng`` in the JAX order."""
+    --seq-len) and its global batch as numpy arrays, drawn from ``rng``
+    in the JAX order."""
     import dataclasses
 
     import numpy as np
@@ -377,9 +406,8 @@ def _bert_model(args, device, rng, global_batch: int):
     model = lib.Bert(cfg, device=device)
     lib.init_params(model, torch.Generator(device=device).manual_seed(args.seed))
     rows = rng.randint(0, cfg.vocab_size, (global_batch, args.seq_len))
-    batch = _as_tensors(
-        _mlm_batch(rows, rng.rand(global_batch, args.seq_len),
-                   args.mlm_layout), device)
+    batch = _mlm_batch(rows, rng.rand(global_batch, args.seq_len),
+                       args.mlm_layout)
     make_step = (lib.make_train_step_positions
                  if args.mlm_layout == "positions" else lib.make_train_step)
     return model, make_step, batch
@@ -391,6 +419,7 @@ def _lm_workload(args, mesh, n_devices: int) -> Workload:
 
     from ..models import llama as lib
     from ..parallel.mesh import SP
+    from ..parallel.sharding import shard_params
 
     sizes = mesh.sizes
     sp = sizes.get(SP, 1)
@@ -411,42 +440,55 @@ def _lm_workload(args, mesh, n_devices: int) -> Workload:
     rng = np.random.RandomState(args.seed)
 
     if args.model.startswith("bert"):
+        from ..models import bert as plan_lib
+
         model, make_step, batch = _bert_model(args, mesh.device, rng,
                                               global_batch)
     else:
+        plan_lib = lib
         cfg = llama_config_from_args(args, sp)
         model = lib.Llama(cfg, device=mesh.device)
         lib.init_params(
             model, torch.Generator(device=mesh.device).manual_seed(args.seed)
         )
         make_step = lib.make_train_step
-        batch = (torch.as_tensor(
-            rng.randint(0, cfg.vocab_size, (global_batch, args.seq_len)),
-            dtype=torch.long, device=mesh.device,
-        ),)
-    work = _adamw_workload(args, model, make_step, batch, global_batch,
+        batch = (rng.randint(0, cfg.vocab_size, (global_batch, args.seq_len)),)
+    tp = sizes.get("tp", 1)
+    shard_params(model, mesh,
+                 tp_plan=lambda: plan_lib.tensor_parallel_plan(model, tp))
+    work = _adamw_workload(args, mesh, model, make_step, batch, global_batch,
                            tokens_per_step=global_batch * args.seq_len)
     if args.data:
         work.batch_fn = _token_batch_fn(args, model.config.vocab_size,
-                                        global_batch, mesh.device)
+                                        global_batch, mesh)
     return work
 
 
-def _adamw_workload(args, model, make_step, batch: tuple, global_batch: int,
-                    tokens_per_step: int = 0) -> Workload:
-    """The Workload of a model trained with ``optax.adamw`` in the JAX
-    trainer: its defaults b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4
-    (torch's own default decay is 0.01), --lr or --lr-schedule, and
-    ``make_step(model, optimizer, accum_steps, lr_schedule)``'s step with
-    --grad-accum microbatches."""
+def _adamw_workload(args, mesh, model, make_step, batch: tuple,
+                    global_batch: int, tokens_per_step: int = 0) -> Workload:
+    """The Workload of a model (already placed on ``mesh``) trained with
+    ``optax.adamw`` in the JAX trainer: its defaults b1 0.9, b2 0.999,
+    eps 1e-8, weight decay 1e-4 (torch's own default decay is 0.01), --lr
+    or --lr-schedule, and ``make_step(model, optimizer, accum_steps,
+    lr_schedule)``'s step with --grad-accum microbatches, on this
+    process's rows of the global ``batch`` (numpy arrays)."""
     import torch
+    from torch.distributed.tensor import DTensor
+
+    from ..parallel.sharding import average_gradients
 
     lr = _make_learning_rate(args)
     schedule = lr if callable(lr) else None
+    # A tensor-parallel plan without FSDP leaves DTensor and plain
+    # parameters side by side, which the multi-tensor (foreach) kernels
+    # refuse to mix: such a model takes the per-parameter loop.
+    mixed = len({isinstance(p, DTensor) for p in model.parameters()}) > 1
     optimizer = torch.optim.AdamW(
         model.parameters(), lr=schedule(0) if schedule else lr,
         betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4,
+        foreach=False if mixed else None,
     )
+    average_gradients(optimizer, mesh)
     step_fn = make_step(
         model, optimizer, accum_steps=args.grad_accum, lr_schedule=schedule
     )
@@ -454,7 +496,7 @@ def _adamw_workload(args, model, make_step, batch: tuple, global_batch: int,
         model=model,
         optimizer=optimizer,
         step_fn=step_fn,
-        batch=batch,
+        batch=_local_tensors(batch, mesh, args.grad_accum),
         examples_per_step=global_batch,
         tokens_per_step=tokens_per_step,
     )
@@ -477,20 +519,20 @@ def _vit_workload(args, mesh, n_devices: int) -> Workload:
     import torch
 
     from ..models import vit as lib
+    from ..parallel.sharding import shard_params
 
     cfg = _config(lib, args)
     global_batch = args.global_batch or 64 * n_devices
     model = lib.ViT(cfg, device=mesh.device)
     lib.init_params(
         model, torch.Generator(device=mesh.device).manual_seed(args.seed))
+    shard_params(model, mesh)
     rng = np.random.RandomState(args.seed)
     images = rng.standard_normal(
         (global_batch, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
     labels = rng.randint(0, cfg.num_classes, (global_batch,))
-    batch = (torch.as_tensor(images, device=mesh.device),
-             torch.as_tensor(labels, dtype=torch.long, device=mesh.device))
-    return _adamw_workload(args, model, lib.make_train_step, batch,
-                           global_batch)
+    return _adamw_workload(args, mesh, model, lib.make_train_step,
+                           (images, labels), global_batch)
 
 
 def _seq2seq_workload(args, mesh, n_devices: int) -> Workload:
@@ -502,6 +544,7 @@ def _seq2seq_workload(args, mesh, n_devices: int) -> Workload:
     import torch
 
     from ..models import seq2seq as lib
+    from ..parallel.sharding import shard_params
 
     cfg = _config(lib, args)
     global_batch = args.global_batch or 16 * n_devices
@@ -510,12 +553,11 @@ def _seq2seq_workload(args, mesh, n_devices: int) -> Workload:
     model = lib.Seq2Seq(cfg, device=mesh.device)
     lib.init_params(
         model, torch.Generator(device=mesh.device).manual_seed(args.seed))
+    shard_params(model, mesh)
     rng = np.random.RandomState(args.seed)
     src = rng.randint(1, cfg.vocab_size, (global_batch, src_len))
-    batch = tuple(torch.as_tensor(x, dtype=torch.long, device=mesh.device)
-                  for x in (src, src[:, :dec_len]))
-    return _adamw_workload(args, model, lib.make_train_step, batch,
-                           global_batch,
+    return _adamw_workload(args, mesh, model, lib.make_train_step,
+                           (src, src[:, :dec_len]), global_batch,
                            tokens_per_step=global_batch * (src_len + dec_len))
 
 
@@ -584,6 +626,21 @@ def restore_train_state(ckpt, work: Workload) -> int:
     return step
 
 
+def _global_mean(x):
+    """``x`` averaged over every process (the global batch's loss: each
+    batch shard's loss is a mean over equal parts, and a tp rank's equals
+    its peers'); ``x`` itself in a world of one."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import world_size
+
+    if world_size() == 1:
+        return x
+    x = x.detach().clone()
+    dist.all_reduce(x)
+    return x / dist.get_world_size()
+
+
 def _grace_seconds() -> float:
     """The final save's budget: ``TPUJOB_CHECKPOINT_GRACE_S``, else the
     default under kube's 30 s termination grace."""
@@ -605,6 +662,8 @@ def main(argv=None) -> int:
         raise SystemExit("--steps must be >= 1")
     refuse_unported(args)
 
+    import torch
+
     from ..api.v2beta1 import constants as api_constants
     from ..launcher import bootstrap
     from ..ops._common import require_device
@@ -613,11 +672,16 @@ def main(argv=None) -> int:
     from ..utils import telemetry as telemetry_lib
 
     device = require_device(args.device)
-    cfg = bootstrap.initialize()
-    mesh = create_mesh(device=device, **parse_mesh_spec(args.mesh))
-    n_devices = 1
+    cfg = bootstrap.initialize(device_type=device.type)
+    if cfg.is_distributed:
+        device = bootstrap.process_device(cfg.process_id, device.type)
+    try:
+        mesh = create_mesh(device=device, **parse_mesh_spec(args.mesh))
+    except ValueError as e:
+        raise SystemExit(f"--mesh {args.mesh!r}: {e}") from None
+    n_devices = mesh.size  # one device per process
     log.info(
-        "process %d/%d, %d device (%s), mesh %s",
+        "process %d/%d, %d device(s) (%s), mesh %s",
         cfg.process_id, cfg.num_processes, n_devices, device, mesh.sizes,
     )
 
@@ -631,7 +695,9 @@ def main(argv=None) -> int:
         manager_cls = (AsyncCheckpointManager if args.async_checkpoint
                        else CheckpointManager)
         ckpt = manager_cls(args.checkpoint_dir,
-                           save_interval_steps=args.save_every)
+                           save_interval_steps=args.save_every,
+                           process_group=bootstrap.checkpoint_group(),
+                           control_group=bootstrap.control_group())
         start_step = restore_train_state(ckpt, work)
         if start_step:
             log.info("resumed at step %d", start_step)
@@ -663,6 +729,15 @@ def main(argv=None) -> int:
         preempted.set()
 
     prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
+    # The gang must AGREE on the stop step: checkpoint saves are
+    # collective, so one process breaking at step k while another goes on
+    # to k+1 wedges the gang inside the save. A MAX of the local flag over
+    # the control group each step keeps the decision global (SIGTERM
+    # reaches every pod within one grace window).
+    from ..parallel.sharding import any_process
+
+    control = bootstrap.control_group()
+    agree = (lambda flag: any_process(flag, control)) if control else bool
 
     telem = telemetry_lib.TrainingTelemetry(
         tokens_per_step=work.tokens_per_step,
@@ -713,7 +788,7 @@ def main(argv=None) -> int:
             batch = work.batch
         loss = work.step_fn(*batch)
         if first_loss is None:
-            first_loss = loss
+            first_loss = loss.detach().clone()
         step += 1
         if step_slowdown > 1.0:
             # Pad BEFORE timing so the stretched wall time lands in this
@@ -725,7 +800,7 @@ def main(argv=None) -> int:
         if args.log_every and step % args.log_every == 0:
             # The log cadence is the explicit sync point: .item() waits
             # for the step, so the ms/step below measures completed work.
-            loss_val = float(loss)
+            loss_val = float(_global_mean(loss))
             if t_log is not None and step > last_log_step:
                 now = time.perf_counter()
                 ms = (now - t_log) / (step - last_log_step) * 1000
@@ -737,7 +812,8 @@ def main(argv=None) -> int:
             t_ckpt = time.perf_counter()
             ckpt.save(step, state_fn)
             telem.record_checkpoint(time.perf_counter() - t_ckpt)
-        if preempted.is_set():
+        if agree(preempted.is_set()):
+            preempted.set()  # reflect the gang decision locally
             # The post-loop force-save commits this exact step.
             log.warning("preemption: stopping at step %d", step)
             break
@@ -746,7 +822,9 @@ def main(argv=None) -> int:
     _sync(device)
     timed_steps = max(step - timed_from, 0)
     elapsed = (time.perf_counter() - t0) if t0 is not None else 0.0
-    final_loss = float(loss)
+    # The global batch's losses, one collective for both.
+    first_loss, final_loss = _global_mean(
+        torch.stack([first_loss.float(), loss.detach().float()])).tolist()
 
     if ckpt is not None:
         from ..utils.checkpoint import drain_final_save
@@ -770,7 +848,7 @@ def main(argv=None) -> int:
         "steps": step - start_step,
         "final_step": step,
         "loss": final_loss,
-        "first_loss": float(first_loss),
+        "first_loss": first_loss,
         "examples_per_sec": round(examples_per_sec, 2),
         "step_ms": (
             round(elapsed / timed_steps * 1000, 2) if timed_steps else 0.0
@@ -788,5 +866,21 @@ def main(argv=None) -> int:
     return 0
 
 
+def run_as_process(entry, argv=None) -> int:
+    """``entry(argv)`` as a worker process runs it: a failure (a gang
+    barrier or collective that timed out, a rank that died) is logged
+    with this process's id before it propagates, so the job's logs name
+    the rank."""
+    from ..api.v2beta1 import constants
+
+    try:
+        return entry(argv)
+    except Exception as e:
+        log.error("process %s failed: %s: %s",
+                  os.environ.get(constants.ENV_PROCESS_ID, "0"),
+                  type(e).__name__, e)
+        raise
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run_as_process(main))

@@ -34,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.losses import f32_logits
 from ..ops.ring_attention import sp_attention, sp_attention_bshd
+from .llama import Dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,14 +74,6 @@ def tiny(**overrides) -> BertConfig:
 CONFIGS = {"bert-base": bert_base, "bert-tiny": tiny}
 
 
-def _dense(x, layer: nn.Linear, dtype):
-    """nn.Dense(dtype=compute, param_dtype=f32): input, kernel and bias
-    rounded to the compute dtype, the bias (where the layer has one)
-    added in it."""
-    y = F.linear(x.to(dtype), layer.weight.to(dtype))
-    return y if layer.bias is None else y + layer.bias.to(dtype)
-
-
 class LayerNorm(nn.Module):
     """Flax ``LayerNorm(dtype=compute)``: f32 statistics with the variance
     as ``max(E[x^2] - E[x]^2, 0)``, f32 scale and bias, output in the
@@ -112,17 +105,20 @@ class EncoderLayer(nn.Module):
             ("wv", cfg.dim, cfg.dim), ("wo", cfg.dim, cfg.dim),
             ("ffn_in", cfg.dim, cfg.ffn_dim), ("ffn_out", cfg.ffn_dim, cfg.dim),
         ):
-            self.add_module(name, nn.Linear(n_in, n_out, device=device))
+            self.add_module(name, Dense(n_in, n_out, dtype=cfg.dtype,
+                                        bias=True, device=device))
         self.attn_norm = LayerNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device)
         self.ffn_norm = LayerNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device)
 
     def forward(self, x):
         cfg = self.config
         b, s, _ = x.shape
-        shape = (b, s, cfg.n_heads, cfg.dim // cfg.n_heads)
-        q = _dense(x, self.wq, cfg.dtype).reshape(shape)
-        k = _dense(x, self.wk, cfg.dtype).reshape(shape)
-        v = _dense(x, self.wv, cfg.dtype).reshape(shape)
+        # -1: the heads this process holds (n/tp under a tensor-parallel
+        # plan, which shards the projections by head).
+        shape = (b, s, -1, cfg.dim // cfg.n_heads)
+        q = self.wq(x).reshape(shape)
+        k = self.wk(x).reshape(shape)
+        v = self.wv(x).reshape(shape)
         # Transpose-free dispatch first (flash on the projection layout);
         # flash-bhsd and the dense oracle need [B, H, S, D].
         att = sp_attention_bshd(q, k, v, cfg.attention_impl, causal=False)
@@ -130,10 +126,10 @@ class EncoderLayer(nn.Module):
             q, k, v = (t.transpose(1, 2) for t in (q, k, v))
             att = sp_attention(
                 q, k, v, cfg.attention_impl, causal=False).transpose(1, 2)
-        att = att.reshape(b, s, cfg.dim)
-        x = self.attn_norm(x + _dense(att, self.wo, cfg.dtype))
-        h = F.gelu(_dense(x, self.ffn_in, cfg.dtype), approximate="tanh")
-        return self.ffn_norm(x + _dense(h, self.ffn_out, cfg.dtype))
+        att = att.reshape(b, s, -1)
+        x = self.attn_norm(x + self.wo(att))
+        h = F.gelu(self.ffn_in(x), approximate="tanh")
+        return self.ffn_norm(x + self.ffn_out(h))
 
 
 class Bert(nn.Module):
@@ -152,7 +148,8 @@ class Bert(nn.Module):
         self.embed_norm = LayerNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device)
         for i in range(cfg.n_layers):
             self.add_module(f"layer_{i}", EncoderLayer(cfg, device))
-        self.mlm_dense = nn.Linear(cfg.dim, cfg.dim, device=device)
+        self.mlm_dense = Dense(cfg.dim, cfg.dim, dtype=cfg.dtype, bias=True,
+                               device=device)
         self.mlm_norm = LayerNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device)
 
     def layers(self) -> list[EncoderLayer]:
@@ -181,7 +178,7 @@ class Bert(nn.Module):
         if mlm_positions is not None:
             index = mlm_positions.long()[..., None].expand(-1, -1, cfg.dim)
             h = torch.gather(h, 1, index)
-        h = F.gelu(_dense(h, self.mlm_dense, cfg.dtype), approximate="tanh")
+        h = F.gelu(self.mlm_dense(h), approximate="tanh")
         h = self.mlm_norm(h)
         return f32_logits(h, table.t())
 
@@ -222,10 +219,23 @@ def init_params(model: Bert, generator: torch.Generator) -> Bert:
 
 
 def _weighted_xent(logits, targets, weights):
+    """sum(ce * w) / max(sum(w), 1) over the GLOBAL batch, as GSPMD takes
+    it. In a world of several processes each holds part of the batch: the
+    weight count is summed across the world, and the local sum scaled by
+    the world size, so that the mean of the ranks' losses (and of their
+    gradients, as dp and FSDP average them) is the global batch's. A tp
+    rank holds the same rows as its peers; its factor cancels."""
+    from ..parallel.mesh import world_size
+    from ..parallel.sharding import all_reduce_sum
+
     ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                          targets.reshape(-1).long(), reduction="none")
     w = weights.reshape(-1).float()
-    return torch.sum(ce * w) / torch.clamp(torch.sum(w), min=1.0)
+    total, count = torch.sum(ce * w), torch.sum(w)
+    n = world_size()
+    if n > 1:
+        total, count = total * n, all_reduce_sum(count.detach())
+    return total / torch.clamp(count, min=1.0)
 
 
 def mlm_loss(model: Bert, tokens, mlm_positions_mask, mlm_targets):
@@ -271,3 +281,27 @@ def make_train_step_positions(model: Bert, optimizer, accum_steps: int = 1,
         lambda t, pos, tg, w: mlm_loss_positions(model, t, pos, tg, w),
         optimizer, accum_steps, lr_schedule=lr_schedule,
     )
+
+
+def tensor_parallel_plan(model: Bert, tp: int) -> dict:
+    """Megatron tensor parallelism over ``tp`` ranks, the JAX package's
+    ``param_sharding_rules`` (models/bert.py:222) on DTensor: q/k/v and
+    ffn_in column-parallel, wo and ffn_out row-parallel. The token table
+    (which the MLM head reads, tied) stays whole on every tp rank (JAX
+    splits its vocab over tp): same result, replicated."""
+    from torch.distributed.tensor.parallel import (
+        ColwiseParallel,
+        RowwiseParallel,
+    )
+
+    cfg = model.config
+    if cfg.n_heads % tp or cfg.ffn_dim % tp:
+        raise SystemExit(f"--mesh tp={tp} must divide n_heads={cfg.n_heads} "
+                         f"and ffn_dim={cfg.ffn_dim}")
+    plan = {}
+    for i in range(cfg.n_layers):
+        for name in ("wq", "wk", "wv", "ffn_in"):
+            plan[f"layer_{i}.{name}"] = ColwiseParallel()
+        for name in ("wo", "ffn_out"):
+            plan[f"layer_{i}.{name}"] = RowwiseParallel()
+    return plan

@@ -108,14 +108,22 @@ def _rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
-def _dense(x, layer: nn.Linear, dtype):
-    """nn.Dense(dtype=compute, param_dtype=f32): both operands in the
-    compute dtype (bf16 on the card), output in the compute dtype."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype))
+class Dense(nn.Linear):
+    """``nn.Dense(dtype=compute, param_dtype=f32)``: f32 weight (and
+    bias), both operands rounded to the compute dtype (bf16 on the card),
+    output in it; the bias, where there is one, added after the product
+    in the compute dtype. A module call, so that a tensor-parallel plan's
+    hooks fire (``parallel/sharding.py``)."""
 
+    def __init__(self, n_in: int, n_out: int, *, dtype, bias: bool = False,
+                 device=None):
+        super().__init__(n_in, n_out, bias=bias, device=device)
+        self.compute_dtype = dtype
 
-def _linear(n_in: int, n_out: int, device) -> nn.Linear:
-    return nn.Linear(n_in, n_out, bias=False, device=device)
+    def forward(self, x):
+        dtype = self.compute_dtype
+        y = F.linear(x.to(dtype), self.weight.to(dtype))
+        return y if self.bias is None else y + self.bias.to(dtype)
 
 
 class F32LogitsDense(nn.Module):
@@ -153,19 +161,21 @@ class Attention(nn.Module):
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__()
         cfg = self.config = config
-        hd = cfg.head_dim
-        self.wq = _linear(cfg.dim, cfg.n_heads * hd, device)
-        self.wk = _linear(cfg.dim, cfg.n_kv_heads * hd, device)
-        self.wv = _linear(cfg.dim, cfg.n_kv_heads * hd, device)
-        self.wo = _linear(cfg.n_heads * hd, cfg.dim, device)
+        hd, kw = cfg.head_dim, dict(dtype=cfg.dtype, device=device)
+        self.wq = Dense(cfg.dim, cfg.n_heads * hd, **kw)
+        self.wk = Dense(cfg.dim, cfg.n_kv_heads * hd, **kw)
+        self.wv = Dense(cfg.dim, cfg.n_kv_heads * hd, **kw)
+        self.wo = Dense(cfg.n_heads * hd, cfg.dim, **kw)
 
     def forward(self, x, positions):
         cfg = self.config
         b, s, _ = x.shape
         hd = cfg.head_dim
-        q = _dense(x, self.wq, cfg.dtype).reshape(b, s, cfg.n_heads, hd)
-        k = _dense(x, self.wk, cfg.dtype).reshape(b, s, cfg.n_kv_heads, hd)
-        v = _dense(x, self.wv, cfg.dtype).reshape(b, s, cfg.n_kv_heads, hd)
+        # -1: the heads this process holds (all of them, or n/tp under a
+        # tensor-parallel plan, which shards the projections by head).
+        q = self.wq(x).reshape(b, s, -1, hd)
+        k = self.wk(x).reshape(b, s, -1, hd)
+        v = self.wv(x).reshape(b, s, -1, hd)
 
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
@@ -179,22 +189,20 @@ class Attention(nn.Module):
             out = sp_attention(
                 q, k, v, cfg.attention_impl, causal=True
             ).transpose(1, 2)
-        return _dense(out.reshape(b, s, cfg.n_heads * hd), self.wo, cfg.dtype)
+        return self.wo(out.reshape(b, s, -1))
 
 
 class MLP(nn.Module):
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__()
         self.config = config
-        self.w_gate = _linear(config.dim, config.ffn_dim, device)
-        self.w_up = _linear(config.dim, config.ffn_dim, device)
-        self.w_down = _linear(config.ffn_dim, config.dim, device)
+        kw = dict(dtype=config.dtype, device=device)
+        self.w_gate = Dense(config.dim, config.ffn_dim, **kw)
+        self.w_up = Dense(config.dim, config.ffn_dim, **kw)
+        self.w_down = Dense(config.ffn_dim, config.dim, **kw)
 
     def forward(self, x):
-        dtype = self.config.dtype
-        gate = _dense(x, self.w_gate, dtype)
-        up = _dense(x, self.w_up, dtype)
-        return _dense(F.silu(gate) * up, self.w_down, dtype)
+        return self.w_down(F.silu(self.w_gate(x)) * self.w_up(x))
 
 
 class Block(nn.Module):
@@ -240,10 +248,14 @@ class Llama(nn.Module):
             return self.embed.weight.t()
         return self.lm_head.weight.t()
 
-    def forward(self, tokens, return_hidden: bool = False):
+    def forward(self, tokens, return_hidden: bool = False,
+                chunked_loss: bool = False):
         """``return_hidden=True`` skips the LM head and returns the final
-        hidden states -- the chunked-loss path applies the head
-        incrementally (ops/losses.py) so full logits never materialize."""
+        hidden states. ``chunked_loss=True`` returns the next-token loss
+        with the head and cross-entropy applied ``cfg.xent_chunk``
+        positions at a time (ops/losses.py), so full logits never
+        materialize; it runs inside the forward, where a sharded root's
+        parameters (the head) are gathered."""
         cfg = self.config
         tokens = tokens.long()
         positions = torch.arange(
@@ -259,6 +271,9 @@ class Llama(nn.Module):
         h = self.final_norm(h)
         if return_hidden:
             return h
+        if chunked_loss:
+            return lm_xent_chunked(h[:, :-1], self.head_kernel(),
+                                   tokens[:, 1:], chunk=cfg.xent_chunk)
         # Untied head (Llama-3 does not tie embeddings); f32 logits.
         return f32_logits(h, self.head_kernel())
 
@@ -293,11 +308,7 @@ def loss_fn(model: Llama, tokens):
     cfg = model.config
     tokens = tokens.long()
     if cfg.xent_chunk > 0:
-        h = model(tokens, return_hidden=True)
-        return lm_xent_chunked(
-            h[:, :-1], model.head_kernel(), tokens[:, 1:],
-            chunk=cfg.xent_chunk,
-        )
+        return model(tokens, chunked_loss=True)
     logits = model(tokens)
     return F.cross_entropy(
         logits[:, :-1].reshape(-1, cfg.vocab_size), tokens[:, 1:].reshape(-1)
@@ -315,3 +326,32 @@ def make_train_step(model: Llama, optimizer, accum_steps: int = 1,
         lambda toks: loss_fn(model, toks), optimizer, accum_steps,
         lr_schedule=lr_schedule,
     )
+
+
+def tensor_parallel_plan(model: Llama, tp: int) -> dict:
+    """Megatron tensor parallelism over ``tp`` ranks, the JAX package's
+    ``param_sharding_rules`` (models/llama.py:446) on DTensor:
+    column-parallel q/k/v, gate and up (output features, so heads and ffn
+    width, split over tp), row-parallel wo and down (their products
+    summed across tp). Attention runs on the local heads and the MLP on
+    the local ffn width. The embedding and the LM head stay whole on
+    every tp rank (JAX splits the vocab over tp): same result, the head
+    replicated instead of sharded."""
+    from torch.distributed.tensor.parallel import (
+        ColwiseParallel,
+        RowwiseParallel,
+    )
+
+    cfg = model.config
+    if cfg.n_kv_heads % tp or cfg.n_heads % tp or cfg.ffn_dim % tp:
+        raise SystemExit(
+            f"--mesh tp={tp} must divide n_kv_heads={cfg.n_kv_heads}, "
+            f"n_heads={cfg.n_heads} and ffn_dim={cfg.ffn_dim}")
+    plan = {}
+    for i in range(cfg.n_layers):
+        for name in ("attn.wq", "attn.wk", "attn.wv", "mlp.w_gate",
+                     "mlp.w_up"):
+            plan[f"layer_{i}.{name}"] = ColwiseParallel()
+        for name in ("attn.wo", "mlp.w_down"):
+            plan[f"layer_{i}.{name}"] = RowwiseParallel()
+    return plan

@@ -6,8 +6,9 @@ cross attention, bfloat16 compute with float32 parameters.
   cross with Sq != Sk) run the flat flash kernels (``flash``) or the
   dense oracle (``dense``);
 - pre-LN blocks with bias-free ``Dense`` layers, Flax's f32-statistics
-  ``LayerNorm`` and tanh-approximated GELU (``models/bert.py``'s
-  ``_dense`` and ``LayerNorm``); learned absolute positions;
+  ``LayerNorm`` and tanh-approximated GELU (``models/llama.py``'s
+  ``Dense``, ``models/bert.py``'s ``LayerNorm``); learned absolute
+  positions;
 - one ``embed`` table for the encoder, the decoder and the tied head,
   rounded to the compute dtype once a pass (as the port's BERT does), so
   its three uses' gradients meet on one bf16 tensor; the head multiplies
@@ -31,8 +32,8 @@ from torch import nn
 
 from ..ops.attention import attention_reference, flash_attention_bshd
 from ..ops.losses import f32_logits
-from .bert import LayerNorm, _dense, flax_default_init
-from .llama import _linear
+from .bert import LayerNorm, flax_default_init
+from .llama import Dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,30 +93,30 @@ class _Attention(nn.Module):
         super().__init__()
         self.config, self.causal = config, causal
         for name in ("wq", "wk", "wv", "wo"):
-            self.add_module(name, _linear(config.dim, config.dim, device))
+            self.add_module(name, Dense(config.dim, config.dim,
+                                        dtype=config.dtype, device=device))
 
     def forward(self, x, kv):
         cfg = self.config
         b, sq, _ = x.shape
         sk = kv.shape[1]
-        q = _dense(x, self.wq, cfg.dtype).reshape(b, sq, cfg.n_heads, -1)
-        k = _dense(kv, self.wk, cfg.dtype).reshape(b, sk, cfg.n_heads, -1)
-        v = _dense(kv, self.wv, cfg.dtype).reshape(b, sk, cfg.n_heads, -1)
+        q = self.wq(x).reshape(b, sq, cfg.n_heads, -1)
+        k = self.wk(kv).reshape(b, sk, cfg.n_heads, -1)
+        v = self.wv(kv).reshape(b, sk, cfg.n_heads, -1)
         att = _attend(cfg, q, k, v, self.causal)
-        return _dense(att.reshape(b, sq, cfg.dim), self.wo, cfg.dtype)
+        return self.wo(att.reshape(b, sq, cfg.dim))
 
 
 class _MLP(nn.Module):
     def __init__(self, config: Seq2SeqConfig, device=None):
         super().__init__()
         self.config = config
-        self.ffn_in = _linear(config.dim, config.ffn_dim, device)
-        self.ffn_out = _linear(config.ffn_dim, config.dim, device)
+        kw = dict(dtype=config.dtype, device=device)
+        self.ffn_in = Dense(config.dim, config.ffn_dim, **kw)
+        self.ffn_out = Dense(config.ffn_dim, config.dim, **kw)
 
     def forward(self, x):
-        dtype = self.config.dtype
-        h = F.gelu(_dense(x, self.ffn_in, dtype), approximate="tanh")
-        return _dense(h, self.ffn_out, dtype)
+        return self.ffn_out(F.gelu(self.ffn_in(x), approximate="tanh"))
 
 
 def _norm(cfg: Seq2SeqConfig, device) -> LayerNorm:

@@ -9,8 +9,8 @@ transformer stack, bfloat16 compute with float32 parameters.
   dim] added;
 - pre-LN blocks with biased ``Dense`` layers (``wq``/``wk``/``wv``/``wo``,
   ``ffn_in``/``ffn_out``), Flax's f32-statistics ``LayerNorm`` and
-  tanh-approximated GELU (``models/bert.py``'s ``_dense`` and
-  ``LayerNorm``);
+  tanh-approximated GELU (``models/llama.py``'s ``Dense``,
+  ``models/bert.py``'s ``LayerNorm``);
 - attention through the flat flash kernels (``flash``) or the dense
   oracle (``dense``);
 - the head reads the CLS token through the bf16 x bf16 -> f32 head
@@ -36,7 +36,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention_reference, flash_attention_bshd
 from ..ops.losses import f32_logits
-from .bert import LayerNorm, _dense, flax_default_init
+from .bert import LayerNorm, flax_default_init
+from .llama import Dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,19 +93,22 @@ class EncoderBlock(nn.Module):
             ("wq", cfg.dim, cfg.dim), ("wk", cfg.dim, cfg.dim),
             ("wv", cfg.dim, cfg.dim), ("wo", cfg.dim, cfg.dim),
         ):
-            self.add_module(name, nn.Linear(n_in, n_out, device=device))
+            self.add_module(name, Dense(n_in, n_out, dtype=cfg.dtype,
+                                        bias=True, device=device))
         self.mlp_norm = LayerNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device)
-        self.ffn_in = nn.Linear(cfg.dim, cfg.ffn_dim, device=device)
-        self.ffn_out = nn.Linear(cfg.ffn_dim, cfg.dim, device=device)
+        self.ffn_in = Dense(cfg.dim, cfg.ffn_dim, dtype=cfg.dtype, bias=True,
+                            device=device)
+        self.ffn_out = Dense(cfg.ffn_dim, cfg.dim, dtype=cfg.dtype, bias=True,
+                             device=device)
 
     def forward(self, x):
         cfg = self.config
         b, s, _ = x.shape
         shape = (b, s, cfg.n_heads, cfg.head_dim)
         h = self.attn_norm(x)
-        q = _dense(h, self.wq, cfg.dtype).reshape(shape)
-        k = _dense(h, self.wk, cfg.dtype).reshape(shape)
-        v = _dense(h, self.wv, cfg.dtype).reshape(shape)
+        q = self.wq(h).reshape(shape)
+        k = self.wk(h).reshape(shape)
+        v = self.wv(h).reshape(shape)
         if cfg.attention_impl == "flash":
             att = flash_attention_bshd(q, k, v, causal=False)
         elif cfg.attention_impl == "dense":
@@ -116,10 +120,9 @@ class EncoderBlock(nn.Module):
                 f"vit attention_impl must be 'flash' or 'dense', got "
                 f"{cfg.attention_impl!r}"
             )
-        x = x + _dense(att.reshape(b, s, cfg.dim), self.wo, cfg.dtype)
-        h = F.gelu(_dense(self.mlp_norm(x), self.ffn_in, cfg.dtype),
-                   approximate="tanh")
-        return x + _dense(h, self.ffn_out, cfg.dtype)
+        x = x + self.wo(att.reshape(b, s, cfg.dim))
+        h = F.gelu(self.ffn_in(self.mlp_norm(x)), approximate="tanh")
+        return x + self.ffn_out(h)
 
 
 class ViT(nn.Module):
@@ -132,7 +135,8 @@ class ViT(nn.Module):
             )
         cfg = self.config = config
         p = cfg.patch_size
-        self.embed = nn.Linear(p * p * 3, cfg.dim, device=device)
+        self.embed = Dense(p * p * 3, cfg.dim, dtype=cfg.dtype, bias=True,
+                           device=device)
         self.cls = nn.Parameter(
             torch.zeros(1, 1, cfg.dim, dtype=torch.float32, device=device))
         self.pos_embed = nn.Parameter(
@@ -161,7 +165,7 @@ class ViT(nn.Module):
         patches = images.to(cfg.dtype).reshape(
             b, hh // p, p, ww // p, p, c
         ).permute(0, 1, 3, 2, 4, 5).reshape(b, -1, p * p * c)
-        x = _dense(patches, self.embed, cfg.dtype)
+        x = self.embed(patches)
         cls = self.cls.to(cfg.dtype).expand(b, 1, cfg.dim)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(cfg.dtype)
         remat = cfg.remat and torch.is_grad_enabled()

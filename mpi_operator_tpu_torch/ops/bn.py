@@ -35,6 +35,8 @@ import math
 import torch
 from torch import nn
 
+from ..parallel.mesh import world_size
+from ..parallel.sharding import all_reduce_sum
 from . import _build
 from ._common import bn_geometry
 
@@ -242,19 +244,30 @@ def batch_norm_train(x, gamma, beta, eps: float, *,
     if x.numel() < pallas_min_elems:
         xf = _at_least_f32(x)
         dims = tuple(range(x.ndim - 1))
-        mean = xf.mean(dims)
-        var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+        n = world_size()
+        if n == 1:
+            mean = xf.mean(dims)
+            var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+        else:
+            # Each process holds part of the batch: its sums, added across
+            # the world (differentiably), give the global batch's moments,
+            # as GSPMD takes them over a batch-sharded mesh.
+            m = n * (x.numel() // x.shape[-1])
+            sums = all_reduce_sum(torch.stack([xf.sum(dims),
+                                               (xf * xf).sum(dims)]))
+            mean = sums[0] / m
+            var = torch.clamp_min(sums[1] / m - mean * mean, 0.0)
         y, _ = _normalize(x, mean, var, gamma, beta, eps)
         return y, mean.detach(), var.detach()
     return fused_batch_norm(x, gamma, beta, eps)
 
 
 def require_single_device(n_devices: int) -> None:
-    """The invariant every bn_impl='pallas' entry point holds: the kernels
-    reduce over the rows one device holds, so a batch split across
-    devices would normalize each shard by its own moments. Kept until
-    multi-device meshes exist in the port (ROADMAP.md queue (a) items
-    6-7), which must then add the cross-device sum of the partials."""
+    """The invariant every bn_impl='pallas' entry point holds, as in the
+    JAX package (which has no partitioning rule for its stats kernels):
+    the kernels reduce over the rows one device holds, so a batch split
+    across devices would normalize each shard by its own moments. The
+    plain route (bn_impl='xla') sums its moments across the world."""
     if n_devices > 1:
         raise SystemExit(
             f"--bn-kernel pallas runs the single-device path only; this "

@@ -26,6 +26,15 @@ copies into reused pinned buffers, then a wait on an event); the writer
 thread touches only those host tensors and launches no CUDA work.
 ``drain_final_save`` is the SIGTERM path: one forced save, drained inside
 the termination grace budget.
+
+Across processes (``process_group``, a gloo group of its own): every
+rank writes its shards of the state, DTensors as such, so the checkpoint
+is sharded and DCP reshards it on restore onto another mesh or world
+size; process 0 renames the step into place and publishes the marker
+once every rank's write has finished (``dcp.save`` returns on process 0
+only then), and a barrier closes the save, so every rank lists the same
+steps. The async manager agrees on each save over ``control_group``: a
+write still in flight on any rank skips the save on every rank.
 """
 
 from __future__ import annotations
@@ -139,6 +148,15 @@ def _map_tree(fn, tree, path: tuple = ()):
     return fn(tree, path)
 
 
+def _with_local(dtensor, local):
+    """A DTensor of ``dtensor``'s mesh, placements and global shape over
+    the tensor ``local`` as this rank's shard (wherever ``local`` lives:
+    DCP reads and writes the shard through it)."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor(local, dtensor._spec, requires_grad=False)
+
+
 def _host_copy(state: dict, buffers: dict) -> dict:
     """A complete host copy of ``state``, finished when this returns.
 
@@ -148,15 +166,14 @@ def _host_copy(state: dict, buffers: dict) -> dict:
     current stream, which follow the step that wrote the tensors; one
     event wait at the end covers them all. CPU tensors (the CPU path, and
     AdamW's step counts on the card) are cloned: the optimizer updates
-    them in place too."""
+    them in place too. A DTensor's local shard is copied so, and stays a
+    DTensor with its placements, so that DCP writes it as a shard."""
     import torch
+    from torch.distributed.tensor import DTensor
 
     devices = set()
 
-    def copy_leaf(leaf, path):
-        if not isinstance(leaf, torch.Tensor):
-            return copy.deepcopy(leaf)
-        leaf = leaf.detach()
+    def copy_tensor(leaf, path):
         if not leaf.is_cuda:
             return leaf.clone()
         buf = buffers.get(path)
@@ -166,6 +183,14 @@ def _host_copy(state: dict, buffers: dict) -> dict:
         buf.copy_(leaf, non_blocking=True)
         devices.add(leaf.device)
         return buf
+
+    def copy_leaf(leaf, path):
+        if not isinstance(leaf, torch.Tensor):
+            return copy.deepcopy(leaf)
+        leaf = leaf.detach()
+        if isinstance(leaf, DTensor):
+            return _with_local(leaf, copy_tensor(leaf.to_local(), path))
+        return copy_tensor(leaf, path)
 
     host = _map_tree(copy_leaf, state)
     for device in devices:
@@ -177,11 +202,17 @@ def _host_copy(state: dict, buffers: dict) -> dict:
 
 def _host_template(like: dict) -> dict:
     """``like``'s structure with an empty CPU tensor of each tensor
-    leaf's shape and dtype: what a restore loads into before anything of
-    the caller's state is touched."""
+    leaf's shape and dtype (for a DTensor, an empty CPU shard under its
+    placements): what a restore loads into before anything of the
+    caller's state is touched."""
     import torch
+    from torch.distributed.tensor import DTensor
 
     def empty(leaf, path):
+        if isinstance(leaf, DTensor):
+            local = leaf.to_local()
+            return _with_local(leaf, torch.empty(local.shape,
+                                                 dtype=local.dtype))
         if isinstance(leaf, torch.Tensor):
             return torch.empty(leaf.shape, dtype=leaf.dtype)
         return copy.deepcopy(leaf)
@@ -191,10 +222,16 @@ def _host_template(like: dict) -> dict:
 
 class CheckpointManager:
     """save-every-N / keep-K / resume-latest, DCP-backed and synchronous:
-    ``save`` returns once the step and its marker are on disk."""
+    ``save`` returns once the step and its marker are on disk.
+
+    ``process_group``: the gloo group a world of several processes saves
+    and restores over (every rank calls ``save`` and ``restore_latest``
+    at the same steps); None for one process. ``control_group``: the
+    group the async manager agrees on each save over."""
 
     def __init__(self, directory: str, *, save_interval_steps: int = 100,
-                 max_to_keep: Optional[int] = 3):
+                 max_to_keep: Optional[int] = 3, process_group=None,
+                 control_group=None):
         if save_interval_steps < 1:
             raise ValueError(
                 f"save_interval_steps must be >= 1, got {save_interval_steps}")
@@ -202,6 +239,13 @@ class CheckpointManager:
         self._interval = int(save_interval_steps)
         self.max_to_keep = max_to_keep
         self._buffers: dict = {}
+        self._group = process_group
+        self._control = control_group
+        self._rank = 0
+        if process_group is not None:
+            import torch.distributed as dist
+
+            self._rank = dist.get_rank()
         # One-shot latch for the preempted final save: however many
         # paths race to save-on-SIGTERM, exactly one drains and records
         # (see drain_final_save).
@@ -251,24 +295,43 @@ class CheckpointManager:
                           self._buffers)
         t1 = time.perf_counter()
         checkpoint_snapshot_seconds.observe(t1 - t0)
-        self._write_step(step, host)
-        _write_commit_marker(self.directory, step)
-        checkpoint_commits_total.inc()
-        self._prune()
+        try:
+            self._write_step(step, host)
+            if self._rank == 0:  # process 0 publishes the marker and prunes
+                _write_commit_marker(self.directory, step)
+                checkpoint_commits_total.inc()
+                self._prune()
+        finally:
+            self._barrier()
         checkpoint_write_seconds.observe(time.perf_counter() - t1)
         log.info("checkpoint saved at step %d -> %s", step, self.directory)
         return True
 
+    def _dcp_args(self) -> dict:
+        return ({"no_dist": True} if self._group is None
+                else {"process_group": self._group})
+
+    def _barrier(self) -> None:
+        """Every rank of the save's group, here (a no-op alone)."""
+        if self._group is not None:
+            import torch.distributed as dist
+
+            dist.barrier(group=self._group)
+
     def _write_step(self, step: int, host_state: dict) -> None:
         """The DCP write into ``.<step>.tmp``, renamed to ``<step>`` once
-        complete, so a step directory is never half written."""
+        complete (by process 0, once every rank's shards are written), so
+        a step directory is never half written."""
         import torch.distributed.checkpoint as dcp
 
-        os.makedirs(self.directory, exist_ok=True)
         tmp = os.path.join(self.directory, f".{step}.tmp")
-        shutil.rmtree(tmp, ignore_errors=True)
-        dcp.save(host_state, checkpoint_id=tmp, no_dist=True)
-        os.replace(tmp, self._step_path(step))
+        if self._rank == 0:
+            os.makedirs(self.directory, exist_ok=True)
+            shutil.rmtree(tmp, ignore_errors=True)
+        self._barrier()
+        dcp.save(host_state, checkpoint_id=tmp, **self._dcp_args())
+        if self._rank == 0:
+            os.replace(tmp, self._step_path(step))
 
     def _prune(self) -> None:
         """Keep the newest ``max_to_keep`` steps (orbax's ``LatestN``); a
@@ -319,7 +382,7 @@ class CheckpointManager:
                 if optional:
                     self._drop_unstored(step, state, optional)
                 dcp.load(state, checkpoint_id=self._step_path(step),
-                         no_dist=True)
+                         **self._dcp_args())
             except _errors() as e:
                 log.warning(
                     "checkpoint at step %d is unreadable (%s: %s); "
@@ -421,9 +484,11 @@ class AsyncCheckpointManager(CheckpointManager):
     """
 
     def __init__(self, directory: str, *, save_interval_steps: int = 100,
-                 max_to_keep: Optional[int] = 3):
+                 max_to_keep: Optional[int] = 3, process_group=None,
+                 control_group=None):
         super().__init__(directory, save_interval_steps=save_interval_steps,
-                         max_to_keep=max_to_keep)
+                         max_to_keep=max_to_keep, process_group=process_group,
+                         control_group=control_group)
         self._writer: Optional[threading.Thread] = None
         self._tear_next = os.environ.get(
             api_constants.ENV_TORN_WRITE, "") not in ("", "0")
@@ -434,19 +499,19 @@ class AsyncCheckpointManager(CheckpointManager):
         Blocking cost: the device-to-host copy only."""
         if not force and step % self._interval != 0:
             return False
+        if force:
+            # A forced save waits for the write in flight (which may be
+            # this very step): after it every rank lists the same steps.
+            self.drain(None)
         if step in self.all_steps():
             return False
-        if self._writer is not None and self._writer.is_alive():
-            if not force:
-                # One write in flight at a time: skipping (rather than
-                # queueing) bounds the step-path cost and the host
-                # memory footprint regardless of save frequency.
-                log.info("checkpoint write still in flight; skipping save "
-                         "at step %d", step)
-                return False
-            self.drain(None)
-            if step in self.all_steps():  # the drained write was this step
-                return False
+        if self._busy():
+            # One write in flight at a time: skipping (rather than
+            # queueing) bounds the step-path cost and the host memory
+            # footprint regardless of save frequency.
+            log.info("checkpoint write still in flight; skipping save "
+                     "at step %d", step)
+            return False
         t0 = time.perf_counter()
         host = _host_copy(state() if callable(state) else state,
                           self._buffers)
@@ -457,10 +522,21 @@ class AsyncCheckpointManager(CheckpointManager):
         writer.start()
         return True
 
+    def _busy(self) -> bool:
+        """A write in flight here, or (across processes) on any rank."""
+        busy = self._writer is not None and self._writer.is_alive()
+        if self._control is None:
+            return busy
+        from ..parallel.sharding import any_process
+
+        return any_process(busy, self._control)
+
     def _write(self, step: int, host_state: dict) -> None:
         t0 = time.perf_counter()
         try:
             self._write_step(step, host_state)
+            if self._rank != 0:
+                return  # process 0 publishes the marker and prunes
             if self._tear_next:
                 # Chaos: die "mid-commit" -- data on disk, no marker.
                 self._tear_next = False
@@ -483,6 +559,7 @@ class AsyncCheckpointManager(CheckpointManager):
                 step, type(e).__name__, e,
             )
         finally:
+            self._barrier()
             checkpoint_write_seconds.observe(time.perf_counter() - t0)
 
     def drain(self, timeout_s: Optional[float] = None) -> bool:

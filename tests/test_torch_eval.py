@@ -4,8 +4,8 @@ each package's own checkpoint manager, evaluated by each command on one
 token file. Loss at rtol 1e-5 (the loss tolerance of
 ``tests/test_torch_llama.py``), perplexity at the same, and tokens and
 batches exactly. Then determinism, and the refusals: bad arguments, a
-missing checkpoint, an id outside the vocabulary, a sharded mesh, and
-``cuda`` without a GPU.
+missing checkpoint, an id outside the vocabulary, an sp mesh (JAX's
+message), a mesh wider than the world, and ``cuda`` without a GPU.
 """
 
 import json
@@ -133,8 +133,10 @@ def test_refusals(tmp_path, corpus, checkpoints):
          r"queue \(a\) item 13"),
         (["--checkpoint-dir", tdir, "--seq-len", "4096"],
          "exceeds the model context"),
+        (["--checkpoint-dir", tdir, "--mesh", "sp=2"],
+         "eval meshes take dp/fsdp/tp"),
         (["--checkpoint-dir", tdir, "--mesh", "dp=2"],
-         r"queue \(a\) item 7"),
+         "require 2 devices, have 1"),
     ]
     for extra, match in cases:
         with pytest.raises(SystemExit, match=match):

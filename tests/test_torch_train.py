@@ -66,7 +66,9 @@ REFUSED = {
     "moe-tiny": (["--model", "llama-moe-tiny"], "item 13"),
     "heartbeat": (["--heartbeat-every", "2"], "item 10"),
     "profile": (["--profile-dir", "/nonexistent"], "item 10"),
-    "mesh": (["--mesh", "dp=2"], "items 6-7"),
+    "mesh": (["--mesh", "sp=2"], "item 15"),
+    "mesh-pp": (["--mesh", "dp=1,pp=2"], "item 16"),
+    "mesh-ep": (["--mesh", "ep=2"], "item 13"),
     "remat": (["--remat-policy", "dots"], "item 4"),
 }
 
@@ -356,10 +358,16 @@ def test_adopted_trace_id_reaches_log_lines(capsys):
 
 
 def test_mesh_is_one_device():
+    """A world of one process keeps the one-device mesh; a wider axis
+    needs that many processes, and sp, pp and ep refuse naming their
+    ROADMAP items (``tests/test_torch_mesh.py`` holds the rest)."""
     mesh = create_mesh(device="cpu", dp=-1, tp=1)
-    assert mesh.sizes == {"dp": 1, "tp": 1}
-    with pytest.raises(ValueError, match="items 6-7"):
+    assert mesh.sizes == {"dp": 1, "tp": 1} and mesh.device_mesh is None
+    with pytest.raises(ValueError, match="require 2 devices, have 1"):
         create_mesh(device="cpu", fsdp=2)
+    for axis, item in (("sp", 15), ("pp", 16), ("ep", 13)):
+        with pytest.raises(ValueError, match=f"queue \\(a\\) item {item}"):
+            create_mesh(device="cpu", **{axis: 2})
 
 
 # -- --data: the token stream -------------------------------------------
