@@ -68,7 +68,25 @@ Phases, in order:
    finite (and, for the trainer runs, fall), and each run's launch
    counters (set to 0 just before it, read just after) must show exactly
    its own kernels;
-5. ``world``: the port across processes. A one-process NCCL world formed
+5. ``moe``: the trainer on mixtral-8x7b at full width (dim 4096, 32 q / 8
+   kv heads of 128, ffn 14336, 8 experts top-2, vocab 32000), depth cut
+   to 2, B=2, S=2048, 6 AdamW steps: the flat flash launches (24/12/12),
+   tokens/s and MFU over the routed FLOPs, each layer's router aux loss
+   and dropped share on the run's batch, AdamW alone and a profile of two
+   more steps;
+6. ``decode``: KV-cache decoding (``models/generate.py``, which launches
+   no kernel, as the JAX version's plain einsums): llama3-8b at full width
+   and depth from seeded parameters (B=4, a 128-token prompt, 128 new,
+   greedy), the weights-read bound printed first, ms a step, new tokens/s
+   and the idle share (one step eager against its CUDA-graph replay); its
+   teacher-forced logits against the training forward of the prompt
+   (flash forward, 32 launches) at DECODE_LOGITS_TOL, argmax agreement
+   printed; the same for the moe phase's Mixtral (its forward with the
+   capacity raised so nothing drops) and seq2seq-small (B=16, src 512, 64
+   new); then ``python -m mpi_operator_tpu_torch.cmd.generate`` on
+   llama-tiny and llama-moe-tiny checkpoints the trainer writes here, its
+   tokens against the same command on the CPU;
+7. ``world``: the port across processes. A one-process NCCL world formed
    by the launcher's own ``form_world``, with the healthcheck's collective
    probe and its JSON line. Then one gang of two processes on the one
    card (``python3 chip_smoke.py --world-child``, the rendezvous env, the
@@ -84,11 +102,13 @@ Phases, in order:
    SIGTERM to rank 1 alone (both
    ranks stop at step 2 and commit it, then resume to ``--steps``); and
    ``cmd.eval --mesh dp=2`` on a llama-tiny checkpoint the pair wrote,
-   against the one-process eval. Its step times measure gloo staging
-   every collective through the host, not the port on a multi-GPU node;
-6. ``profile`` (opt-in, ``--phases profile``): where one training step's
+   against the one-process eval; and mixtral-8x7b at depth 1 on
+   ``--mesh ep=2`` (3 steps, each rank holding 4 of the 8 experts) against
+   the one-process run. Its step times measure gloo staging every
+   collective through the host, not the port on a multi-GPU node;
+8. ``profile`` (opt-in, ``--phases profile``): where one training step's
    time goes, for each arm (device kernel time by kind, idle share);
-7. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
+9. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
    step, as a same-call A/B: the Llama and the BERT-base train runs
    synthetic and on a token file in turns (S D D S, four times), 10 steps
    each, with every run's step_ms and each side's median.
@@ -212,6 +232,30 @@ EVAL_BATCH, EVAL_BATCHES, EVAL_SEQ = 2, 4, 2048
 # The card's f32 flash kernel against its CPU plain version on the same
 # llama-tiny checkpoint: only the order of f32 sums differs.
 TINY_EVAL_RTOL = 1e-5
+
+# Phase moe: Mixtral-8x7B at full width (dim 4096, 32 q / 8 kv heads of
+# 128, ffn 14336, 8 experts routed top-2, vocab 32000, bf16, remat full),
+# depth cut to 2: 3.165 G parameters, 50.6 GB of f32 parameters,
+# gradients and AdamW moments before activations. Llama's cell settings.
+MOE_LAYERS = 2
+MOE_TRAIN_ARGS = [
+    "--model", "mixtral-8x7b", "--n-layers", str(MOE_LAYERS), "--seq-len",
+    "2048", "--global-batch", "2", "--xent-chunk", "1024", "--steps", "6",
+    "--warmup", "2", "--lr", "3e-4", "--log-every", "1",
+]
+# Phase decode: llama3-8b at full width and depth from seeded parameters
+# (and the moe phase's Mixtral), B=4, a 128-token prompt, 128 new tokens,
+# greedy; seq2seq-small B=16, src 512, 64 new.
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 128, 128
+S2S_DECODE_BATCH, S2S_DECODE_SRC, S2S_DECODE_NEW = 16, 512, 64
+# Teacher-forced decode logits against the training forward of the same
+# tokens, norm-relative. Both run bf16 products with f32 accumulation but
+# round at other points (the forward's flash kernel rounds P to bf16, the
+# decode step's attention is f32 over the bf16 cache; the forward's norms
+# and residuals see other bf16 inputs): about five bf16 roundings (2^-9
+# relative each) a layer apart, which grow as a random walk through 32
+# layers to ~sqrt(160) x 2^-9 = 2.5e-2 of the hidden state at worst.
+DECODE_LOGITS_TOL = 5e-2
 
 # Kernel -> the TPU kernel it replaces.
 REPLACES = {
@@ -1771,6 +1815,407 @@ def run_eval_checks(tmp: Path) -> tuple[dict, dict]:
     return launches, line
 
 
+# -- phase moe: Mixtral through the trainer -------------------------------
+
+@contextlib.contextmanager
+def _kept(train, box: list):
+    """Each Workload that ``train.build_workload`` builds meanwhile is
+    appended to ``box``, so that its model outlives ``train.main``."""
+    real = train.build_workload
+
+    def build(*a, **kw):
+        work = real(*a, **kw)
+        box.append(work)
+        return work
+
+    train.build_workload = build
+    try:
+        yield
+    finally:
+        train.build_workload = real
+
+
+def _moe_flops_per_token(cfg, seq: int) -> float:
+    """Routed training FLOPs a token (2 x MAC; forward + backward = 3 x
+    the forward, PaLM's appendix): 6 x the matmul parameters one token
+    passes through (attention, the router, top_k of the E experts' SwiGLU,
+    the head) + 6 L d S for causal attention. GShard's dispatch and
+    combine products, the remat recompute and the slots left empty by
+    dropped choices are not counted."""
+    hd = cfg.head_dim
+    attn = (cfg.dim * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+            + cfg.n_heads * hd * cfg.dim)
+    routed = (cfg.moe_top_k * 3 * cfg.dim * cfg.ffn_dim
+              + cfg.dim * cfg.n_experts)
+    n = cfg.n_layers * (attn + routed) + cfg.dim * cfg.vocab_size
+    return 6 * n + 6 * cfg.n_layers * cfg.dim * seq
+
+
+def _routing_stats(model, tokens) -> list:
+    """Per MoE layer, with ``tokens`` through ``model`` (no autograd): the
+    Switch aux loss (1.0 at perfect balance) and the share of (token,
+    choice) pairs dropped at the expert capacity."""
+    import torch
+
+    from mpi_operator_tpu_torch.models import moe
+
+    stats = []
+
+    def probe(module, inputs, _out):
+        (h,) = inputs
+        g, s, _ = h.shape
+        cap = moe.expert_capacity(s, module.n_experts, module.top_k,
+                                  module.capacity_factor)
+        probs = torch.softmax(h.float() @ module.router, dim=-1)
+        dispatch, _, aux = moe.routing(probs, module.top_k, cap)
+        stats.append({"aux": float(aux), "dropped_share": 1 - float(
+            dispatch.sum()) / (module.top_k * g * s), "capacity": cap})
+
+    hooks = [m.register_forward_hook(probe) for m in model.modules()
+             if isinstance(m, moe.MoEMLP)]
+    try:
+        with torch.no_grad():
+            model(tokens)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return stats
+
+
+def run_moe_train():
+    """Phase ``moe``: first the router's aux loss and dropped share a
+    layer at the trainer's init (the same seed and batch, its own
+    forward); then ``cmd.train.main`` on mixtral-8x7b at full width,
+    depth 2 (MOE_TRAIN_ARGS), with every launch counter set to 0 just
+    before it and read just after. Then, outside that count, on the run's
+    own workload: the aux loss and dropped share after its steps, the
+    AdamW update alone (CUDA events) and a torch.profiler pass over two
+    more steps. Returns (summary, launch counts, the trained model
+    without gradients or optimizer state)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from mpi_operator_tpu_torch.cmd import train
+    from mpi_operator_tpu_torch.models import llama as lib
+
+    cfg = lib.mixtral_8x7b(n_layers=MOE_LAYERS, xent_chunk=1024)
+    args = train.build_parser().parse_args(MOE_TRAIN_ARGS)
+    model = lib.Llama(cfg, device="cuda")
+    lib.init_params(model, torch.Generator(device="cuda").manual_seed(
+        args.seed))
+    tokens = torch.as_tensor(np.random.RandomState(args.seed).randint(
+        0, cfg.vocab_size, (args.global_batch, args.seq_len)), device="cuda")
+    at_init = _routing_stats(model, tokens)
+    del model
+    torch.cuda.empty_cache()
+    box = []
+    with _kept(train, box):
+        summary, launches = _drive_trainer(MOE_TRAIN_ARGS)
+    work = box.pop()
+    summary["parameters"] = sum(p.numel() for p in work.model.parameters())
+    summary["mfu_bf16_peak_routed"] = (
+        summary["tokens_per_sec"] * _moe_flops_per_token(cfg, args.seq_len)
+        / PEAK_FLOPS["bf16"])
+    same_batch = torch.equal(work.batch[0], tokens)
+    stats = _routing_stats(work.model, work.batch[0])
+    work.optimizer.zero_grad(set_to_none=False)
+    adamw_ms = time_ms(work.optimizer.step, 1, 3)
+    busy, wall, kinds, kernels = _profile_steps(
+        lambda: work.step_fn(*work.batch), _llama_kind)
+    summary["routing_at_init"] = at_init
+    summary["routing_after_steps"] = stats
+    log("moe mixtral-8x7b/2 layers summary: " + json.dumps(summary))
+    log("moe profile: " + json.dumps({
+        "adamw_step_ms": adamw_ms, "profiled_wall_ms_per_step": wall,
+        "device_busy_ms_per_step": busy,
+        "device_idle_share": 1 - busy / wall,
+        "device_ms_per_step_by_kind": kinds}))
+    for ms, name in kernels[:10]:
+        log(f"moe profile kernel {ms:9.3f} ms/step  {name}")
+    steps = summary["steps"]
+    want = _want_launches({"flash_fwd": 2 * MOE_LAYERS * steps,
+                           "flash_bwd_dq": MOE_LAYERS * steps,
+                           "flash_bwd_dkv": MOE_LAYERS * steps})
+    ok = (steps == 6 and math.isfinite(summary["loss"])
+          and summary["loss"] < summary["first_loss"] and launches == want
+          and work.model.config == cfg and same_batch
+          and len(stats) == len(at_init) == MOE_LAYERS
+          and all(math.isfinite(st["aux"]) for st in stats + at_init))
+    log(f"moe launches {launches} (want {want}); loss "
+        f"{summary['first_loss']:.4f} -> {summary['loss']:.4f}; tokens/s "
+        f"{summary['tokens_per_sec']} step_ms {summary['step_ms']} routed "
+        f"MFU {summary['mfu_bf16_peak_routed']:.4f}; aux a layer at init "
+        f"{[round(st['aux'], 4) for st in at_init]}, after the steps "
+        f"{[round(st['aux'], 4) for st in stats]} (1.0 at balance); "
+        f"dropped at init {[round(st['dropped_share'], 4) for st in at_init]}"
+        f", after {[round(st['dropped_share'], 4) for st in stats]}; peak "
+        f"{summary['peak_mem_gb']:.2f} GB -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("MoE training run failed its checks")
+    model = work.model
+    for p in model.parameters():
+        p.grad = None
+    del work, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, launches, model
+
+
+# -- phase decode: KV-cache decoding --------------------------------------
+
+def _decode_llama(label: str, model, prompt, max_new: int) -> dict:
+    """``generate()`` on ``model`` (greedy, the weights cast once), with
+    the launch counters read around it; its ms a step (every step is one
+    token through the model against the cache), new tokens/s and the
+    device's idle share (one step eagerly against its CUDA-graph replay,
+    at the last position); then the teacher-forced decode logits of the
+    prompt against the training forward of the same tokens (its flash
+    forward launches counted apart). An MoE model's forward runs with
+    every expert's capacity raised to the whole group, so that it drops
+    nothing: decode routes every token alone, with no capacity. Returns
+    the record, with both launch counts."""
+    import torch
+
+    from mpi_operator_tpu_torch.models import generate as gen
+    from mpi_operator_tpu_torch.models import moe
+
+    cfg = model.config
+    b, s0 = prompt.shape
+    n_params = sum(p.numel() for p in model.parameters())
+    bound_ms = 2 * n_params / PEAK_BYTES_PER_S * 1e3
+    log(f"decode {label}: B={b}, prompt {s0}, {max_new} new, greedy; "
+        f"weights-read bound {2 * n_params / 1e9:.2f} GB of bf16 at "
+        f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s = {bound_ms:.3f} ms a step")
+    weights = gen.decode_weights(model)
+    gen.generate(model, prompt[:, :2], max_new=2, weights=weights)  # warm
+    torch.cuda.synchronize()
+    _reset_all_launch_counts()
+    t0 = time.perf_counter()
+    out = gen.generate(model, prompt, max_new=max_new, weights=weights)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gen_launches = _all_launch_counts()
+    step_ms = wall * 1e3 / (s0 + max_new - 1)
+
+    dec = gen.Decoder(model, b, s0 + max_new, weights)
+    token = prompt[:, 0].clone()
+    pos = s0 + max_new - 1
+    with torch.no_grad():
+        eager_ms = time_ms(lambda: dec.step(token, pos), 2, 10)
+        graph = _captured(lambda: dec.step(token, pos))
+    replay_ms = time_ms(graph.replay, 2, 10)
+    del graph, dec
+
+    tf = gen.decode_logits_teacher_forced(model, prompt, weights)
+    del weights
+    moes = [m for m in model.modules() if isinstance(m, moe.MoEMLP)]
+    factors = [m.capacity_factor for m in moes]
+    for m in moes:
+        m.capacity_factor = float(m.n_experts)  # C = top_k x S: no drops
+    _reset_all_launch_counts()
+    with torch.no_grad():
+        fwd = model(prompt)
+    fwd_launches = _all_launch_counts()
+    for m, f in zip(moes, factors):
+        m.capacity_factor = f
+    fwd = fwd[0] if cfg.is_moe else fwd
+    rel = norm_rel(tf, fwd)
+    agree = float((tf.argmax(-1) == fwd.argmax(-1)).float().mean())
+    del tf, fwd
+    torch.cuda.empty_cache()
+    rec = {"ms_per_step": step_ms, "new_tokens_per_s": b * 1e3 / step_ms,
+           "generate_s": wall, "bound_ms_per_step": bound_ms,
+           "eager_step_ms": eager_ms, "graph_replay_step_ms": replay_ms,
+           "device_idle_share": 1 - replay_ms / eager_ms,
+           "teacher_forced_norm_rel": rel, "argmax_agreement": agree,
+           "launches": {"generate": gen_launches, "forward": fwd_launches}}
+    want_fwd = _want_launches({"flash_fwd": cfg.n_layers})
+    ok = (out.shape == (b, s0 + max_new) and torch.equal(out[:, :s0], prompt)
+          and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size
+          and rel <= DECODE_LOGITS_TOL and gen_launches == _want_launches({})
+          and fwd_launches == want_fwd)
+    log(f"decode {label}: " + json.dumps(rec))
+    log(f"decode {label}: {step_ms:.3f} ms a step ({rec['new_tokens_per_s']:.1f}"
+        f" new tokens/s; bound {bound_ms:.3f} ms), idle "
+        f"{rec['device_idle_share']:.3f}; teacher-forced logits vs the "
+        f"forward norm-rel {rel:.3e} (tol {DECODE_LOGITS_TOL:.0e}), argmax "
+        f"agreement {agree:.4f}; launches generate {gen_launches}, forward "
+        f"{fwd_launches} (want {want_fwd}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"decode {label} failed its checks")
+    return rec
+
+
+def _decode_s2s() -> dict:
+    """seq2seq-small (t5-small's shape) from seeded parameters: greedy
+    ``generate()`` (the encoder once, then one step a token), and the
+    teacher-forced decode logits of the generated tokens against the
+    training forward of the same pair (flat flash forward, counted)."""
+    import numpy as np
+    import torch
+
+    from mpi_operator_tpu_torch.models import seq2seq as s2s
+    from mpi_operator_tpu_torch.models import seq2seq_generate as gen
+
+    cfg = s2s.t5_small_shape()
+    model = s2s.Seq2Seq(cfg, device="cuda")
+    s2s.init_params(model, torch.Generator(device="cuda").manual_seed(0))
+    model.eval()
+    src = torch.as_tensor(np.random.RandomState(6).randint(
+        1, cfg.vocab_size, (S2S_DECODE_BATCH, S2S_DECODE_SRC)),
+        device="cuda")
+    gen.generate(model, src[:, :8], 2)  # warm
+    encode_ms = time_ms(lambda: gen.encode(model, src), 1, 3)
+    torch.cuda.synchronize()
+    _reset_all_launch_counts()
+    t0 = time.perf_counter()
+    out = gen.generate(model, src, S2S_DECODE_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gen_launches = _all_launch_counts()
+    step_ms = (wall * 1e3 - encode_ms) / S2S_DECODE_NEW
+    dec_in = torch.cat([torch.zeros_like(out[:, :1]), out[:, :-1]], dim=1)
+    tf = gen.decode_logits_teacher_forced(model, src, dec_in)
+    _reset_all_launch_counts()
+    with torch.no_grad():
+        fwd = model(src, dec_in)
+    fwd_launches = _all_launch_counts()
+    rel = norm_rel(tf, fwd)
+    agree = float((fwd.argmax(-1) == out).float().mean())
+    calls = cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    want_fwd = _want_launches({"flash_fwd": calls})
+    rec = {"generate_s": wall, "encode_ms": encode_ms,
+           "ms_per_step": step_ms,
+           "new_tokens_per_s": S2S_DECODE_BATCH * 1e3 / step_ms,
+           "teacher_forced_norm_rel": rel,
+           "forward_argmax_equals_generated": agree,
+           "launches": {"generate": gen_launches, "forward": fwd_launches}}
+    ok = (out.shape == (S2S_DECODE_BATCH, S2S_DECODE_NEW)
+          and rel <= DECODE_LOGITS_TOL and gen_launches == _want_launches({})
+          and fwd_launches == want_fwd)
+    log("decode seq2seq-small: " + json.dumps(rec))
+    log(f"decode seq2seq-small B={S2S_DECODE_BATCH} src {S2S_DECODE_SRC}, "
+        f"{S2S_DECODE_NEW} new: encode {encode_ms:.3f} ms, {step_ms:.3f} ms "
+        f"a step; teacher-forced logits vs the forward norm-rel {rel:.3e} "
+        f"(tol {DECODE_LOGITS_TOL:.0e}), the forward's argmax = the "
+        f"generated token at {agree:.4f}; launches generate {gen_launches}, "
+        f"forward {fwd_launches} (want {want_fwd}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    del model, tf, fwd
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("seq2seq decode failed its checks")
+    return rec
+
+
+def _generate_lines(argv) -> list:
+    from mpi_operator_tpu_torch.cmd import generate as gen_cmd
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = gen_cmd.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cmd.generate returned {rc}")
+    return [json.loads(line) for line in buf.getvalue().splitlines()
+            if line.startswith("{")]
+
+
+def _decode_cli(tmp: Path) -> dict:
+    """``python -m mpi_operator_tpu_torch.cmd.generate`` end to end on the
+    card: llama-tiny and llama-moe-tiny checkpoints the trainer writes
+    here (2 steps), two prompts of 3 tokens, 8 new; the tokens equal the
+    same command's on the CPU (f32 both; only the order of sums differs)
+    and the command launches no kernel."""
+    out = {}
+    for name in ("llama-tiny", "llama-moe-tiny"):
+        ck = tmp / f"gen-{name}"
+        _drive_trainer(["--model", name, "--steps", "2", "--warmup", "1",
+                        "--global-batch", "8", "--seq-len", "16", "--lr",
+                        "1e-3", "--checkpoint-dir", str(ck), "--save-every",
+                        "1", "--log-every", "1"])
+        argv = ["--checkpoint-dir", str(ck), "--model", name, "--prompt",
+                "12,7,42", "--prompt", "3,9,27", "--max-new", "8"]
+        cmd = [sys.executable, "-m", "mpi_operator_tpu_torch.cmd.generate",
+               *argv]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=300, cwd=str(Path(__file__).parent))
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"{cmd} exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-4000:]}")
+        card = [json.loads(line) for line in proc.stdout.splitlines()
+                if line.startswith("{")]
+        _reset_all_launch_counts()
+        inproc = _generate_lines(argv)
+        launches = _all_launch_counts()
+        cpu = _generate_lines([*argv, "--device", "cpu"])
+        ok = (len(card) == 2 and card == inproc
+              and [line["tokens"] for line in card]
+              == [line["tokens"] for line in cpu]
+              and all(line["step"] == 2 and len(line["new"]) == 8
+                      and line["tokens"][:3] == line["prompt"]
+                      for line in card)
+              and launches == _want_launches({}))
+        log(f"decode cmd.generate {name} ({wall:.1f} s as a process): "
+            f"{json.dumps(card)}; CPU tokens "
+            f"{[line['tokens'] for line in cpu]}; launches {launches} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"cmd.generate on {name} failed its checks")
+        out[f"cmd.generate {name}"] = launches
+    return out
+
+
+def run_decode(tmp: Path, moe_model=None) -> dict:
+    """Phase ``decode``: (a) llama3-8b at full width and depth from seeded
+    parameters; (b) Mixtral (the moe phase's trained 2-layer model, or a
+    seeded one without that phase); (c) seq2seq-small; (d) cmd.generate
+    end to end. Returns each path's launch counts."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from mpi_operator_tpu_torch.models import llama as lib
+
+    def prompt(vocab: int, seed: int):
+        return torch.as_tensor(np.random.RandomState(seed).randint(
+            0, vocab, (DECODE_BATCH, DECODE_PROMPT)), device="cuda")
+
+    paths = {}
+    model = lib.Llama(lib.llama3_8b(), device="cuda")
+    lib.init_params(model, torch.Generator(device="cuda").manual_seed(0))
+    model.eval()
+    rec = _decode_llama("llama3-8b", model, prompt(model.config.vocab_size, 5),
+                        DECODE_NEW)
+    paths.update({f"{k} llama3-8b": c for k, c in rec["launches"].items()})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    if moe_model is None:
+        moe_model = lib.Llama(lib.mixtral_8x7b(n_layers=MOE_LAYERS),
+                              device="cuda")
+        lib.init_params(moe_model,
+                        torch.Generator(device="cuda").manual_seed(0))
+    moe_model.eval()
+    rec = _decode_llama(f"mixtral-8x7b/{MOE_LAYERS} layers", moe_model,
+                        prompt(moe_model.config.vocab_size, 7), DECODE_NEW)
+    paths.update({f"{k} mixtral-8x7b": c for k, c in rec["launches"].items()})
+    del moe_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rec = _decode_s2s()
+    paths.update({f"{k} seq2seq-small": c
+                  for k, c in rec["launches"].items()})
+    paths.update(_decode_cli(tmp))
+    return paths
+
+
 def ab_data_step(blocks: int = 4, steps: int = 10) -> None:
     """Opt-in phase ``data``: each of the Llama and BERT-base trainer runs
     without and with ``--data``, in the order S D D S repeated ``blocks``
@@ -2163,6 +2608,18 @@ WORLD_MESH_STEPS = 3
 # rounding at the loss.
 WORLD_LOSS_RTOL = 2e-3
 WORLD_TIMEOUT_S = 600
+# Mixtral-8x7B with --mesh ep=2 on the two processes, depth 1 (16.1 GB of
+# f32 state a rank: the 262 M embedding and head and 42 M of attention
+# whole, 4 of the 8 experts' 1.41 G), B=2, S=2048, 3 steps, against one
+# process; held at WORLD_LOSS_RTOL. The ranks differ from one process in
+# two sums only: the experts' partial outputs, added in f32 across the
+# ranks, and the tokens' gradient from the experts, whose two bf16 parts
+# are added across the ranks where one process rounds the whole once.
+MOE_WORLD_ARGS = [
+    "--model", "mixtral-8x7b", "--n-layers", "1", "--seq-len", "2048",
+    "--global-batch", "2", "--xent-chunk", "1024", "--steps", "3",
+    "--warmup", "1", "--lr", "3e-4", "--log-every", "1",
+]
 
 
 @contextlib.contextmanager
@@ -2195,27 +2652,44 @@ def _recorded(train, curve: list, sigterm_after: int = 0):
         train.build_workload = real
 
 
+def _expert_shapes(model) -> list:
+    """The shape of each MoE layer's ``expert_wg`` on this process (its
+    local shard when the experts are sharded over ep)."""
+    return [list((p.to_local() if hasattr(p, "to_local") else p).shape)
+            for name, p in model.named_parameters()
+            if name.endswith("moe.expert_wg")]
+
+
 def _world_job(job: dict) -> dict:
     """One ``cmd.train`` or ``cmd.eval`` call in this process, with every
     launch counter set to 0 just before it and read just after; returns
-    its last JSON line (None when it printed none), the counts and the
-    curve of its local losses."""
+    its last JSON line (None when it printed none), the counts, the curve
+    of its local losses and the trained model's local expert shapes."""
+    import gc
+
+    import torch
+
     from mpi_operator_tpu_torch.cmd import eval as eval_cmd
     from mpi_operator_tpu_torch.cmd import train
 
     entry = eval_cmd.main if job.get("cmd") == "eval" else train.main
-    curve, buf = [], io.StringIO()
+    curve, buf, works = [], io.StringIO(), []
     _reset_all_launch_counts()
     with _recorded(train, curve, job.get("sigterm_after", 0)), \
-            contextlib.redirect_stdout(buf):
+            _kept(train, works), contextlib.redirect_stdout(buf):
         rc = entry(job["argv"])
     launches = _all_launch_counts()
     if rc != 0:
         raise AssertionError(f"{job['argv']} returned {rc}")
+    experts = [_expert_shapes(w.model) for w in works]
+    del works
+    gc.collect()
+    torch.cuda.empty_cache()
     lines = [json.loads(line) for line in buf.getvalue().splitlines()
              if line.startswith("{")]
     return {"line": lines[-1] if lines else None, "launches": launches,
-            "curve": [float(x) for x in curve]}
+            "curve": [float(x) for x in curve],
+            "experts": experts[0] if experts else []}
 
 
 def world_child(spec: str) -> int:
@@ -2334,8 +2808,9 @@ def run_world(tmp: Path) -> dict:
     from mpi_operator_tpu_torch.utils.checkpoint import committed_steps
 
     _nccl_probe()
-    # The one-process reference: the same call, its loss curve recorded.
+    # The one-process references: the same calls, their curves recorded.
     one = _world_job({"argv": BERT_TRAIN_ARGS})
+    one_moe = _world_job({"argv": MOE_WORLD_ARGS})
     torch.cuda.empty_cache()
 
     data = _token_file(tmp / "world.u32", RESUME_SEQUENCES, 512,
@@ -2377,6 +2852,7 @@ def run_world(tmp: Path) -> dict:
                           "--checkpoint-dir", str(tiny), "--save-every", "1",
                           "--log-every", "1"]},
         "eval": {"cmd": "eval", "argv": [*tiny_eval, "--mesh", "dp=2"]},
+        "ep=2": {"argv": [*MOE_WORLD_ARGS, "--mesh", "ep=2"]},
     }
     t0 = time.perf_counter()
     ranks = _run_gang(list(jobs.values()), tmp)
@@ -2487,6 +2963,30 @@ def run_world(tmp: Path) -> dict:
           f"{e1['line']}); one process {json.dumps(single['line'])}; loss rel "
           f"{rel:.3e} (tol {TINY_EVAL_RTOL:.0e}); launches a rank "
           f"{e0['launches']}, {e1['launches']} (want {want})")
+    # Mixtral on ep=2: every rank sees the whole batch, holds 4 of the 8
+    # experts and sums its partial outputs with its peer's.
+    curve = [sum(c) / WORLD_PROCESSES
+             for c in zip(*(r["curve"] for r in got["ep=2"]))]
+    want = _want_launches({"flash_fwd": 2 * 3, "flash_bwd_dq": 3,
+                           "flash_bwd_dkv": 3})
+    lines = [r["line"] for r in got["ep=2"]]
+    check("mixtral-8x7b/1 layer ep=2",
+          _close(curve, one_moe["curve"], WORLD_LOSS_RTOL)
+          and all(r["curve"] == got["ep=2"][0]["curve"] for r in got["ep=2"])
+          and all(r["launches"] == want == one_moe["launches"]
+                  for r in got["ep=2"])
+          and all(r["experts"] == [[4, 4096, 14336]] for r in got["ep=2"])
+          and one_moe["experts"] == [[8, 4096, 14336]]
+          and all(line["devices"] == 2 and line["steps"] == 3
+                  for line in lines)
+          and curve[-1] < curve[0],
+          f"curve {[round(x, 6) for x in curve]} vs one process "
+          f"{[round(x, 6) for x in one_moe['curve']]} (rtol "
+          f"{WORLD_LOSS_RTOL}); step_ms {[line['step_ms'] for line in lines]}"
+          f" (one process {one_moe['line']['step_ms']}); experts a rank "
+          f"{[r['experts'] for r in got['ep=2']]} (one process "
+          f"{one_moe['experts']}); launches a rank "
+          f"{[r['launches'] for r in got['ep=2']]}")
     log(f"world gang: {WORLD_PROCESSES} processes on one card over gloo, "
         f"{len(jobs)} jobs in {gang_s:.1f} s")
     if failed:
@@ -2494,14 +2994,17 @@ def run_world(tmp: Path) -> dict:
     return {"bert-base dp=2": got["dp=2"][0]["launches"],
             "bert-base fsdp=2": got["fsdp=2"][0]["launches"],
             "bert-base tp=2": got["tp=2"][0]["launches"],
-            "eval dp=2": e0["launches"]}
+            "eval dp=2": e0["launches"],
+            "mixtral-8x7b ep=2": got["ep=2"][0]["launches"]}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="kernels,model,train,world",
+    parser.add_argument("--phases",
+                        default="kernels,model,train,moe,decode,world",
                         help="comma-separated subset of kernels,model,train,"
-                             "world and the opt-in profile and data")
+                             "moe,decode,world and the opt-in profile and "
+                             "data")
     parser.add_argument("--world-child", default="", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2591,6 +3094,27 @@ def main(argv=None) -> int:
             f"{costs['sync']['write']:.4f} s a save, async snapshot "
             f"{costs['async']['snapshot']:.4f} s (write "
             f"{costs['async']['write']:.4f} s behind the steps)")
+    moe_model = None
+    if "moe" in phases:
+        m_summary, m_launches, moe_model = run_moe_train()
+        for name in FLASH_NAMES["flat"]:
+            if name in records:
+                records[name].setdefault("launches_by_path", {})[
+                    "mixtral-8x7b"] = m_launches[name]
+        log(f"card: {card}; moe mixtral-8x7b/{MOE_LAYERS} layers tokens/s "
+            f"{m_summary['tokens_per_sec']} step_ms {m_summary['step_ms']} "
+            f"routed MFU {m_summary['mfu_bf16_peak_routed']:.4f}")
+    if "decode" in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_decode_") as tmp:
+            d_paths = run_decode(Path(tmp), moe_model)
+        moe_model = None
+        for name in FLASH_NAMES["flat"]:
+            if name in records:
+                records[name].setdefault("launches_by_path", {}).update(
+                    {f"decode {k}": c[name] for k, c in d_paths.items()})
+        log(f"card: {card}; decode phase done")
+    del moe_model
+    torch.cuda.empty_cache()
     if "world" in phases:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_world_") as tmp:
             by_path = run_world(Path(tmp))

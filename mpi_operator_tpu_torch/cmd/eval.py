@@ -5,7 +5,8 @@ Reads the newest checkpoint the port's ``cmd.train`` wrote (its
 ``params`` entry only), streams a pre-tokenized corpus through the Llama
 model with no optimizer and no autograd, and prints one JSON line with
 the token-weighted mean cross-entropy and perplexity, with the JAX
-command's keys and rounding:
+command's keys and rounding (an MoE model's loss is the pure CE, without
+the router's load-balance term):
 
     python -m mpi_operator_tpu_torch.cmd.eval \\
         --checkpoint-dir /ckpt/llama --model llama-tiny \\
@@ -35,9 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--checkpoint-dir", required=True)
     p.add_argument("--model", default="llama-tiny",
-                   help="llama3-8b|llama-tiny (must match the training run; "
-                        "the JAX command's MoE names are refused until "
-                        "ported)")
+                   help="llama3-8b|llama-tiny|mixtral-8x7b|llama-moe-tiny "
+                        "(must match the training run)")
     p.add_argument("--data", required=True,
                    help="binary little-endian uint32 token file "
                         "(data/loader.py format, same as cmd.train --data)")
@@ -96,7 +96,9 @@ def evaluate(model, ds, batch: int, n_batches: int, device,
             tokens = torch.as_tensor(rows.astype(np.int64)).to(
                 device, non_blocking=True)
             n = (tokens.shape[1] - 1) * tokens.shape[0]
-            loss = lib.loss_fn(model, tokens)
+            # Pure CE: the MoE load-balance term is a training
+            # objective, not a model-quality number.
+            loss = lib.loss_fn(model, tokens, include_aux=False)
             totals[0] += loss.double() * n
             totals[1] += n
     if world_size() > 1:
@@ -142,13 +144,13 @@ def main(argv=None) -> int:
     rdzv = bootstrap.initialize(device_type=device.type)
     if rdzv.is_distributed:
         device = bootstrap.process_device(rdzv.process_id, device.type)
-    if args.model.startswith(("mixtral", "llama-moe")):
-        raise SystemExit(f"--model {args.model!r} (mixture of experts) is "
-                         f"not ported yet (ROADMAP.md queue (a) item 13)")
     try:
         cfg = lib.config_for(args.model, attention_impl="flash")
     except KeyError:
         raise SystemExit(f"unknown --model {args.model!r} (llama family only)")
+    if cfg.is_moe and (sizes.get("tp", 1) > 1 or sizes.get("fsdp", 1) > 1):
+        raise SystemExit(f"--mesh {args.mesh} with an MoE model is not "
+                         f"ported yet (ROADMAP.md queue (a) item 13)")
     seq_len = args.seq_len or cfg.max_seq_len
     if seq_len > cfg.max_seq_len:
         raise SystemExit(

@@ -1,5 +1,6 @@
 """Training entrypoint -- the port of ``mpi_operator_tpu/cmd/train.py``,
-ResNet, Llama, BERT, ViT and seq2seq arms, one process per device:
+ResNet, Llama (dense and MoE), BERT, ViT and seq2seq arms, one process
+per device:
 
     python -m mpi_operator_tpu_torch.cmd.train      # resnet101, 224x224, B=64
     python -m mpi_operator_tpu_torch.cmd.train --model resnet101 \\
@@ -10,6 +11,9 @@ ResNet, Llama, BERT, ViT and seq2seq arms, one process per device:
     python -m mpi_operator_tpu_torch.cmd.train --model bert-base \\
         --global-batch 64 --seq-len 512 --mlm-layout positions \\
         --steps 6 --warmup 2 --lr 1e-4
+    python -m mpi_operator_tpu_torch.cmd.train --model mixtral-8x7b \\
+        --n-layers 2 --seq-len 2048 --global-batch 2 --xent-chunk 1024 \\
+        --steps 6 --warmup 2 --lr 3e-4
     python -m mpi_operator_tpu_torch.cmd.train --model vit-base \\
         --global-batch 64 --steps 6 --warmup 2 --lr 1e-4
     python -m mpi_operator_tpu_torch.cmd.train --model seq2seq-small \\
@@ -23,7 +27,8 @@ Flow: rendezvous (launcher.bootstrap: a one-process job skips it; a
 larger one forms its torch.distributed world from the controller's env)
 -> the mesh from ``--mesh`` over the world -> model, placed on the mesh
 (``parallel/sharding.py``: a tensor-parallel plan on tp, FSDP2 on fsdp,
-HSDP on dp x fsdp, gradient averaging on dp alone) + optimizer (ResNet:
+HSDP on dp x fsdp, MoE experts sharded on ep, gradient averaging on dp
+alone) + optimizer (ResNet:
 SGD nesterov momentum 0.9; Llama, BERT, ViT and seq2seq: AdamW) ->
 resume from ``--checkpoint-dir``
 (``utils/checkpoint.py``; ``--steps`` is an ABSOLUTE target)
@@ -81,8 +86,9 @@ from ..utils.logging import get_logger
 log = get_logger("train")
 
 PORTED_MODELS = ("resnet18", "resnet50", "resnet101", "llama3-8b",
-                 "llama-tiny", "bert-base", "bert-tiny", "vit-base",
-                 "vit-tiny", "seq2seq-small", "seq2seq-tiny")
+                 "llama-tiny", "mixtral-8x7b", "llama-moe-tiny", "bert-base",
+                 "bert-tiny", "vit-base", "vit-tiny", "seq2seq-small",
+                 "seq2seq-tiny")
 
 
 def parse_mesh_spec(spec: str) -> dict[str, int]:
@@ -109,13 +115,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "(the run never moves to the CPU on its own)")
     p.add_argument("--model", default="resnet101",
                    help="ported: resnet18|resnet50|resnet101|llama3-8b|"
-                        "llama-tiny|bert-base|bert-tiny|vit-base|vit-tiny|"
-                        "seq2seq-small|seq2seq-tiny (the JAX trainer's MoE "
-                        "names are refused until ported)")
+                        "llama-tiny|mixtral-8x7b|llama-moe-tiny|bert-base|"
+                        "bert-tiny|vit-base|vit-tiny|seq2seq-small|"
+                        "seq2seq-tiny")
     p.add_argument("--mesh", default="",
                    help="axis spec over the world's processes, e.g. dp=-1, "
-                        "dp=2,fsdp=2 or tp=2 (sp, pp and ep are not ported "
-                        "yet)")
+                        "dp=2,fsdp=2, tp=2 or dp=2,ep=2 (MoE; sp and pp are "
+                        "not ported yet)")
     p.add_argument("--steps", type=int, default=100,
                    help="ABSOLUTE target step")
     p.add_argument("--warmup", type=int, default=3)
@@ -180,10 +186,6 @@ def refuse_unported(args) -> None:
     def refuse(what: str, item: str):
         raise SystemExit(f"{what} is not ported yet (ROADMAP.md {item})")
 
-    # Other names exit in the workload as unknown models.
-    if args.model.startswith(("mixtral", "llama-moe")):
-        refuse(f"--model {args.model!r} (mixture of experts; the port trains "
-               f"{', '.join(PORTED_MODELS)})", "queue (a) item 13")
     if args.heartbeat_every > 0:
         refuse("--heartbeat-every (step heartbeats, device-memory samples)",
                "queue (a) item 10")
@@ -191,6 +193,30 @@ def refuse_unported(args) -> None:
         refuse("--profile-dir (device profiler traces)", "queue (a) item 10")
     if args.remat_policy == "dots":
         refuse("--remat-policy dots", "queue (a) item 4")
+
+
+def check_moe_mesh(args) -> None:
+    """The mesh against the model: MoE with tp or fsdp is not ported
+    (naming its ROADMAP.md item); the JAX trainer's checks that ``ep > 1``
+    needs an MoE model whose expert count it divides. Raises ValueError
+    for a malformed ``--mesh``."""
+    from ..models import llama as lib
+
+    sizes = parse_mesh_spec(args.mesh)
+    cfg = lib.CONFIGS[args.model]() if args.model in lib.CONFIGS else None
+    moe = cfg is not None and cfg.is_moe
+    for axis in ("tp", "fsdp"):
+        if moe and sizes.get(axis, 1) > 1:
+            raise SystemExit(
+                f"--mesh {axis}={sizes[axis]} with an MoE model (--model "
+                f"{args.model}) is not ported yet (ROADMAP.md queue (a) "
+                f"item 13)")
+    ep = sizes.get("ep", 1)
+    if ep > 1 and not moe:
+        raise SystemExit(
+            f"--mesh ep={ep} needs an MoE model; {args.model} is dense")
+    if ep > 1 and cfg.n_experts % ep:
+        raise SystemExit(f"{cfg.n_experts} experts not divisible by ep={ep}")
 
 
 def _make_learning_rate(args):
@@ -561,13 +587,16 @@ def _seq2seq_workload(args, mesh, n_devices: int) -> Workload:
                            tokens_per_step=global_batch * (src_len + dec_len))
 
 
+_TOKEN_MODELS = ("bert", "llama", "mixtral")
+
+
 def build_workload(args, mesh, n_devices: int) -> Workload:
-    if args.data and not args.model.startswith(("bert", "llama")):
+    if args.data and not args.model.startswith(_TOKEN_MODELS):
         # The JAX trainer reads --data only in its Llama and BERT arms;
         # the port ignores no flag silently.
         raise SystemExit(
             f"--data is a token file, which only the token models (llama, "
-            f"bert) read; --model {args.model} trains on its synthetic "
+            f"mixtral, bert) read; --model {args.model} trains on its synthetic "
             f"batch, as in the JAX trainer"
         )
     if args.model.startswith("resnet"):
@@ -576,7 +605,7 @@ def build_workload(args, mesh, n_devices: int) -> Workload:
         return _vit_workload(args, mesh, n_devices)
     if args.model.startswith("seq2seq"):
         return _seq2seq_workload(args, mesh, n_devices)
-    if args.model.startswith(("bert", "llama")):
+    if args.model.startswith(_TOKEN_MODELS):
         return _lm_workload(args, mesh, n_devices)
     raise SystemExit(f"unknown --model {args.model!r}")
 
@@ -661,6 +690,10 @@ def main(argv=None) -> int:
     if args.steps < 1:
         raise SystemExit("--steps must be >= 1")
     refuse_unported(args)
+    try:
+        check_moe_mesh(args)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {args.mesh!r}: {e}") from None
 
     import torch
 

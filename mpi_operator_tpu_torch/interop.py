@@ -8,6 +8,10 @@ arrays (the caller does ``np.asarray`` on the JAX side). The Flax leaf
 embedding module's ``weight`` as it is; norm ``scale`` and ``bias`` and
 Dense ``bias`` keep their names. Values are copied bit for bit.
 
+Llama MoE: ``layer_i/moe/{router,expert_wg,expert_wu,expert_wd}`` keep
+their names and the Flax layout (router [D, E], experts [E, D, F] and
+[E, F, D]) in the port's ``layer_i.moe``.
+
 ViT's ``cls``, ``pos_embed`` and ``head`` are parameters of the model
 itself, stored as in Flax (``head`` [dim, classes] is not transposed).
 
@@ -75,16 +79,21 @@ def _to_flax(state: Mapping[str, torch.Tensor], plain: tuple,
     return tree
 
 
+_LLAMA_PLAIN = ("scale", "router", "expert_wg", "expert_wu", "expert_wd")
+
+
 def llama_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
-    """Flax Llama param tree (numpy leaves) -> the port's ``state_dict``."""
-    return _from_flax(tree, ("scale",))
+    """Flax Llama param tree (numpy leaves, dense or MoE) -> the port's
+    ``state_dict``."""
+    return _from_flax(tree, _LLAMA_PLAIN)
 
 
 def llama_params_to_jax(state: Mapping[str, torch.Tensor]) -> dict:
     """The inverse: the port's ``state_dict`` (or any name -> tensor map
     of the same names, e.g. gradients) -> a nested Flax-shaped tree of
     numpy arrays."""
-    return _to_flax(state, ("scale",), lambda modules: modules == ["embed"])
+    return _to_flax(state, _LLAMA_PLAIN,
+                    lambda modules: modules == ["embed"])
 
 
 def bert_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:

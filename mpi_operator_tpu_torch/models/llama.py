@@ -1,5 +1,5 @@
-"""Llama-family decoder transformer in PyTorch, dense path (port of
-``mpi_operator_tpu/models/llama.py``).
+"""Llama-family decoder transformer in PyTorch, dense and sparse MoE
+(port of ``mpi_operator_tpu/models/llama.py``).
 
 - bfloat16 compute, float32 parameters, f32 logits for the loss;
 - attention through the hand-written flash kernels
@@ -7,12 +7,16 @@
   [B*H, S, D] kernels (``flash-bhsd``, behind transposes) or the dense
   oracle;
 - per-layer activation checkpointing (``remat_policy="full"``) trades
-  FLOPs for memory.
+  FLOPs for memory;
+- MoE configs (``mixtral-8x7b``, ``llama-moe-tiny``) replace every
+  block's MLP by ``models/moe.py:MoEMLP`` (``layer_{i}.moe``); the
+  blocks' router aux losses are summed and the train loss adds
+  ``router_aux_coef`` times that sum.
 
 Module names follow the Flax tree (``embed``, ``layer_{i}.attn.wq``,
 ``attn_norm``, ``mlp.w_gate``, ``final_norm``, ``lm_head``), so
-``interop`` carries weights across leaf by leaf. MoE configs and the
-``"dots"`` remat policy are later slices of the port.
+``interop`` carries weights across leaf by leaf. The ``"dots"`` remat
+policy is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -52,8 +56,14 @@ class LlamaConfig:
     # 'dense' (the oracle). 'ring'/'ulysses' raise until sequence
     # parallelism is ported.
     attention_impl: str = "flash"
-    # Sparse MoE FFN: > 0 experts raises until models/moe.py is ported.
+    # Sparse MoE FFN (models/moe.py): 0 = dense SwiGLU; > 0 replaces every
+    # block's MLP with n_experts experts routed top-k, experts sharded over
+    # the ep mesh axis. The train loss adds router_aux_coef x the Switch
+    # load-balance loss.
     n_experts: int = 0
+    moe_top_k: int = 2
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
     # > 0: the train loss computes cross-entropy in sequence chunks of
     # this size (ops/losses.py:lm_xent_chunked); 0 = full [B, S, V] logits.
     xent_chunk: int = 0
@@ -81,9 +91,28 @@ def tiny(**overrides) -> LlamaConfig:
     return dataclasses.replace(base, **overrides)
 
 
+def mixtral_8x7b(**overrides) -> LlamaConfig:
+    """Mixtral-style sparse MoE: Llama structure, 8 experts routed top-2."""
+    base = LlamaConfig(
+        vocab_size=32000, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+        ffn_dim=14336, max_seq_len=32768, rope_theta=1e6,
+        n_experts=8, moe_top_k=2,
+    )
+    return dataclasses.replace(base, **overrides)
+
+
+def tiny_moe(**overrides) -> LlamaConfig:
+    """Test-scale MoE config (4 experts, top-2)."""
+    return tiny(**{"n_experts": 4, "moe_top_k": 2, **overrides})
+
+
+# The one name -> config mapping of cmd.train, cmd.eval and cmd.generate:
+# a checkpoint trained under a name loads under it.
 CONFIGS = {
     "llama3-8b": llama3_8b,
     "llama-tiny": tiny,
+    "mixtral-8x7b": mixtral_8x7b,
+    "llama-moe-tiny": tiny_moe,
 }
 
 
@@ -211,21 +240,31 @@ class Block(nn.Module):
         self.attn_norm = RMSNorm(config.dim, config.norm_eps, device)
         self.attn = Attention(config, device)
         self.mlp_norm = RMSNorm(config.dim, config.norm_eps, device)
-        self.mlp = MLP(config, device)
+        if config.is_moe:
+            from .moe import MoEMLP
+
+            self.moe = MoEMLP(
+                config.dim, config.ffn_dim, config.n_experts,
+                top_k=config.moe_top_k,
+                capacity_factor=config.capacity_factor, dtype=config.dtype,
+                device=device)
+        else:
+            self.mlp = MLP(config, device)
 
     def forward(self, x, positions):
+        """Returns (x, aux): aux is the router load-balance loss of an MoE
+        block, 0.0 for a dense one."""
         x = x + self.attn(self.attn_norm(x), positions)
-        return x + self.mlp(self.mlp_norm(x))
+        h = self.mlp_norm(x)
+        if hasattr(self, "moe"):
+            y, aux = self.moe(h)
+            return x + y, aux
+        return x + self.mlp(h), 0.0
 
 
 class Llama(nn.Module):
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__()
-        if config.is_moe:
-            raise NotImplementedError(
-                "MoE Llama configs are not ported yet (ROADMAP.md queue (a) "
-                "item 13)"
-            )
         if config.remat_policy != "full":
             raise NotImplementedError(
                 f"remat_policy={config.remat_policy!r} is not ported yet "
@@ -249,13 +288,15 @@ class Llama(nn.Module):
         return self.lm_head.weight.t()
 
     def forward(self, tokens, return_hidden: bool = False,
-                chunked_loss: bool = False):
-        """``return_hidden=True`` skips the LM head and returns the final
-        hidden states. ``chunked_loss=True`` returns the next-token loss
-        with the head and cross-entropy applied ``cfg.xent_chunk``
-        positions at a time (ops/losses.py), so full logits never
-        materialize; it runs inside the forward, where a sharded root's
-        parameters (the head) are gathered."""
+                chunked_loss: bool = False, aux_coef: float = 0.0):
+        """f32 logits; ``(logits, aux)`` for an MoE config, aux the blocks'
+        summed router loss. ``return_hidden=True`` skips the LM head and
+        returns the final hidden states (``(hidden, aux)`` for MoE).
+        ``chunked_loss=True`` returns the next-token loss, plus
+        ``aux_coef`` x aux for MoE, with the head and cross-entropy
+        applied ``cfg.xent_chunk`` positions at a time (ops/losses.py),
+        so full logits never materialize; it runs inside the forward,
+        where a sharded root's parameters (the head) are gathered."""
         cfg = self.config
         tokens = tokens.long()
         positions = torch.arange(
@@ -263,19 +304,23 @@ class Llama(nn.Module):
         ).expand(tokens.shape)
         h = self.embed(tokens).to(cfg.dtype)
         remat = cfg.remat and torch.is_grad_enabled()
+        aux = 0.0
         for block in self.blocks():
             if remat:
-                h = checkpoint(block, h, positions, use_reentrant=False)
+                h, a = checkpoint(block, h, positions, use_reentrant=False)
             else:
-                h = block(h, positions)
+                h, a = block(h, positions)
+            aux = aux + a
         h = self.final_norm(h)
         if return_hidden:
-            return h
+            return (h, aux) if cfg.is_moe else h
         if chunked_loss:
-            return lm_xent_chunked(h[:, :-1], self.head_kernel(),
-                                   tokens[:, 1:], chunk=cfg.xent_chunk)
+            ce = lm_xent_chunked(h[:, :-1], self.head_kernel(),
+                                 tokens[:, 1:], chunk=cfg.xent_chunk)
+            return ce + aux_coef * aux if cfg.is_moe and aux_coef else ce
         # Untied head (Llama-3 does not tie embeddings); f32 logits.
-        return f32_logits(h, self.head_kernel())
+        logits = f32_logits(h, self.head_kernel())
+        return (logits, aux) if cfg.is_moe else logits
 
 
 @torch.no_grad()
@@ -290,29 +335,38 @@ def init_params(model: Llama, generator: torch.Generator) -> Llama:
             p.fill_(1.0)
         elif name == "embed.weight":
             p.normal_(0.0, p.shape[1] ** -0.5, generator=generator)
-        else:  # [out, in] kernels: fan_in = in
+        else:
+            # [out, in] kernels: fan_in = in; MoE, in the Flax layout:
+            # router [in, E], experts [E, in, out] (batch axis 0).
+            fan_in = p.shape[0] if name.endswith("router") else p.shape[1]
             # 0.8796...: the std of a unit normal truncated to [-2, 2].
-            std = p.shape[1] ** -0.5 / 0.87962566103423978
+            std = fan_in ** -0.5 / 0.87962566103423978
             nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
     return model
 
 
-def loss_fn(model: Llama, tokens):
-    """Next-token cross-entropy. The full sequence goes through the
-    model; the shift happens on the logits.
+def loss_fn(model: Llama, tokens, include_aux: bool = True):
+    """Next-token cross-entropy (+ ``router_aux_coef`` x the router aux
+    loss for MoE configs). The full sequence goes through the model; the
+    shift happens on the logits.
+
+    ``include_aux=False`` returns the pure CE: evaluation (cmd.eval) does
+    not fold the load-balance regularizer into its number.
 
     With ``cfg.xent_chunk > 0`` the head + CE run chunked
     (ops/losses.py:lm_xent_chunked): same mean, but the [B, S, V] f32
     logits never materialize."""
     cfg = model.config
     tokens = tokens.long()
+    aux_coef = cfg.router_aux_coef if include_aux else 0.0
     if cfg.xent_chunk > 0:
-        return model(tokens, chunked_loss=True)
-    logits = model(tokens)
-    return F.cross_entropy(
+        return model(tokens, chunked_loss=True, aux_coef=aux_coef)
+    logits, aux = model(tokens) if cfg.is_moe else (model(tokens), 0.0)
+    ce = F.cross_entropy(
         logits[:, :-1].reshape(-1, cfg.vocab_size), tokens[:, 1:].reshape(-1)
     )
+    return ce + aux_coef * aux if cfg.is_moe and aux_coef else ce
 
 
 def make_train_step(model: Llama, optimizer, accum_steps: int = 1,
@@ -343,6 +397,10 @@ def tensor_parallel_plan(model: Llama, tp: int) -> dict:
     )
 
     cfg = model.config
+    if cfg.is_moe:
+        raise SystemExit(
+            f"--mesh tp={tp} with an MoE model is not ported yet (ROADMAP.md "
+            f"queue (a) item 13)")
     if cfg.n_kv_heads % tp or cfg.n_heads % tp or cfg.ffn_dim % tp:
         raise SystemExit(
             f"--mesh tp={tp} must divide n_kv_heads={cfg.n_kv_heads}, "

@@ -8,8 +8,9 @@ Any subset may be used; sizes multiply to the world size (one process
 per device). A size of ``-1`` means "whatever is left" (at most one
 axis). A world of one keeps a one-device :class:`Mesh`; a larger world
 gets a ``torch.distributed`` ``DeviceMesh`` with the same axis names in
-the same order. ``sp``, ``pp`` and ``ep`` above 1 refuse, each naming the
-ROADMAP.md item that brings it.
+the same order. ``sp`` and ``pp`` above 1 refuse, each naming the
+ROADMAP.md item that brings it. ``ep`` shards the MoE experts; the batch
+splits over dp and fsdp only, so an ep rank holds its dp row's batch.
 """
 
 from __future__ import annotations
@@ -34,7 +35,6 @@ BATCH_AXES = (DP, FSDP)  # the batch dim shards over these
 UNPORTED_AXES = {
     SP: "sequence parallelism, ROADMAP.md queue (a) item 15",
     PP: "pipeline parallelism, ROADMAP.md queue (a) item 16",
-    EP: "expert parallelism, ROADMAP.md queue (a) item 13",
 }
 
 
@@ -157,7 +157,7 @@ def batch_shards(mesh: Mesh) -> int:
 
 def local_batch_size(global_batch: int, mesh: Mesh) -> int:
     """The rows of the global batch this process holds: the batch dim
-    shards over dp x fsdp and is whole on every tp rank. Raises when the
+    shards over dp x fsdp and is whole on every tp and ep rank. Raises when the
     global batch does not split evenly."""
     n = batch_shards(mesh)
     if global_batch % n:

@@ -16,7 +16,14 @@ collectives are explicit:
   ``dp``;
 - :func:`all_reduce_sum`, the autograd-aware sum across the world that
   the global-batch statistics take (BatchNorm's moments, BERT's MLM
-  weight count), as GSPMD takes them over the global batch.
+  weight count), as GSPMD takes them over the global batch;
+- the MoE experts: sharded on their expert dim over ``ep``
+  (:func:`shard_experts`). An ep rank sees its dp row's batch and runs
+  its experts; :func:`sum_partials` adds the ranks' partial outputs and
+  :func:`sum_grads` the gradients of the expert branch's inputs, so that
+  every ep rank holds the whole gradient of each parameter it holds
+  whole and the gradients are averaged over dp alone, as GSPMD's
+  gradients of these shardings are complete on every ep device.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from .mesh import DP, FSDP, TP, Mesh, batch_shards, world_size
+from .mesh import DP, EP, FSDP, TP, Mesh, batch_shards, world_size
 
 # The models' FSDP units: transformer layers (``layer_i``, ``enc_i``,
 # ``dec_i``) and ResNet's residual blocks (``stage{i}_block{j}``).
@@ -85,9 +92,12 @@ def shard_params(model: torch.nn.Module, mesh: Mesh, *,
     the tp axis, then FSDP2 ``fully_shard`` on each block (a child named
     as the models name their layers) and at the root over fsdp (HSDP
     over dp x fsdp). Parameters the forward reads outside a block
-    (embeddings, heads) stay with the root, whose forward gathers them. A
-    world of one, or dp alone, leaves the parameters whole. Build the
-    optimizer after this: it must hold the sharded parameters."""
+    (embeddings, heads) stay with the root, whose forward gathers them.
+    On ep the MoE experts shard (:func:`shard_experts`). A world of one,
+    or dp alone, leaves the parameters whole. Build the optimizer after
+    this: it must hold the sharded parameters."""
+    if mesh.axis_size(EP) > 1:
+        shard_experts(model, mesh.submesh(EP))
     if mesh.axis_size(TP) > 1:
         if tp_plan is None:
             raise SystemExit(
@@ -111,6 +121,32 @@ def shard_params(model: torch.nn.Module, mesh: Mesh, *,
                 fully_shard(block, mesh=shard_mesh)
         fully_shard(model, mesh=shard_mesh)
     return model
+
+
+def shard_experts(model: torch.nn.Module, ep_mesh) -> None:
+    """Replace every MoE expert weight (``models/moe.py:EXPERT_PARAMS``,
+    [E, ...]) of ``model`` by a DTensor sharded on its expert dim over
+    ``ep_mesh``: each rank keeps its block of E/ep experts, cut from the
+    whole weight every rank built from one seed. DCP then writes each
+    rank's experts and reshards them on load."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from ..models.moe import EXPERT_PARAMS
+
+    n, rank = ep_mesh.size(), ep_mesh.get_local_rank()
+    for module in model.modules():
+        for name in EXPERT_PARAMS:
+            p = module._parameters.get(name)
+            if p is None:
+                continue
+            if p.shape[0] % n:
+                raise SystemExit(f"{p.shape[0]} experts not divisible by "
+                                 f"ep={n}")
+            per = p.shape[0] // n
+            local = p.detach()[rank * per:(rank + 1) * per].clone()
+            module.register_parameter(name, torch.nn.Parameter(
+                DTensor.from_local(local, ep_mesh, [Shard(0)],
+                                   run_check=False)))
 
 
 def average_gradients(optimizer, mesh: Mesh) -> None:
@@ -171,6 +207,56 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     tp ranks hold the same rows, so a ratio of two such sums (a mean, a
     weighted mean) is the global batch's all the same."""
     return _AllReduceSum.apply(x) if world_size() > 1 else x
+
+
+class _SumPartials(torch.autograd.Function):
+    """Sum over ``group`` in the forward. Every rank's use of the sum is
+    the same computation, so each rank's output gradient is already the
+    whole one: it passes to the rank's partial unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _SumGrads(torch.autograd.Function):
+    """The identity in the forward; the backward sums the gradient over
+    ``group``: each rank's branch after this point computed only its part
+    of it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def sum_partials(x: torch.Tensor, group) -> torch.Tensor:
+    """Each rank of ``group`` holds a part of a sum, which every rank then
+    uses alike: the sum, with the gradient of a part that of the sum."""
+    return _SumPartials.apply(x, group)
+
+
+def sum_grads(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself, whose gradient is summed over ``group``: the ranks'
+    branches from ``x`` are parts of one computation (each rank's
+    experts)."""
+    return _SumGrads.apply(x, group)
 
 
 def any_process(local: bool, group) -> bool:

@@ -130,7 +130,9 @@ def test_refusals(tmp_path, corpus, checkpoints):
         (["--checkpoint-dir", str(tmp_path / "none")], "no checkpoint"),
         (["--checkpoint-dir", tdir, "--model", "nope"], "unknown --model"),
         (["--checkpoint-dir", tdir, "--model", "llama-moe-tiny"],
-         r"queue \(a\) item 13"),
+         "does not fit --model llama-moe-tiny"),
+        (["--checkpoint-dir", tdir, "--model", "llama-moe-tiny", "--mesh",
+          "tp=2"], r"queue \(a\) item 13"),
         (["--checkpoint-dir", tdir, "--seq-len", "4096"],
          "exceeds the model context"),
         (["--checkpoint-dir", tdir, "--mesh", "sp=2"],

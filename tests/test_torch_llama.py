@@ -150,12 +150,15 @@ def test_init_params_follows_flax_distributions_and_seed():
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tllama.Llama(tllama.tiny(n_experts=4), device="cpu")
+    # MoE configs build since models/moe.py came (tests/test_torch_moe.py);
+    # tensor parallelism over their experts does not.
+    moe = tllama.Llama(tllama.config_for("llama-moe-tiny"), device="cpu")
+    with pytest.raises(SystemExit, match="item 13"):
+        tllama.tensor_parallel_plan(moe, 2)
     with pytest.raises(NotImplementedError, match="item 4"):
         tllama.Llama(tllama.tiny(remat_policy="dots"), device="cpu")
     with pytest.raises(KeyError, match="unknown llama model"):
-        tllama.config_for("mixtral-8x7b")
+        tllama.config_for("mixtral-8x22b")
 
 
 def test_remat_changes_nothing():

@@ -51,9 +51,12 @@ def test_mesh_config_resolves_as_the_jax_packages(name):
 
 
 def test_create_mesh_refuses_the_unported_axes_by_item():
-    for axis, item in (("sp", 15), ("pp", 16), ("ep", 13)):
+    for axis, item in (("sp", 15), ("pp", 16)):
         with pytest.raises(ValueError, match=f"queue \\(a\\) item {item}"):
             tmesh.create_mesh(device="cpu", dp=1, **{axis: 2})
+    # ep is ported: only the world size stands in its way here.
+    with pytest.raises(ValueError, match="require 2 devices, have 1"):
+        tmesh.create_mesh(device="cpu", dp=1, ep=2)
 
 
 class _Coordinates:

@@ -62,13 +62,16 @@ def test_loss_falls_with_grad_accum_and_cosine_schedule(capsys):
 
 
 REFUSED = {
-    "moe": (["--model", "mixtral-8x7b"], "item 13"),
-    "moe-tiny": (["--model", "llama-moe-tiny"], "item 13"),
+    # MoE trains since the ep axis came; with tp or fsdp it refuses.
+    "moe": (["--model", "mixtral-8x7b", "--mesh", "tp=2"], "item 13"),
+    "moe-tiny": (["--model", "llama-moe-tiny", "--mesh", "fsdp=2"],
+                 "item 13"),
     "heartbeat": (["--heartbeat-every", "2"], "item 10"),
     "profile": (["--profile-dir", "/nonexistent"], "item 10"),
     "mesh": (["--mesh", "sp=2"], "item 15"),
     "mesh-pp": (["--mesh", "dp=1,pp=2"], "item 16"),
-    "mesh-ep": (["--mesh", "ep=2"], "item 13"),
+    "mesh-ep": (["--model", "llama-moe-tiny", "--mesh", "ep=2,tp=2"],
+                "item 13"),
     "remat": (["--remat-policy", "dots"], "item 4"),
 }
 
@@ -359,13 +362,15 @@ def test_adopted_trace_id_reaches_log_lines(capsys):
 
 def test_mesh_is_one_device():
     """A world of one process keeps the one-device mesh; a wider axis
-    needs that many processes, and sp, pp and ep refuse naming their
-    ROADMAP items (``tests/test_torch_mesh.py`` holds the rest)."""
+    needs that many processes (ep too, now ported), and sp and pp refuse
+    naming their ROADMAP items (``tests/test_torch_mesh.py`` holds the
+    rest)."""
     mesh = create_mesh(device="cpu", dp=-1, tp=1)
     assert mesh.sizes == {"dp": 1, "tp": 1} and mesh.device_mesh is None
-    with pytest.raises(ValueError, match="require 2 devices, have 1"):
-        create_mesh(device="cpu", fsdp=2)
-    for axis, item in (("sp", 15), ("pp", 16), ("ep", 13)):
+    for axis in ("fsdp", "ep"):
+        with pytest.raises(ValueError, match="require 2 devices, have 1"):
+            create_mesh(device="cpu", **{axis: 2})
+    for axis, item in (("sp", 15), ("pp", 16)):
         with pytest.raises(ValueError, match=f"queue \\(a\\) item {item}"):
             create_mesh(device="cpu", **{axis: 2})
 
