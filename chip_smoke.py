@@ -106,9 +106,26 @@ Phases, in order:
    ``--mesh ep=2`` (3 steps, each rank holding 4 of the 8 experts) against
    the one-process run. Its step times measure gloo staging every
    collective through the host, not the port on a multi-GPU node;
-8. ``profile`` (opt-in, ``--phases profile``): where one training step's
+8. ``operator``: the port's job path, from create to a terminal
+   condition, through its own control plane in this process
+   (``InMemoryAPIServer``, ``TPUJobController``, ``LocalPodRunner``
+   auto-binding, told the card count), every worker pod a process on the
+   card: the shipped pi job on ``h100-2`` (two pods on the one card, so
+   the runner puts them on gloo), its seconds from create to both pods
+   Running and to Succeeded beside the 200 s startup bound; a job with
+   no command, so its two pods run the builders' default, the port's
+   healthcheck (its collective probe over gloo on the card); llama3-8b /
+   2 layers on ``h100-1``, the pod running ``cmd.train.main`` with the
+   train phase's arguments (``--world-child``): Succeeded, flash
+   launches 24/12/12, loss finite and falling, the first loss within
+   rtol 1e-3 of the train phase's direct call, step_ms and tokens/s
+   beside it; a malformed command (Failed, naming the pod); and
+   ``python -m mpi_operator_tpu_torch.cmd.operator --backend memory
+   --apply mpi_operator_tpu_torch/examples/pi.yaml --exit-on-completion``
+   as a process (exit 0, its wall time);
+9. ``profile`` (opt-in, ``--phases profile``): where one training step's
    time goes, for each arm (device kernel time by kind, idle share);
-9. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
+10. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
    step, as a same-call A/B: the Llama and the BERT-base train runs
    synthetic and on a token file in turns (S D D S, four times), 10 steps
    each, with every run's step_ms and each side's median.
@@ -1597,8 +1614,7 @@ def _checkpoint_seconds() -> dict:
     out = {}
     for name, hist in (("snapshot", ck.checkpoint_snapshot_seconds),
                        ("write", ck.checkpoint_write_seconds)):
-        _, total, count = hist._series.get((), (None, 0.0, 0))
-        out[name] = (count, total)
+        out[name] = hist.sample_stats()
     return out
 
 
@@ -2998,13 +3014,208 @@ def run_world(tmp: Path) -> dict:
             "mixtral-8x7b ep=2": got["ep=2"][0]["launches"]}
 
 
+# Phase ``operator``: jobs taken from create to a terminal condition by
+# the port's own control plane in this process (InMemoryAPIServer,
+# TPUJobController, LocalPodRunner auto-binding to its node), every
+# worker pod a process on the card.
+OPERATOR_STARTUP_BOUND_S = 200  # PERF.md section 2, the reference's bound
+OPERATOR_JOB_TIMEOUT_S = 240
+OPERATOR_LOSS_RTOL = 1e-3
+PI_YAML = "mpi_operator_tpu_torch/examples/pi.yaml"
+
+
+def _operator_cluster():
+    """(api, runner, stop) of an in-process operator: the controller on
+    its own threads, the runner told how many CUDA devices there are."""
+    import threading
+
+    import torch
+
+    from mpi_operator_tpu_torch.controller.tpu_job_controller import (
+        TPUJobController)
+    from mpi_operator_tpu_torch.runtime.apiserver import InMemoryAPIServer
+    from mpi_operator_tpu_torch.runtime.podrunner import LocalPodRunner
+
+    api = InMemoryAPIServer()
+    controller = TPUJobController(api)
+    runner = LocalPodRunner(api, workdir=str(Path(__file__).resolve().parent),
+                            cuda_devices=torch.cuda.device_count())
+    stop = threading.Event()
+    threading.Thread(target=lambda: controller.run(threadiness=2, stop=stop),
+                     daemon=True).start()
+    runner.start()
+    return api, runner, stop
+
+
+def _operator_job(name: str, accel: str, command) -> dict:
+    """pi.yaml as ``name`` on ``accel``: with pi's command when
+    ``command`` is None, with none (the builders' default, the
+    healthcheck) when it is empty, else with ``command``."""
+    import yaml
+
+    from mpi_operator_tpu_torch.utils.net import free_port_pair
+
+    doc = yaml.safe_load((Path(__file__).resolve().parent / PI_YAML)
+                         .read_text())
+    doc["metadata"].update(name=name, namespace="default")
+    doc["spec"]["tpu"]["acceleratorType"] = accel
+    doc["spec"]["jaxDistribution"] = {"coordinatorPort": free_port_pair()}
+    container = doc["spec"]["tpuReplicaSpecs"]["Worker"]["template"][
+        "spec"]["containers"][0]
+    if command is not None:
+        container["command"] = command
+    if not container["command"]:
+        del container["command"]
+    return doc
+
+
+def _await_job(api, name: str, workers: int) -> dict:
+    """Poll the job from its create: seconds to every worker pod Running
+    and to a terminal condition, and that condition."""
+    t0 = time.perf_counter()
+    running_s = None
+    while time.perf_counter() - t0 < OPERATOR_JOB_TIMEOUT_S:
+        pods = [p for p in api.list("pods", "default")
+                if p["metadata"]["name"].startswith(f"{name}-worker-")]
+        phases = [(p.get("status") or {}).get("phase") for p in pods]
+        if running_s is None and len(pods) == workers and all(
+                ph in ("Running", "Succeeded", "Failed") for ph in phases):
+            running_s = time.perf_counter() - t0
+        job = api.get("tpujobs", "default", name)
+        for c in (job.get("status") or {}).get("conditions") or []:
+            if c["status"] == "True" and c["type"] in ("Succeeded", "Failed"):
+                return {"condition": c, "running_s": running_s,
+                        "done_s": time.perf_counter() - t0}
+        time.sleep(0.05)
+    raise AssertionError(f"operator job {name} not finished after "
+                         f"{OPERATOR_JOB_TIMEOUT_S} s")
+
+
+def run_operator(tmp: Path, direct: dict) -> dict:
+    """Phase ``operator``: the port's job path from create to a terminal
+    condition. pi on ``h100-2`` (two pods sharing the card over gloo);
+    the default worker command (the healthcheck) on ``h100-2``;
+    llama3-8b / 2 layers on ``h100-1``, its pod running ``cmd.train.main``
+    with the train phase's TRAIN_ARGS (``--world-child``), held against
+    ``direct``, the train phase's summary of the same call; a malformed
+    command; then ``python -m mpi_operator_tpu_torch.cmd.operator`` on the
+    shipped pi.yaml as a process. Returns the Llama pod's launch counts."""
+    failed = []
+
+    def check(label: str, ok: bool, detail: str) -> None:
+        log(f"operator {label}: {detail} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(label)
+
+    api, runner, stop = _operator_cluster()
+    try:
+        api.create("tpujobs", _operator_job("pi", "h100-2", None))
+        pi = _await_job(api, "pi", 2)
+        log(runner.pod_log("default", "pi-worker-0").strip()[-2000:])
+        check("pi h100-2",
+              pi["condition"]["type"] == "Succeeded"
+              and pi["done_s"] < OPERATOR_STARTUP_BOUND_S
+              and "pi is approximately" in runner.pod_log(
+                  "default", "pi-worker-0"),
+              f"create -> both pods Running {pi['running_s']:.3f} s, -> "
+              f"{pi['condition']['type']} {pi['done_s']:.3f} s (startup "
+              f"bound {OPERATOR_STARTUP_BOUND_S} s)")
+
+        # Worker 1's preflight dial can beat worker 0's barrier (exit 13,
+        # often on the card): the job carries the podFailurePolicy the
+        # healthcheck's exit codes are for, which replaces that pod alone.
+        doc = _operator_job("probe", "h100-2", [])
+        doc["spec"]["runPolicy"].update(
+            backoffLimit=3, podFailurePolicy={"rules": [{
+                "action": "Restart",
+                "onExitCodes": {"operator": "In", "values": [12, 13]}}]})
+        api.create("tpujobs", doc)
+        probe = _await_job(api, "probe", 2)
+        lines = [json.loads(line) for line in runner.pod_log(
+            "default", "probe-worker-0").splitlines() if line.startswith("{")]
+        restarts = ((api.get("tpujobs", "default", "probe").get("status")
+                     or {}).get("replicaStatuses", {}).get("Worker", {})
+                    .get("restarts", 0))
+        check("default command (healthcheck) h100-2",
+              probe["condition"]["type"] == "Succeeded" and lines
+              and lines[-1]["ok"] and lines[-1]["device"] == "cuda:0",
+              f"{probe['condition']['type']} in {probe['done_s']:.3f} s, "
+              f"{restarts} startup restart(s); {lines[-1:]}")
+        if probe["condition"]["type"] != "Succeeded":
+            for i in range(2):
+                log(f"probe-worker-{i}: " + runner.pod_log(
+                    "default", f"probe-worker-{i}").strip()[-2000:])
+
+        spec = tmp / "operator_llama.json"
+        spec.write_text(json.dumps([{"argv": TRAIN_ARGS}]))
+        api.create("tpujobs", _operator_job(
+            "llama", "h100-1",
+            ["python", "chip_smoke.py", "--world-child", str(spec)]))
+        llama = _await_job(api, "llama", 1)
+        pod_log = runner.pod_log("default", "llama-worker-0")
+        results = [json.loads(line)["result"] for line in pod_log.splitlines()
+                   if line.startswith('{"result"')]
+        if llama["condition"]["type"] != "Succeeded" or not results:
+            raise AssertionError(
+                f"operator llama3-8b job: {llama['condition']}\n"
+                f"{pod_log[-6000:]}")
+        got, launches = results[0]["line"], results[0]["launches"]
+        layers, steps = 2, got["steps"]
+        want = _want_launches({"flash_fwd": 2 * layers * steps,
+                               "flash_bwd_dq": layers * steps,
+                               "flash_bwd_dkv": layers * steps})
+        rel = abs(got["first_loss"] - direct["first_loss"]) / abs(
+            direct["first_loss"])
+        check("llama3-8b/2 layers h100-1",
+              steps == 6 and launches == want and math.isfinite(got["loss"])
+              and got["loss"] < got["first_loss"]
+              and rel <= OPERATOR_LOSS_RTOL,
+              f"{llama['condition']['type']} in {llama['done_s']:.3f} s; "
+              f"launches {launches} (want {want}); loss "
+              f"{got['first_loss']:.6f} -> {got['loss']:.6f}; first loss vs "
+              f"the direct call {direct['first_loss']:.6f}: rel {rel:.3e} "
+              f"(tol {OPERATOR_LOSS_RTOL:.0e}); step_ms {got['step_ms']} "
+              f"tokens/s {got.get('tokens_per_sec')} (direct call "
+              f"{direct['step_ms']}, {direct.get('tokens_per_sec')})")
+
+        api.create("tpujobs", _operator_job(
+            "broken", "h100-1", ["python", "-c", "raise SystemExit(3)"]))
+        broken = _await_job(api, "broken", 1)
+        check("malformed command",
+              broken["condition"]["type"] == "Failed"
+              and "broken-worker-0" in broken["condition"]["message"],
+              f"{broken['condition']['type']} in {broken['done_s']:.3f} s: "
+              f"{broken['condition']['message'][:200]!r}")
+    finally:
+        stop.set()
+        runner.stop()
+
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "mpi_operator_tpu_torch.cmd.operator",
+         "--backend", "memory", "--apply", PI_YAML, "--exit-on-completion"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=OPERATOR_JOB_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check("cmd.operator --apply pi.yaml",
+          out.returncode == 0 and "TPUJob default/pi: Succeeded" in out.stdout,
+          f"exit {out.returncode} in {wall:.3f} s wall: "
+          f"{out.stdout.strip().splitlines()[-1:]}")
+    if out.returncode != 0:
+        log(out.stderr[-4000:])
+    if failed:
+        raise AssertionError(f"operator checks failed: {failed}")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
-                        default="kernels,model,train,moe,decode,world",
+                        default="kernels,model,train,moe,decode,world,"
+                                "operator",
                         help="comma-separated subset of kernels,model,train,"
-                             "moe,decode,world and the opt-in profile and "
-                             "data")
+                             "moe,decode,world,operator and the opt-in "
+                             "profile and data")
     parser.add_argument("--world-child", default="", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3123,6 +3334,19 @@ def main(argv=None) -> int:
                 records[name].setdefault("launches_by_path", {}).update(
                     {f"world {k}": c[name] for k, c in by_path.items()})
         log(f"card: {card}; world phase done")
+    if "operator" in phases:
+        torch.cuda.empty_cache()
+        direct = summary if "train" in phases else run_train()[0]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_operator_") as tmp:
+            o_launches = run_operator(Path(tmp), direct)
+        for name in FLASH_NAMES["flat"]:
+            if name in records:
+                records[name].setdefault("launches_by_path", {})[
+                    "operator llama3-8b"] = o_launches[name]
+        log(f"card: {card}; operator phase done in "
+            f"{time.perf_counter() - t0:.1f} s")
     if records:
         log(json.dumps({"kernels": list(records.values())}))
     log(json.dumps({"ok": True, "device": {

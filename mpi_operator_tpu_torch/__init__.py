@@ -10,4 +10,10 @@ The attention kernels are CUDA C++ for Hopper (``csrc/``), built with
 ``nvcc`` at first use into the git-ignored ``_build/`` directory. Entry
 points run on ``cuda`` unless the caller asks for the CPU, where every
 kernel wrapper takes its plain PyTorch version instead.
+
+The control plane (``api``, ``runtime``, ``controller``, ``scheduler``,
+``cmd.operator``) is the JAX package's, for GPU nodes: one worker pod
+per GPU. It imports no torch; only the worker processes do.
 """
+
+__version__ = "0.1.0"

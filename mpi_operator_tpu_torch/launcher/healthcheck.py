@@ -23,7 +23,7 @@ import sys
 
 from ..api.v2beta1 import constants
 from ..utils.logging import emit_json, get_logger
-from .bootstrap import RendezvousConfig, initialize
+from .bootstrap import RendezvousConfig, initialize, shutdown
 
 log = get_logger("launcher.healthcheck")
 
@@ -150,6 +150,11 @@ def main(argv=None) -> int:
         emit_json({"ok": False, "error": str(e), "exit_code": e.exit_code},
                   stream=sys.stdout)
         return e.exit_code
+    finally:
+        # Leave the world before the interpreter exits: a gloo group torn
+        # down by the exit itself can abort the process (SIGABRT), which
+        # fails the pod that runs this as its default command.
+        shutdown()
     # One JSON line on stdout (sorted keys), as the JAX command prints.
     emit_json(result, stream=sys.stdout)
     return EXIT_OK if result["ok"] else EXIT_UNHEALTHY

@@ -318,18 +318,18 @@ class TestAsyncCheckpointManager:
             capsys.readouterr().err)
 
     def test_snapshot_and_write_times_reach_the_histograms(self, tmp_path):
-        before = [h._series.get((), [None, 0.0, 0])[2] for h in (
+        before = [h.sample_count() for h in (
             ckptlib.checkpoint_snapshot_seconds,
             ckptlib.checkpoint_write_seconds)]
-        commits = ckptlib.checkpoint_commits_total._values.get((), 0.0)
+        commits = ckptlib.checkpoint_commits_total.value()
         mgr = AsyncCheckpointManager(str(tmp_path), save_interval_steps=1)
         mgr.save(1, tiny_state(1))
         assert mgr.drain(10.0)
-        after = [h._series[()][2] for h in (
+        after = [h.sample_count() for h in (
             ckptlib.checkpoint_snapshot_seconds,
             ckptlib.checkpoint_write_seconds)]
         assert [a - b for a, b in zip(after, before)] == [1, 1]
-        assert ckptlib.checkpoint_commits_total._values[()] == commits + 1
+        assert ckptlib.checkpoint_commits_total.value() == commits + 1
 
 
 class FakeClock:

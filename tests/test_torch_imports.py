@@ -3,10 +3,13 @@
 An AST walk over every module of ``mpi_operator_tpu_torch`` and over
 ``chip_smoke.py``: no ``import``/``from`` of ``jax``, ``flax``,
 ``optax``, ``orbax`` or ``mpi_operator_tpu`` (the port keeps its own
-copies of what it needs), at any depth of the file.
+copies of what it needs), at any depth of the file. And a subprocess
+check that the port's control plane imports no ``torch`` either.
 """
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -42,3 +45,26 @@ def test_no_jax_imports(rel):
     bad = [(line, mod) for line, mod in _imported_roots(tree)
            if mod in BANNED]
     assert not bad, f"{rel} imports {bad}"
+
+
+CONTROL_PLANE = (
+    "mpi_operator_tpu_torch.controller.tpu_job_controller",
+    "mpi_operator_tpu_torch.scheduler.core",
+    "mpi_operator_tpu_torch.runtime.podrunner",
+    "mpi_operator_tpu_torch.cmd.operator",
+)
+
+
+def test_control_plane_leaves_torch_and_jax_unloaded():
+    """The operator process pays for no torch import (only its worker
+    processes do), as the JAX package's control plane imports no JAX."""
+    code = (
+        "import sys\n"
+        + "".join(f"import {m}\n" for m in CONTROL_PLANE)
+        + "print(sorted({m.split('.')[0] for m in sys.modules} & "
+        "{'torch', 'jax', 'jaxlib', 'mpi_operator_tpu'}))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]"
