@@ -123,9 +123,31 @@ Phases, in order:
    ``python -m mpi_operator_tpu_torch.cmd.operator --backend memory
    --apply mpi_operator_tpu_torch/examples/pi.yaml --exit-on-completion``
    as a process (exit 0, its wall time);
-9. ``profile`` (opt-in, ``--phases profile``): where one training step's
+9. ``observe``: the operator under faults, in this process's control
+   plane with the step-skew and memory matrices and a monitoring
+   server: llama3-8b / 2 layers on ``h100-1`` as a pod with
+   ``--heartbeat-every 2`` and ``TPU_JAX_TRACE=1`` (its heartbeat and
+   device-memory annotations, ``/debug/jobs/default/llama-hb/steps`` and
+   ``/memory``, the limit against the card's memory, the bytes in use
+   against the parameters and AdamW state, step_ms beside the train
+   phase's direct call, 24/12/12 launches per 6 steps, no kernel load
+   after warmup, the host syncs a step); a seeded ``ChaosEngine`` on a
+   job of 3 replicas (each pod its own llama-tiny): all three killed at
+   their start and replaced under an ``Ignore`` rule, worker 0 slowed 2x
+   and leaking 16 GiB a window, ``Straggling`` and ``MemoryPressure``
+   flipping; then the worker healed (``heal_worker``) and killed, both
+   conditions recovering and the job succeeding, with the fault timeline
+   and the window of each transition; ``python -m
+   mpi_operator_tpu_torch.cmd.operator --enable-queue --cluster-queue
+   gpus:h100=2 --enable-scheduler`` as a process with two ``h100-2`` pi
+   jobs (the second admitted after the first finishes, both gangs bound
+   by the scheduler, the admission latency); llama3-8b / 2 layers in
+   this process with ``--profile-dir`` (the trace must name the three
+   flash kernels) and ``torch.cuda``'s sync debug mode, whose syncs the
+   tracer must count;
+10. ``profile`` (opt-in, ``--phases profile``): where one training step's
    time goes, for each arm (device kernel time by kind, idle share);
-10. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
+11. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
    step, as a same-call A/B: the Llama and the BERT-base train runs
    synthetic and on a token file in turns (S D D S, four times), 10 steps
    each, with every run's step_ms and each side's median.
@@ -2721,7 +2743,21 @@ def world_child(spec: str) -> int:
     for job in json.loads(Path(spec).read_text()):
         if job.get("sigterm_rank", rank) != rank:
             job = {**job, "sigterm_after": 0}
+        if job.get("replica"):
+            # One replica of a job whose pods each train their own model
+            # (the observe phase's chaos job): no world.
+            for key in OBSERVE_WORLD_ENV:
+                os.environ.pop(key, None)
         print(json.dumps({"result": _world_job(job)}), flush=True)
+        if job.get("release"):
+            # Stay up after the steps until released, as the workers of
+            # a longer job would: a job whose other workers have finished
+            # cannot replace a dead one.
+            deadline = time.monotonic() + OPERATOR_JOB_TIMEOUT_S
+            while not Path(job["release"]).exists():
+                if time.monotonic() > deadline:
+                    return 1
+                time.sleep(0.05)
     return 0
 
 
@@ -3208,14 +3244,536 @@ def run_operator(tmp: Path, direct: dict) -> dict:
     return launches
 
 
+# -- observe: the operator's observatories and chaos on GPU jobs ----------
+
+# llama3-8b / 2 layers as a pod with step heartbeats: warmup 2, 8 timed
+# steps, a window every 2 (4 windows, one device-memory sample each).
+def _with_steps(argv: list, steps: int) -> list:
+    i = argv.index("--steps")
+    return argv[:i + 1] + [str(steps)] + argv[i + 2:]
+
+
+OBSERVE_STEPS = 10
+OBSERVE_TRAIN_ARGS = _with_steps(TRAIN_ARGS, OBSERVE_STEPS) + [
+    "--heartbeat-every", "2"]
+# The in-process profile run: the trainer profiles timed steps 11-13, so
+# warmup 2 + 14 steps.
+PROFILE_STEPS = 16
+PROFILE_TRAIN_ARGS = _with_steps(TRAIN_ARGS, PROFILE_STEPS)
+FLASH_TRACE_NAMES = ("flash::fwd_kernel", "flash::bwd_dq_kernel",
+                     "flash::bwd_dkv_kernel")
+# The chaos job: 3 replicas (each pod trains its own llama-tiny on the
+# card), 4 heartbeat windows of 32 steps each. A synchronous world would
+# not do: its ranks wait for the slowest at every step's collective, so
+# their step walls come out equal and the step-skew matrix (max / median
+# of the window p50s) reads 1. With 3 replicas a 2x worker reads 2x the
+# median; with 2 it would read 2 / 1.5 = 1.33, under the 1.5 threshold.
+# With 4 windows no window closes without the slowed worker (the
+# matrices close a window 4 behind the newest), so both conditions flip
+# at window 2 and clear at window 3; a slowed window (~0.6 s) separates
+# the flip from the faulty worker's next heartbeat, the time the repair
+# has to end its process in.
+OBSERVE_REPLICAS = 3
+OBSERVE_WORLD_ENV = ("TPUJOB_COORDINATOR_ADDRESS", "TPUJOB_NUM_PROCESSES",
+                     "TPUJOB_PROCESS_ID")
+OBSERVE_WINDOW_STEPS = 32
+REPLICA_ARGS = [
+    "--model", "llama-tiny", "--seq-len", "128", "--global-batch", "8",
+    "--steps", str(1 + 4 * OBSERVE_WINDOW_STEPS), "--warmup", "1",
+    "--heartbeat-every", str(OBSERVE_WINDOW_STEPS),
+    "--telemetry-every", "0", "--log-every", "0",
+]
+# random.Random(0)'s draws: WorkerSlower slows worker 0 and the
+# LeakInjector leaks on worker 0 (rate 1, one victim each), the
+# PodKiller kills all three at their start (rate 1), so the replacements
+# start with the faults.
+OBSERVE_CHAOS_SEED = 0
+# Reported bytes climb 16 GiB a window: by the third window the trend
+# projects the card's ~80 GB within the 6-window horizon.
+OBSERVE_LEAK_BYTES = 16 << 30
+OBSERVE_QUEUE = "gpus:h100=2"
+
+
+def _observe_cluster():
+    """An in-process operator with the observatories wired as
+    ``cmd.operator`` wires them, and its monitoring server on a free
+    port: (api, runner, controller, recorder, server, stop)."""
+    import threading
+
+    import torch
+
+    from mpi_operator_tpu_torch.cmd.operator import start_monitoring
+    from mpi_operator_tpu_torch.controller.tpu_job_controller import (
+        TPUJobController)
+    from mpi_operator_tpu_torch.runtime.apiserver import InMemoryAPIServer
+    from mpi_operator_tpu_torch.runtime.podrunner import LocalPodRunner
+    from mpi_operator_tpu_torch.utils import (
+        devstats, flightrecorder, metrics, stepstats)
+
+    api = InMemoryAPIServer()
+    registry = metrics.Registry()
+    recorder = flightrecorder.FlightRecorder()
+    steps = stepstats.StepMatrix(recorder, registry=registry)
+    memory = devstats.MemoryMatrix(recorder, registry=registry)
+    controller = TPUJobController(api, registry=registry,
+                                  flight_recorder=recorder,
+                                  step_matrix=steps, memory_matrix=memory)
+    runner = LocalPodRunner(api, workdir=str(Path(__file__).resolve().parent),
+                            cuda_devices=torch.cuda.device_count(),
+                            flight_recorder=recorder)
+    stop = threading.Event()
+    threading.Thread(target=lambda: controller.run(threadiness=2, stop=stop),
+                     daemon=True).start()
+    runner.start()
+    server = start_monitoring(0, registry, lambda: True,
+                              flight_recorder=recorder, step_matrix=steps,
+                              memory_matrix=memory)
+    return api, runner, controller, recorder, server, stop
+
+
+def _debug_json(server, path: str) -> dict:
+    import urllib.request
+
+    url = f"http://127.0.0.1:{server.server_address[1]}{path}"
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return json.loads(r.read().decode())
+
+
+def _llama_parameters() -> int:
+    """llama3-8b / 2 layers' parameter count: the embedding, the layers'
+    projections and norms, the final norm and the head."""
+    from mpi_operator_tpu_torch.models import llama as lib
+
+    cfg = lib.llama3_8b(n_layers=2)
+    hd = cfg.head_dim
+    per_layer = (cfg.dim * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+                 + cfg.n_heads * hd * cfg.dim + 3 * cfg.dim * cfg.ffn_dim
+                 + 2 * cfg.dim)
+    return 2 * cfg.vocab_size * cfg.dim + cfg.n_layers * per_layer + cfg.dim
+
+
+def _observe_heartbeats(api, runner, server, tmp: Path, direct: dict,
+                        check) -> dict:
+    """llama3-8b / 2 layers on h100-1 with --heartbeat-every 2 and
+    TPU_JAX_TRACE=1: the pod's annotations, the /steps and /memory
+    endpoints, the limit against the card's memory, step_ms beside the
+    direct call, launches. Returns the pod's launch counts."""
+    import torch
+
+    spec = tmp / "observe_llama.json"
+    spec.write_text(json.dumps([{"argv": OBSERVE_TRAIN_ARGS}]))
+    doc = _operator_job("llama-hb", "h100-1",
+                        ["python", "chip_smoke.py", "--world-child", str(spec)])
+    doc["spec"]["runPolicy"]["cleanPodPolicy"] = "None"
+    container = doc["spec"]["tpuReplicaSpecs"]["Worker"]["template"]["spec"][
+        "containers"][0]
+    container["env"] = [{"name": "TPU_JAX_TRACE", "value": "1"}]
+    api.create("tpujobs", doc)
+    done = _await_job(api, "llama-hb", 1)
+    pod_log = runner.pod_log("default", "llama-hb-worker-0")
+    results = [json.loads(line)["result"] for line in pod_log.splitlines()
+               if line.startswith('{"result"')]
+    if done["condition"]["type"] != "Succeeded" or not results:
+        raise AssertionError(f"observe llama3-8b job: {done['condition']}\n"
+                             f"{pod_log[-6000:]}")
+    got, launches = results[0]["line"], results[0]["launches"]
+    beats = [json.loads(line) for line in pod_log.splitlines()
+             if line.startswith('{"event": "step_heartbeat"')]
+    mems = [json.loads(line) for line in pod_log.splitlines()
+            if line.startswith('{"compile_cache_entries"')]
+    pod = api.get("pods", "default", "llama-hb-worker-0")
+    notes = pod["metadata"].get("annotations") or {}
+    from mpi_operator_tpu_torch.api.v2beta1 import constants
+
+    hb_note = json.loads(notes.get(constants.STEP_HEARTBEAT_ANNOTATION, "{}"))
+    mem_note = json.loads(notes.get(constants.DEVICE_MEMORY_ANNOTATION, "{}"))
+    steps_doc = _debug_json(server, "/debug/jobs/default/llama-hb/steps")
+    memory_doc = _debug_json(server, "/debug/jobs/default/llama-hb/memory")
+    limit = torch.cuda.mem_get_info()[1]
+    params = _llama_parameters()
+    state_bytes = 12 * params  # f32 parameters + AdamW's two f32 moments
+    windows = (OBSERVE_STEPS - 2) // 2
+    check("heartbeats and memory samples",
+          len(beats) == windows and len(mems) == windows
+          and hb_note.get("window") == windows - 1
+          and mem_note.get("window") == windows - 1,
+          f"{len(beats)} step_heartbeat, {len(mems)} device_memory lines "
+          f"(want {windows} each); pod annotations at window "
+          f"{hb_note.get('window')} / {mem_note.get('window')}")
+    for beat, mem in zip(beats, mems):
+        log(f"observe heartbeat window {beat['window']}: p50 "
+            f"{beat['step_wall_p50_ms']} ms max {beat['step_wall_max_ms']} ms "
+            f"wait {beat['wait_share']}; memory in use "
+            f"{mem['hbm_bytes_in_use']} peak {mem['hbm_peak_bytes']} limit "
+            f"{mem['hbm_limit_bytes']} kernels {mem['compile_cache_entries']}")
+    # A one-worker job closes no skew window (a window needs two
+    # workers), so /steps shows the worker's last heartbeat; /memory's
+    # windows close with one sample each.
+    hb_worker = steps_doc["workers"].get("0", {})
+    mem_windows = memory_doc["windows"]
+    check("/debug/jobs/default/llama-hb/steps and /memory",
+          hb_worker.get("window") == windows - 1
+          and [w["window"] for w in mem_windows] == list(range(windows)),
+          f"steps: worker 0 at window {hb_worker.get('window')}, p50 "
+          f"{hb_worker.get('step_wall_p50_ms')} ms; memory: "
+          f"{json.dumps(mem_windows[-1:])}")
+    check("hbm_limit_bytes = the card's memory",
+          all(m["hbm_limit_bytes"] == limit for m in mems),
+          f"{mems[-1]['hbm_limit_bytes']} vs torch.cuda.mem_get_info()[1] "
+          f"{limit}")
+    check("hbm_bytes_in_use >= parameters + AdamW state",
+          all(m["hbm_bytes_in_use"] >= state_bytes for m in mems),
+          f"{min(m['hbm_bytes_in_use'] for m in mems)} B >= 12 B x "
+          f"{params} parameters = {state_bytes} B; kernels loaded "
+          f"{mems[-1]['compile_cache_entries']}")
+    steps = got["steps"]
+    want = _want_launches({"flash_fwd": 4 * steps, "flash_bwd_dq": 2 * steps,
+                           "flash_bwd_dkv": 2 * steps})
+    p50 = sorted(b["step_wall_p50_ms"] for b in beats)
+    check("llama3-8b/2 layers with heartbeats",
+          steps == OBSERVE_STEPS and launches == want
+          and math.isfinite(got["loss"]) and got["loss"] < got["first_loss"],
+          f"launches {launches} (want {want}: 24/12/12 per 6 steps); "
+          f"step_ms {got['step_ms']} with heartbeats (window p50s {p50}) "
+          f"beside the direct call's {direct['step_ms']} "
+          f"({got['step_ms'] / direct['step_ms'] - 1:+.2%})")
+    report = got.get("jax_trace") or {}
+    per_step = (report.get("transfers", {}).get("after_warmup_count", 0)
+                / max(report.get("steps_after_warmup", 0), 1))
+    check("TPU_JAX_TRACE=1 in the pod",
+          bool(report) and report["compiles"]["after_warmup"] == 0
+          and report["steps_after_warmup"] == OBSERVE_STEPS - 2,
+          f"kernel builds/loads {report.get('compiles', {}).get('total')} "
+          f"({report.get('compiles', {}).get('after_warmup')} after warmup); "
+          f"host syncs {per_step:.2f} a step after warmup, "
+          f"{report.get('transfer_bytes_per_step')} B a step; sites "
+          f"{report.get('transfers', {}).get('top_sites')}")
+    return launches
+
+
+def _condition_changes(recorder, name: str, created: float) -> dict:
+    """Each Straggling / MemoryPressure transition of the job, in order:
+    (status, seconds from the create, the heartbeat window its verdict
+    closed on). A transition two syncs race to write shows once."""
+    from mpi_operator_tpu_torch.api.v2beta1.types import (
+        JOB_MEMORY_PRESSURE, JOB_STRAGGLING)
+
+    changes: dict = {JOB_STRAGGLING: [], JOB_MEMORY_PRESSURE: []}
+    for e in recorder.timeline("default", name):
+        if e.get("kind") != "condition" or e.get("type") not in changes:
+            continue
+        seen = changes[e["type"]]
+        if seen and seen[-1][0] == e["status"]:
+            continue
+        window = re.search(r"at window (\d+)", e.get("message", ""))
+        seen.append((e["status"], round(e["ts"] - created, 3),
+                     int(window.group(1)) if window else None))
+    return changes
+
+
+def _observe_chaos(api, runner, controller, recorder, tmp: Path,
+                   check) -> None:
+    """The seeded chaos job: 3 replicas on h100-3, all killed at their
+    start and replaced (an Ignore rule on the preemption code 137), worker
+    0 slowed 2x and leaking 16 GiB a window. Straggling and
+    MemoryPressure must flip; then the host is repaired
+    (``heal_worker``) and the worker killed before its next heartbeat,
+    and both conditions must recover: the memory matrix drops the dead
+    worker, the step matrix waits for its clean replacement (whose
+    windows up to the old one's last it drops as stale). The replicas
+    stay up after their steps until released; the job must succeed."""
+    from mpi_operator_tpu_torch import chaos
+    from mpi_operator_tpu_torch.api.v2beta1.types import (
+        JOB_MEMORY_PRESSURE, JOB_STRAGGLING)
+    from mpi_operator_tpu_torch.controller import status as st
+
+    release = tmp / "observe_release"
+    spec = tmp / "observe_replica.json"
+    spec.write_text(json.dumps([{"argv": REPLICA_ARGS, "replica": True,
+                                 "release": str(release)}]))
+    doc = _operator_job("replicas", f"h100-{OBSERVE_REPLICAS}",
+                        ["python", "chip_smoke.py", "--world-child",
+                         str(spec)])
+    doc["spec"]["runPolicy"].update(
+        cleanPodPolicy="None", backoffLimit=0,
+        podFailurePolicy={"rules": [{
+            "action": "Ignore",
+            "onExitCodes": {"operator": "In", "values": [137]}}]})
+    engine = chaos.ChaosEngine(chaos.ChaosPolicy(
+        seed=OBSERVE_CHAOS_SEED,
+        slow=(chaos.SlowWorkerChaos(slow_rate=1.0, factor=2.0, max_slow=1),),
+        leak=(chaos.MemoryLeakChaos(leak_rate=1.0,
+                                    bytes_per_window=OBSERVE_LEAK_BYTES,
+                                    max_leak=1),),
+        pods=(chaos.PodChaos(kill_rate=1.0, max_kills=OBSERVE_REPLICAS),)))
+    injectors = (chaos.WorkerSlower(engine, api, runner, recorder),
+                 chaos.LeakInjector(engine, api, runner, recorder),
+                 chaos.PodKiller(engine, api, runner))
+    kinds = (JOB_STRAGGLING, JOB_MEMORY_PRESSURE)
+
+    def wait_for(value: str) -> bool:
+        """Until both conditions read ``value``; False if the job ends
+        or the time runs out first."""
+        while time.perf_counter() - t0 < OPERATOR_JOB_TIMEOUT_S:
+            job = api.get("tpujobs", "default", "replicas")
+            conds = {c["type"]: c["status"] for c in
+                     (job.get("status") or {}).get("conditions") or []}
+            if all(conds.get(k) == value for k in kinds):
+                return True
+            if "True" in (conds.get("Succeeded"), conds.get("Failed")):
+                return False
+            time.sleep(0.01)
+        return False
+
+    t0, created = time.perf_counter(), time.time()
+    api.create("tpujobs", doc)
+    try:
+        while time.perf_counter() - t0 < OPERATOR_JOB_TIMEOUT_S:
+            pods = [p for p in api.list("pods", "default")
+                    if p["metadata"]["name"].startswith("replicas-worker-")]
+            if len(pods) == OBSERVE_REPLICAS and all(
+                    (p.get("status") or {}).get("phase") == "Running"
+                    for p in pods):
+                break
+            time.sleep(0.02)
+        landed = [inj.tick() for inj in injectors]
+        for kind, target, detail in engine.timeline():
+            log(f"observe chaos fault: {kind} {target} {detail}".rstrip())
+        flipped = wait_for("True")
+        healed = killed = False
+        if flipped:
+            # The host is repaired: the faults end with the process.
+            healed = runner.heal_worker("default", "replicas-worker-0")
+            killed = runner.kill_pod("default", "replicas-worker-0")
+            log(f"observe chaos repair: heal_worker {healed}, kill_pod "
+                f"{killed} (pod default/replicas-worker-0) at "
+                f"{time.time() - created:.3f} s")
+        recovered = flipped and wait_for("False")
+    finally:
+        release.touch()
+    done = _await_job(api, "replicas", OBSERVE_REPLICAS)
+    wall = time.time() - created
+    job = api.get("tpujobs", "default", "replicas")
+    conds = {c["type"]: c for c in (job.get("status") or {}).get(
+        "conditions") or []}
+    for c in conds.values():
+        log(f"observe chaos condition {c['type']}={c['status']} "
+            f"({c['reason']}): {c.get('message', '')}")
+    steps_doc = controller.step_matrix.job_snapshot("default", "replicas")
+    mem_doc = controller.memory_matrix.job_snapshot("default", "replicas")
+    for w in (steps_doc or {}).get("windows", []):
+        log(f"observe chaos step window {w['window']}: skew "
+            f"{w['skew_ratio']} slowest worker {w['slowest_worker']} of "
+            f"{w['workers']}, median p50 {w['median_p50_ms']} ms max "
+            f"{w['max_p50_ms']} ms")
+    for w in (mem_doc or {}).get("windows", []):
+        log(f"observe chaos memory window {w['window']}: top worker "
+            f"{w['top_worker']} of {w['workers']}, in use "
+            f"{w['hbm_bytes_in_use']} limit {w['hbm_limit_bytes']} headroom "
+            f"{w['headroom_ratio']}")
+    changes = _condition_changes(recorder, "replicas", created)
+    restarts = (job["status"].get("replicaStatuses", {}).get("Worker", {})
+                .get("restarts", 0))
+    check("chaos: 3 kills and the repair's replaced, the job Succeeded",
+          landed == [1, 1, OBSERVE_REPLICAS] and healed and killed
+          and done["condition"]["type"] == "Succeeded" and restarts == 0,
+          f"faults landed (slow, leak, kill) {landed}; repair heal {healed} "
+          f"kill {killed}; {done['condition']['type']} {wall:.3f} s from "
+          f"the create, {restarts} charged restarts")
+    straggling = conds.get(JOB_STRAGGLING, {})
+    pressure = conds.get(JOB_MEMORY_PRESSURE, {})
+    check("chaos: SlowWorkerChaos x2 flips Straggling, the repair clears it",
+          [c[0] for c in changes[JOB_STRAGGLING]] == ["True", "False"]
+          and straggling.get("reason") == st.TPUJOB_STRAGGLER_RECOVERED_REASON,
+          f"(status, s from create, window) {changes[JOB_STRAGGLING]} (the "
+          f"detector: > {steps_doc['skew_threshold'] if steps_doc else '?'} "
+          f"x the median for "
+          f"{steps_doc['consecutive_windows'] if steps_doc else '?'} "
+          f"consecutive windows); now {straggling.get('status')} "
+          f"({straggling.get('reason')})")
+    check("chaos: MemoryLeakChaos flips MemoryPressure, the repair clears it",
+          [c[0] for c in changes[JOB_MEMORY_PRESSURE]] == ["True", "False"]
+          and pressure.get("reason") == st.TPUJOB_MEMORY_RECOVERED_REASON,
+          f"(status, s from create, window) {changes[JOB_MEMORY_PRESSURE]}; "
+          f"now {pressure.get('status')} ({pressure.get('reason')}); "
+          f"flipped {flipped}, recovered {recovered}")
+
+
+def _observe_queue(tmp: Path, check) -> None:
+    """``cmd.operator --enable-queue --cluster-queue gpus:h100=2
+    --enable-scheduler`` as a process with two h100-2 pi jobs: the second
+    waits for quota, is admitted when the first finishes, both succeed;
+    the gang scheduler binds each."""
+    import os
+
+    import yaml
+
+    paths = []
+    for name in ("first", "second"):
+        doc = _operator_job(name, "h100-2", None)
+        doc["spec"]["runPolicy"]["schedulingPolicy"] = {"queue": "gpus"}
+        path = tmp / f"observe_queue_{name}.yaml"
+        path.write_text(yaml.safe_dump(doc))
+        paths += ["--apply", str(path)]
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "mpi_operator_tpu_torch.cmd.operator",
+         "--backend", "memory", "--enable-queue", "--cluster-queue",
+         OBSERVE_QUEUE, "--enable-scheduler", *paths, "--exit-on-completion"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=2 * OPERATOR_JOB_TIMEOUT_S, env=dict(os.environ))
+    wall = time.perf_counter() - t0
+    stamp = re.compile(r"^[IWE]\d{4} (\d\d):(\d\d):(\d\d\.\d+)")
+
+    def at(needle: str):
+        for line in out.stderr.splitlines():
+            m = stamp.match(line)
+            if m and needle in line:
+                h, mi, sec = m.groups()
+                return int(h) * 3600 + int(mi) * 60 + float(sec)
+        return None
+
+    first_done = at('condition Succeeded=True (TPUJobSucceeded) '
+                    'namespace="default" tpujob="first"')
+    second_in = at("admitted default/second")
+    first_in = at("admitted default/first")
+    bound = [line.split("] ", 1)[-1] for line in out.stderr.splitlines()
+             if "bound gang" in line]
+    for line in bound:
+        log(f"observe queue: {line}")
+    latency = (second_in - first_done
+               if None not in (second_in, first_done) else None)
+    check("queue: the second h100-2 job waits, then is admitted",
+          out.returncode == 0
+          and "TPUJob default/first: Succeeded" in out.stdout
+          and "TPUJob default/second: Succeeded" in out.stdout
+          and latency is not None and latency >= 0 and len(bound) == 2,
+          f"exit {out.returncode} in {wall:.3f} s; first admitted at "
+          f"{first_in}, Succeeded at {first_done}; second admitted at "
+          f"{second_in}: admission latency after the first finished "
+          f"{latency if latency is None else f'{latency:.3f} s'}; "
+          f"{len(bound)} gang binds")
+    if out.returncode != 0 or latency is None:
+        log(out.stdout[-2000:])
+        log(out.stderr[-6000:])
+
+
+def _observe_trace(tmp: Path, check) -> dict:
+    """llama3-8b / 2 layers in this process with --profile-dir over timed
+    steps 11-13, the tracer armed and torch.cuda's sync debug mode on:
+    the trace names the three flash kernels; the tracer's host syncs
+    after warmup equal the ones sync debug mode reports. Returns the
+    launch counts."""
+    import warnings
+
+    import torch
+
+    from mpi_operator_tpu_torch.utils import torchtrace
+
+    profile_dir = tmp / "profile"
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        class Boundary(torchtrace.TorchTracer):
+            """Notes how many warnings came before the warmup boundary."""
+
+            at_warmup = 0
+
+            def note_warmup_complete(self):
+                self.at_warmup = len(caught)
+                super().note_warmup_complete()
+
+        tracer = torchtrace.enable(Boundary())
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            summary, launches = _drive_trainer(
+                PROFILE_TRAIN_ARGS + ["--profile-dir", str(profile_dir)])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            torchtrace.disable()
+    syncs = [w for w in caught[tracer.at_warmup:]
+             if "synchronizing" in str(w.message)]
+    report = tracer.report()
+    sites: dict = {}
+    for w in syncs:
+        site = f"{w.filename}:{w.lineno}"
+        sites[site] = sites.get(site, 0) + 1
+    # The tracer counts the syncs a caller makes on a tensor; one that
+    # torch makes inside itself (a synchronize, say) is printed apart.
+    outside = sum(n for site, n in sites.items() if "/torch/" not in site)
+    counted = report["transfers"]["after_warmup_count"]
+    check("tracer host syncs = torch.cuda sync debug mode",
+          counted == outside and report["compiles"]["after_warmup"] == 0,
+          f"tracer {counted} syncs after warmup "
+          f"({report['transfers']['top_sites']}); sync debug mode "
+          f"{outside} outside torch, {len(syncs)} in all ({sites}); "
+          f"{report['steps_after_warmup']} steps; kernel loads after "
+          f"warmup {report['compiles']['after_warmup']}")
+    traces = sorted(profile_dir.glob("*.json"))
+    names: set = set()
+    if traces:
+        events = json.loads(traces[0].read_text()).get("traceEvents", [])
+        names = {e.get("name", "") for e in events
+                 if e.get("cat") == "kernel"}
+    found = {k: sum(1 for n in names if k in n) for k in FLASH_TRACE_NAMES}
+    flash = sorted(n for n in names if "flash::" in n)
+    check("--profile-dir trace names the flash kernels",
+          len(traces) == 1 and all(found.values()),
+          f"{[t.name for t in traces]}: "
+          f"{len(names)} kernel names, flash {flash[:6]}")
+    steps = summary["steps"]
+    want = _want_launches({"flash_fwd": 4 * steps, "flash_bwd_dq": 2 * steps,
+                           "flash_bwd_dkv": 2 * steps})
+    check("profile run launches", launches == want,
+          f"{launches} (want {want}); step_ms {summary['step_ms']} over "
+          f"{steps} steps, 3 of them profiled")
+    return launches
+
+
+def run_observe(tmp: Path, direct: dict) -> dict:
+    """Phase ``observe``: the operator's observatories on GPU jobs, chaos,
+    the admission queue with the gang scheduler, the profiler and the
+    tracer. Returns the Llama pod's launch counts."""
+    failed = []
+
+    def check(label: str, ok: bool, detail: str) -> None:
+        log(f"observe {label}: {detail} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(label)
+
+    api, runner, controller, recorder, server, stop = _observe_cluster()
+    try:
+        t0 = time.perf_counter()
+        launches = _observe_heartbeats(api, runner, server, tmp, direct,
+                                       check)
+        log(f"observe heartbeats: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        _observe_chaos(api, runner, controller, recorder, tmp, check)
+        log(f"observe chaos: {time.perf_counter() - t0:.1f} s")
+    finally:
+        stop.set()
+        runner.stop()
+        server.shutdown()
+        server.server_close()
+    t0 = time.perf_counter()
+    _observe_queue(tmp, check)
+    log(f"observe queue: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _observe_trace(tmp, check)
+    log(f"observe trace: {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError(f"observe checks failed: {failed}")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,model,train,moe,decode,world,"
-                                "operator",
+                                "operator,observe",
                         help="comma-separated subset of kernels,model,train,"
-                             "moe,decode,world,operator and the opt-in "
-                             "profile and data")
+                             "moe,decode,world,operator,observe and the "
+                             "opt-in profile and data")
     parser.add_argument("--world-child", default="", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3334,6 +3892,7 @@ def main(argv=None) -> int:
                 records[name].setdefault("launches_by_path", {}).update(
                     {f"world {k}": c[name] for k, c in by_path.items()})
         log(f"card: {card}; world phase done")
+    direct = None
     if "operator" in phases:
         torch.cuda.empty_cache()
         direct = summary if "train" in phases else run_train()[0]
@@ -3346,6 +3905,20 @@ def main(argv=None) -> int:
                 records[name].setdefault("launches_by_path", {})[
                     "operator llama3-8b"] = o_launches[name]
         log(f"card: {card}; operator phase done in "
+            f"{time.perf_counter() - t0:.1f} s")
+    if "observe" in phases:
+        torch.cuda.empty_cache()
+        if direct is None:
+            direct = summary if "train" in phases else run_train()[0]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_observe_") as tmp:
+            h_launches = run_observe(Path(tmp), direct)
+        for name in FLASH_NAMES["flat"]:
+            if name in records:
+                records[name].setdefault("launches_by_path", {})[
+                    "observe llama3-8b heartbeats"] = h_launches[name]
+        log(f"card: {card}; observe phase done in "
             f"{time.perf_counter() - t0:.1f} s")
     if records:
         log(json.dumps({"kernels": list(records.values())}))

@@ -1,9 +1,10 @@
 """Structural OpenAPI v3 schema for the TPUJob CRD (the port's copy of
 ``mpi_operator_tpu/api/v2beta1/openapi.py``). The one change:
 ``spec.tpu.acceleratorType`` takes the GPU form, ``h100-<gpus>``
-(``api/topology.py``), and its description says so. The ClusterQueue
-quota's generation pattern belongs to the queue, which the port has not
-taken yet, and stays as it is.
+(``api/topology.py``), and its description says so; and a ClusterQueue
+quota's ``generation`` is a GPU generation of ``api/topology.py``
+(``h100``), its ``nominalQuota`` and ``borrowingLimit`` counted in GPUs
+(``nvidia.com/gpu``), the units the queue (``queue/``) charges.
 
 controller-gen analog: the reference generates its CRD schema from Go
 types (`make crd` → v2/crd/kubeflow.org_mpijobs.yaml, Makefile:148-150),
@@ -28,10 +29,15 @@ admission, matching the reference's full controller-gen schema
 
 from __future__ import annotations
 
+from .. import topology
 from . import types
 
 # DNS-1123 label (container/port/volume names).
 DNS1123 = r"^[a-z0-9]([-a-z0-9]*[a-z0-9])?$"
+# A ClusterQueue quota's generation: one that api/topology.py parses from
+# ``<generation>-<gpus>`` (the JAX package's pattern, ^v[0-9]+[a-z]*$,
+# names TPU generations and refused every GPU quota).
+GPU_GENERATION_PATTERN = "^(" + "|".join(sorted(topology.GENERATIONS)) + ")$"
 
 
 def _str(desc: str = "", **kw) -> dict:
@@ -1248,7 +1254,7 @@ def tpujob_schema() -> dict:
 
 
 def clusterqueue_schema() -> dict:
-    """openAPIV3Schema for the ClusterQueue CRD (Kueue analog, chip-only)."""
+    """openAPIV3Schema for the ClusterQueue CRD (Kueue analog, GPU-only)."""
     return {
         "type": "object",
         "properties": {
@@ -1272,15 +1278,18 @@ def clusterqueue_schema() -> dict:
                             "required": ["generation", "nominalQuota"],
                             "properties": {
                                 "generation": _str(
-                                    "TPU generation, e.g. v5e, v5p, v4.",
-                                    pattern=r"^v[0-9]+[a-z]*$",
+                                    "GPU generation, the <generation> of "
+                                    "an h100-<gpus> acceleratorType, "
+                                    "e.g. h100.",
+                                    pattern=GPU_GENERATION_PATTERN,
                                 ),
                                 "nominalQuota": _int(
-                                    "Chips this queue owns outright.",
+                                    "GPUs (nvidia.com/gpu) this queue "
+                                    "owns outright.",
                                     minimum=0,
                                 ),
                                 "borrowingLimit": _int(
-                                    "Max chips borrowable from the cohort "
+                                    "Max GPUs borrowable from the cohort "
                                     "on top of nominalQuota (unset = "
                                     "unbounded).",
                                     minimum=0,

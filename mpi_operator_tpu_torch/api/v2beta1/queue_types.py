@@ -1,13 +1,15 @@
 """ClusterQueue / LocalQueue API types (group ``kubeflow.org``, version
-``v2beta1``).
+``v2beta1``; the port's copy of ``mpi_operator_tpu/api/v2beta1/queue_types.py``,
+with quotas counted in GPUs).
 
 Kueue analog (sigs.k8s.io/kueue): the reference operator's production
 story gates MPIJobs behind Kueue, which admits suspended jobs against
 per-queue quotas.  This in-repo counterpart keeps the same two-level
-shape, collapsed to the one resource TPU fleets actually ration — chips:
+shape, collapsed to the one resource GPU fleets ration — GPUs
+(``nvidia.com/gpu``):
 
-- ``ClusterQueue`` (cluster-scoped) owns a nominal chip quota per TPU
-  generation, may join a *cohort* whose members lend each other unused
+- ``ClusterQueue`` (cluster-scoped) owns a nominal GPU quota per GPU
+  generation (``h100``), may join a *cohort* whose members lend each other unused
   quota (bounded by ``borrowingLimit``), and declares whether it reclaims
   lent quota by evicting borrowers (``preemption.reclaimWithinCohort``).
 - ``LocalQueue`` (namespaced) is the submission point: a TPUJob names a
@@ -40,10 +42,10 @@ RECLAIM_ANY = "Any"
 
 @dataclass
 class GenerationQuota:
-    """Chip quota of one ClusterQueue for one TPU generation.
+    """GPU quota of one ClusterQueue for one GPU generation.
 
-    ``nominal_quota`` is the chip count this queue owns outright;
-    ``borrowing_limit`` caps how many chips it may borrow on top from
+    ``nominal_quota`` is the GPU count this queue owns outright;
+    ``borrowing_limit`` caps how many GPUs it may borrow on top from
     cohort peers (None = unbounded, Kueue's default)."""
 
     generation: str = ""
@@ -120,7 +122,7 @@ class ClusterQueueStatus:
 
     pending_workloads: int = 0
     admitted_workloads: int = 0
-    # generation -> chips currently admitted against this queue.
+    # generation -> GPUs currently admitted against this queue.
     usage: dict[str, int] = field(default_factory=dict)
 
     def to_dict(self) -> dict:

@@ -11,16 +11,21 @@ LocalPodRunner kubelet sim (a self-contained "cluster in a process"):
 jobs are admitted, their one-GPU worker pods rendered, bound (by the
 runner, or with ``--enable-scheduler`` by the gang scheduler onto the
 ``--node-inventory`` of 8-GPU nodes) and run as local processes on the
-machine's GPUs. This process imports no torch; the workers do.
+machine's GPUs. With ``--enable-queue`` a job that names a LocalQueue
+starts suspended and is admitted against its ClusterQueue's GPU quota
+(``queue/``; ``--cluster-queue name:h100=<gpus>`` bootstraps one). This
+process imports no torch; the workers do.
 
-Two flags of the JAX package's operator refuse here, each naming the
-ROADMAP item that ports it: ``--backend kube`` (the real-cluster
-backend, item 19) and ``--enable-queue`` / ``--cluster-queue`` (the
-admission queue, item 20).
+One flag of the JAX package's operator refuses here, naming the ROADMAP
+item that ports it: ``--backend kube`` (the real-cluster backend, item
+19).
 
 Run:  python -m mpi_operator_tpu_torch.cmd.operator --help
       python -m mpi_operator_tpu_torch.cmd.operator --backend memory \
           --apply mpi_operator_tpu_torch/examples/pi.yaml --exit-on-completion
+      python -m mpi_operator_tpu_torch.cmd.operator --backend memory \
+          --enable-queue --cluster-queue gpus:h100=2 --enable-scheduler \
+          --apply job-a.yaml --apply job-b.yaml --exit-on-completion
 """
 
 from __future__ import annotations
@@ -78,11 +83,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "server. A gang whose generation matches no node "
                         "stays Unschedulable until the inventory does")
     p.add_argument("--enable-queue", action="store_true",
-                   help="the admission queue: not ported yet (ROADMAP "
-                        "item 20); refuses")
+                   help="run the in-process admission queue (memory backend "
+                        "only): TPUJobs naming a LocalQueue via "
+                        "runPolicy.schedulingPolicy.queue start suspended "
+                        "and are admitted against ClusterQueue GPU quotas "
+                        "(nvidia.com/gpu per generation, h100); off = "
+                        "suspend is user-driven (pre-queue behaviour)")
     p.add_argument("--cluster-queue", action="append", default=[],
-                   help="bootstrap ClusterQueue(s) for --enable-queue: not "
-                        "ported yet (ROADMAP item 20); refuses")
+                   help="bootstrap ClusterQueue(s), "
+                        "'name[@cohort]:h100=gpus' (e.g. "
+                        "'team-a@research:h100=16'); also creates a "
+                        "same-named LocalQueue in the watched namespace "
+                        "(or 'default'). Repeatable; existing queues are "
+                        "left untouched")
     p.add_argument("--log-level", default="info",
                    choices=["debug", "info", "warning", "error"],
                    help="structured-log severity threshold")
@@ -445,12 +458,8 @@ def run(argv=None) -> int:
             file=sys.stderr,
         )
         return 1
-    if args.enable_queue or args.cluster_queue:
-        print(
-            "--enable-queue / --cluster-queue are not ported to the GPU "
-            "operator yet (ROADMAP item 20, queue/)",
-            file=sys.stderr,
-        )
+    if args.cluster_queue and not args.enable_queue:
+        print("--cluster-queue requires --enable-queue", file=sys.stderr)
         return 1
 
     api, runner = build_backend(args)
@@ -491,6 +500,20 @@ def run(argv=None) -> int:
         # an external gang scheduler explicitly.
         if not args.gang_scheduling:
             args.gang_scheduling = DEFAULT_SCHEDULER_NAME
+    queue_manager = None
+    if args.enable_queue:
+        from ..queue import QueueManager, bootstrap_queues
+
+        try:
+            bootstrap_queues(api, args.cluster_queue, args.namespace)
+        except ValueError as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 1
+        for spec in args.cluster_queue:
+            print(f"queue: bootstrapped ClusterQueue {spec.split(':')[0]!r}")
+        queue_manager = QueueManager(
+            api, registry=registry, flight_recorder=recorder
+        )
     controller = TPUJobController(
         api,
         namespace=args.namespace,
@@ -555,6 +578,15 @@ def run(argv=None) -> int:
         controller.run(threadiness=args.threadiness, stop=lost)
 
     threads = []
+    if queue_manager is not None:
+        # Like the in-process scheduler, admission is not leadership-gated:
+        # the memory backend is single-process, so there is exactly one
+        # suspend writer either way.
+        threads.append(
+            threading.Thread(
+                target=lambda: queue_manager.run(1, stop), daemon=True
+            )
+        )
     elector = None
     if args.leader_elect:
         elector = LeaderElector(
@@ -580,6 +612,8 @@ def run(argv=None) -> int:
     if args.monitoring_port:
         health = elector.healthy if elector is not None else (lambda: True)
         queues = [controller.queue]
+        if queue_manager is not None:
+            queues.append(queue_manager.queue)
         start_monitoring(
             args.monitoring_port, registry, health,
             address=args.monitoring_address, flight_recorder=recorder,

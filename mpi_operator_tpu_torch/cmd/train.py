@@ -35,7 +35,10 @@ resume from ``--checkpoint-dir``
 -> step loop with warmup boundary, log cadence, a checkpoint save after
 every step (the manager's interval decides), SIGTERM stop (agreed by
 every process each step, so the gang stops at one step), step-slowdown
-chaos and telemetry -> the preempted-or-final save drained inside the
+chaos, telemetry (with ``--heartbeat-every``: windowed step heartbeats
+and one device-memory sample a window, which the pod runner patches onto
+the pod), the optional ``--profile-dir`` trace and the ``TPU_JAX_TRACE``
+build/sync report -> the preempted-or-final save drained inside the
 grace budget -> one JSON summary line on stdout from every process, with
 the JAX trainer's keys: ``loss`` is the global batch's, ``devices`` the
 world size.
@@ -80,7 +83,7 @@ import threading
 import time
 from typing import Callable, Optional
 
-from ..utils import trace
+from ..utils import torchtrace, trace
 from ..utils.logging import get_logger
 
 log = get_logger("train")
@@ -139,7 +142,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-dir", default="")
     p.add_argument("--save-every", type=int, default=100)
     p.add_argument("--async-checkpoint", action="store_true")
-    p.add_argument("--profile-dir", default="")
+    p.add_argument("--profile-dir", default="",
+                   help="write a torch.profiler trace (CPU and CUDA "
+                        "activity, Chrome JSON) of the timed steps 11-13 "
+                        "here, one file per process")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data", default="")
     p.add_argument("--prefetch-depth", type=int, default=2)
@@ -176,7 +182,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "0 disables the periodic records")
     p.add_argument("--telemetry-path", default="",
                    help="append the telemetry JSONL here instead of stderr")
-    p.add_argument("--heartbeat-every", type=int, default=0)
+    p.add_argument("--heartbeat-every", type=int, default=0,
+                   help="emit a step_heartbeat JSONL record (per-window "
+                        "step-wall p50/max, wait share) plus a "
+                        "device_memory watermark sample every N "
+                        "post-warmup steps (0 disables); the pod runner "
+                        "patches both onto the pod for the operator's "
+                        "step-skew and memory matrices")
     return p
 
 
@@ -186,11 +198,6 @@ def refuse_unported(args) -> None:
     def refuse(what: str, item: str):
         raise SystemExit(f"{what} is not ported yet (ROADMAP.md {item})")
 
-    if args.heartbeat_every > 0:
-        refuse("--heartbeat-every (step heartbeats, device-memory samples)",
-               "queue (a) item 10")
-    if args.profile_dir:
-        refuse("--profile-dir (device profiler traces)", "queue (a) item 10")
     if args.remat_policy == "dots":
         refuse("--remat-policy dots", "queue (a) item 4")
 
@@ -670,6 +677,48 @@ def _global_mean(x):
     return x / dist.get_world_size()
 
 
+def held_tensors(work: Workload) -> list:
+    """The tensors the trainer holds: parameters, their gradients, the
+    model's buffers and the optimizer's state (the CPU device-memory
+    sample sums their bytes)."""
+    import torch
+
+    out = []
+    for p in work.model.parameters():
+        out.append(p)
+        if p.grad is not None:
+            out.append(p.grad)
+    out.extend(work.model.buffers())
+    for state in work.optimizer.state.values():
+        out.extend(v for v in state.values() if torch.is_tensor(v))
+    return out
+
+
+def _start_profiler(device):
+    """A running ``torch.profiler`` over the CPU and, on the card, CUDA
+    activity (the JAX trainer's ``jax.profiler.start_trace``)."""
+    from torch import profiler
+
+    activities = [profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(profiler.ProfilerActivity.CUDA)
+    prof = profiler.profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, device, directory: str, process_id: int) -> str:
+    """Stop ``prof`` after the traced steps landed and write its trace as
+    Chrome JSON into ``directory``; returns the file."""
+    _sync(device)
+    prof.stop()
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"trace_process{process_id}.json")
+    prof.export_chrome_trace(path)
+    log.info("profiler trace written to %s", path)
+    return path
+
+
 def _grace_seconds() -> float:
     """The final save's budget: ``TPUJOB_CHECKPOINT_GRACE_S``, else the
     default under kube's 30 s termination grace."""
@@ -772,12 +821,27 @@ def main(argv=None) -> int:
     control = bootstrap.control_group()
     agree = (lambda flag: any_process(flag, control)) if control else bool
 
+    # Device-memory observatory input: with heartbeats on, each closed
+    # window also emits one watermark sample of this process's device
+    # (device_memory JSONL -> pod annotation -> the operator's memory
+    # matrix). The sampler reads the chaos leak increment
+    # (TPU_MEM_LEAK_BYTES) from its env on its own.
+    devstats_sampler = None
+    if args.heartbeat_every > 0:
+        from ..utils import devstats as devstats_lib
+
+        devstats_sampler = devstats_lib.DeviceMemorySampler(
+            device=device, live_tensors=functools.partial(held_tensors, work),
+        ).sample
+
     telem = telemetry_lib.TrainingTelemetry(
         tokens_per_step=work.tokens_per_step,
         examples_per_step=work.examples_per_step,
         registry=metrics_lib.Registry(),
         interval=max(args.telemetry_every, 0),
         jsonl_path=args.telemetry_path,
+        heartbeat_interval=max(args.heartbeat_every, 0),
+        devstats_sampler=devstats_sampler,
     )
 
     # Chaos SlowWorker fault: stretch every step's wall clock by the
@@ -803,6 +867,7 @@ def main(argv=None) -> int:
         batches = iter(prefetcher)
 
     t0 = t_log = None
+    profiler = None
     first_loss: Optional[object] = None
     step = last_log_step = start_step
     telem.start()
@@ -810,8 +875,11 @@ def main(argv=None) -> int:
     while step < end:
         if step == timed_from:
             _sync(device)
+            torchtrace.note_warmup_complete()
             t0 = t_log = time.perf_counter()
             last_log_step = step
+        if args.profile_dir and step == timed_from + 10:
+            profiler = _start_profiler(device)
         if batches is not None:
             # Host batch -> device on this thread's stream, ordered before
             # the step's kernels (pinned: the copy is asynchronous).
@@ -823,13 +891,17 @@ def main(argv=None) -> int:
         if first_loss is None:
             first_loss = loss.detach().clone()
         step += 1
+        torchtrace.note_step()
         if step_slowdown > 1.0:
             # Pad BEFORE timing so the stretched wall time lands in this
-            # step's telemetry.
+            # step's telemetry (and its heartbeat window).
             time.sleep((step_slowdown - 1.0) * (time.perf_counter() - t_prev))
         now = time.perf_counter()
         telem.record_step(step, now - t_prev, warmup=step <= timed_from)
         t_prev = now
+        if profiler is not None and step == timed_from + 13:
+            _stop_profiler(profiler, device, args.profile_dir, cfg.process_id)
+            profiler = None
         if args.log_every and step % args.log_every == 0:
             # The log cadence is the explicit sync point: .item() waits
             # for the step, so the ms/step below measures completed work.
@@ -853,6 +925,8 @@ def main(argv=None) -> int:
     if prefetcher is not None:
         prefetcher.close()
     _sync(device)
+    if profiler is not None:  # the run ended inside the trace window
+        _stop_profiler(profiler, device, args.profile_dir, cfg.process_id)
     timed_steps = max(step - timed_from, 0)
     elapsed = (time.perf_counter() - t0) if t0 is not None else 0.0
     # The global batch's losses, one collective for both.
@@ -895,6 +969,8 @@ def main(argv=None) -> int:
         summary["tokens_per_sec"] = round(
             work.tokens_per_step * timed_steps / elapsed, 1
         )
+    if torchtrace.enabled():
+        summary["jax_trace"] = torchtrace.tracer().report()
     print(json.dumps(summary))
     return 0
 

@@ -115,6 +115,7 @@ def build(names=None) -> dict[str, float]:
             errors.append(f"{name}: nvcc exited {proc.returncode}\n{text}")
         else:
             os.replace(tmp, out)
+            _report("build", name, seconds[name])
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
     return seconds
@@ -129,6 +130,17 @@ def build_log(name: str) -> str:
 
 _entry_points: dict = {}
 _lock = threading.Lock()
+# Called as ``load_hook(kind, name, seconds)`` for each library built
+# ("build") or loaded ("load") in this process; None unless a tracer
+# (utils/torchtrace.py) armed it. Never reached on the launch path once a
+# kernel is loaded.
+load_hook = None
+
+
+def _report(kind: str, name: str, seconds: float) -> None:
+    hook = load_hook
+    if hook is not None:
+        hook(kind, name, seconds)
 
 
 def kernel(name: str):
@@ -140,11 +152,19 @@ def kernel(name: str):
             path = library_path(name)
             if not path.exists():
                 build([name])
+            t0 = time.perf_counter()
             fn = getattr(ctypes.CDLL(str(path)), name)
             fn.argtypes = KERNELS[name][1]
             fn.restype = ctypes.c_int
             _entry_points[name] = fn
+            _report("load", name, time.perf_counter() - t0)
     return fn
+
+
+def loaded_kernels() -> list:
+    """Names of the kernels :func:`kernel` has loaded in this process."""
+    with _lock:
+        return sorted(_entry_points)
 
 
 def check(name: str, rc: int) -> None:

@@ -502,6 +502,17 @@ class LocalPodRunner:
             self._leak, namespace, name, int(bytes_per_window)
         )
 
+    def heal_worker(self, namespace: str, name: str) -> bool:
+        """Chaos hook: the pod's host is repaired — drop its slowdown and
+        leak registrations so its next (re)start runs clean (the running
+        process keeps its fault, as with slow_worker).  Returns False
+        when the pod carried neither."""
+        key = (namespace, name)
+        with self._lock:
+            slow = self._slow.pop(key, None)
+            leak = self._leak.pop(key, None)
+        return slow is not None or leak is not None
+
     def tear_write(self, namespace: str, name: str) -> bool:
         """Chaos hook: arm a one-shot torn checkpoint commit for the
         pod's *next* (re)start — the writer persists the step data but

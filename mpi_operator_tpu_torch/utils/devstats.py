@@ -1,12 +1,27 @@
-"""Fleet device-memory observatory: the per-job MemoryMatrix (the port's
-copy of ``mpi_operator_tpu/utils/devstats.py``, operator side only).
+"""Fleet device-memory observatory: the worker's sampler and the per-job
+MemoryMatrix (the port's copy of ``mpi_operator_tpu/utils/devstats.py``).
 
-The port takes the controller half: ``MemoryMatrix`` and the
-deterministic ``FakeMemoryBackend``. The JAX package's worker-side
-``DeviceMemorySampler`` reads ``jax.local_devices()`` and jax's compile
-cache; its ``torch.cuda.memory_stats`` counterpart is ROADMAP item 10,
-so until then the port's workers emit no ``device_memory`` records and
-the matrix stays empty. The JAX package's own description follows.
+The operator side (``MemoryMatrix``) and ``FakeMemoryBackend`` are the
+JAX package's. The worker side, ``DeviceMemorySampler``, reads the GPU
+where the JAX version reads ``jax.local_devices()``: the device is named
+by the trainer, and on a CUDA device the record maps as
+
+- ``hbm_bytes_in_use``  <- ``torch.cuda.memory_stats(device)["allocated_bytes.all.current"]``
+- ``hbm_peak_bytes``    <- ``["allocated_bytes.all.peak"]`` (and the
+  sampler's own running peak, as the JAX version keeps it)
+- ``hbm_limit_bytes``   <- ``torch.cuda.mem_get_info(device)[1]``, the
+  card's total memory
+- ``compile_cache_entries`` <- the kernels ``ops/_build.py:kernel`` has
+  loaded in this process.
+
+The caching allocator's reserved bytes have no key in the reference's
+record, so the port adds none. On the CPU (tests), as JAX's CPU
+fallback sums ``jax.live_arrays()``, the sampler sums the bytes of the
+tensors the trainer holds (parameters, gradients, optimizer state) with
+limit 0, so the matrix reports the watermark but never projects from
+it. ``torch`` is imported inside the sampler only: the matrix and
+everything above it import none. The JAX package's own description
+follows.
 
 The time-attribution stack (profiler, goodput ledger, step-skew matrix)
 is blind to *device memory*: an HBM OOM kills a gang with zero forensics
@@ -109,6 +124,131 @@ class FakeMemoryBackend:
             "bytes_in_use": in_use,
             "peak_bytes_in_use": in_use,
             "bytes_limit": self.limit_bytes,
+        }
+
+
+def _leak_bytes_from_env() -> int:
+    """The chaos MemoryLeak fault's worker-side half: the injected
+    per-window increment (runtime/podrunner.py child env)."""
+    import os
+
+    from ..api.v2beta1 import constants
+
+    raw = os.environ.get(constants.ENV_MEM_LEAK_BYTES, "")
+    if not raw:
+        return 0
+    try:
+        return max(int(raw), 0)
+    except ValueError:
+        return 0
+
+
+def _compile_cache_entries() -> int:
+    """Kernels loaded in this process by ``ops/_build.py:kernel``, the
+    port's counterpart of the JAX version's jit-cache size. 0 in a
+    process that has imported no kernel module."""
+    import sys
+
+    build = sys.modules.get(__package__.rsplit(".", 1)[0] + ".ops._build")
+    return len(build.loaded_kernels()) if build is not None else 0
+
+
+def tensor_bytes(tensors) -> int:
+    """Bytes of the local storage of ``tensors`` (a DTensor counts its
+    local shard), each storage once."""
+    seen, total = set(), 0
+    for t in tensors:
+        if t is None:
+            continue
+        local = t.to_local() if hasattr(t, "to_local") else t
+        key = (local.untyped_storage().data_ptr(), local.device)
+        if key in seen:
+            continue
+        seen.add(key)
+        total += local.untyped_storage().nbytes()
+    return total
+
+
+class DeviceMemorySampler:
+    """Per-window device-memory watermark sampler for the training worker.
+
+    Resolution order per sample: an explicitly injected backend
+    (tests/bench), else the named device: on CUDA its allocator's
+    statistics and the card's total memory (the module docstring's
+    mapping); on the CPU the byte sum of ``live_tensors()`` (limit 0).
+    A CUDA device never falls back to the CPU sum: a failing read there
+    raises, and the telemetry that calls the sampler emits no record for
+    the window. The chaos leak increment (``TPU_MEM_LEAK_BYTES``)
+    inflates the *reported* bytes-in-use by ``leak x (window + 1)``, as
+    the JAX version does.
+    """
+
+    def __init__(
+        self,
+        *,
+        device="cpu",
+        live_tensors: Optional[Callable[[], object]] = None,
+        backend: Optional[FakeMemoryBackend] = None,
+        leak_bytes_per_window: Optional[int] = None,
+        compile_cache_fn: Callable[[], int] = _compile_cache_entries,
+    ):
+        self._device = device
+        self._live_tensors = live_tensors
+        self._backend = backend
+        self._leak = (
+            _leak_bytes_from_env()
+            if leak_bytes_per_window is None
+            else max(int(leak_bytes_per_window), 0)
+        )
+        self._compile_cache_fn = compile_cache_fn
+        self._peak = 0
+
+    @property
+    def leak_bytes_per_window(self) -> int:
+        return self._leak
+
+    def _device_stats(self) -> dict:
+        import torch
+
+        device = torch.device(self._device)
+        if device.type == "cuda":
+            stats = torch.cuda.memory_stats(device)
+            return {
+                "bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
+                "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
+                "bytes_limit": int(torch.cuda.mem_get_info(device)[1]),
+            }
+        if device.type != "cpu":
+            raise ValueError(f"no memory statistics for device {device}")
+        live = (tensor_bytes(self._live_tensors())
+                if self._live_tensors is not None else 0)
+        return {"bytes_in_use": live, "peak_bytes_in_use": live,
+                "bytes_limit": 0}
+
+    def sample(self, window: int) -> dict:
+        """One ``device_memory`` record for a closed telemetry window."""
+        window = int(window)
+        if self._backend is not None:
+            stats = self._backend.stats(window)
+        else:
+            stats = self._device_stats()
+        in_use = int(stats.get("bytes_in_use", 0) or 0)
+        peak = int(stats.get("peak_bytes_in_use", 0) or 0)
+        limit = int(stats.get("bytes_limit", 0) or 0)
+        if self._leak:
+            in_use += self._leak * (window + 1)
+        self._peak = max(self._peak, peak, in_use)
+        try:
+            cache_entries = int(self._compile_cache_fn())
+        except Exception:
+            cache_entries = 0
+        return {
+            "event": "device_memory",
+            "window": window,
+            "hbm_bytes_in_use": in_use,
+            "hbm_peak_bytes": self._peak,
+            "hbm_limit_bytes": limit,
+            "compile_cache_entries": cache_entries,
         }
 
 

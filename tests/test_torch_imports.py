@@ -52,6 +52,10 @@ CONTROL_PLANE = (
     "mpi_operator_tpu_torch.scheduler.core",
     "mpi_operator_tpu_torch.runtime.podrunner",
     "mpi_operator_tpu_torch.cmd.operator",
+    "mpi_operator_tpu_torch.queue.manager",
+    "mpi_operator_tpu_torch.chaos.engine",
+    "mpi_operator_tpu_torch.chaos.podchaos",
+    "mpi_operator_tpu_torch.utils.devstats",
 )
 
 

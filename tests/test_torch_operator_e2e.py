@@ -179,8 +179,6 @@ def test_cmd_operator_applies_pi_and_exits_zero(tmp_path, flags):
 @pytest.mark.e2e
 @pytest.mark.parametrize("flags,item", [
     (["--backend", "kube"], "ROADMAP item 19"),
-    (["--enable-queue"], "ROADMAP item 20"),
-    (["--cluster-queue", "q:h100=8"], "ROADMAP item 20"),
 ])
 def test_unported_flags_refuse_naming_their_items(flags, item):
     out = _operator(*flags, "--exit-on-completion")

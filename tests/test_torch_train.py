@@ -66,8 +66,6 @@ REFUSED = {
     "moe": (["--model", "mixtral-8x7b", "--mesh", "tp=2"], "item 13"),
     "moe-tiny": (["--model", "llama-moe-tiny", "--mesh", "fsdp=2"],
                  "item 13"),
-    "heartbeat": (["--heartbeat-every", "2"], "item 10"),
-    "profile": (["--profile-dir", "/nonexistent"], "item 10"),
     "mesh": (["--mesh", "sp=2"], "item 15"),
     "mesh-pp": (["--mesh", "dp=1,pp=2"], "item 16"),
     "mesh-ep": (["--model", "llama-moe-tiny", "--mesh", "ep=2,tp=2"],
