@@ -22,7 +22,15 @@ Phases, in order:
      non-causal; timed at both), and in f32 and bf16 a padded GQA shape
      (S=200), a masked-row shape (Sq > Sk, causal) and, for the
      [B*H, S, D] kernels, an id-masked shape with rows that see nothing
-     (their out, lse and dq must be exactly 0, -1e30 and 0); bf16 also at
+     (their out, lse and dq must be exactly 0, -1e30 and 0), in both
+     layouts; the flat kernels with the ids of the sp phase's ring hops
+     (q [1, 4096, 32*128], kv [1, 4096, 8*128], bf16: the zigzag ring's
+     four (rank, hop) pairs on sp=2 over S=8192, and the contiguous
+     ring's hop in which no row sees any column), three of them timed
+     beside the same kernel without ids (every tile visited either way)
+     and beside SDPA under the ids' mask; the lse cotangent's backward
+     (``flash_attention_bshd_lse`` at a zigzag hop) against the plain
+     versions with delta less the cotangent; bf16 also at
      head dims 80 and 32, which run on the tensor-core bodies' next
      instantiated width (128, 64); the flat kernels also at ViT-B/16's
      shape (B=64, S=197, H=12, D=64, ragged tiles), seq2seq's cross
@@ -106,7 +114,19 @@ Phases, in order:
    ``--mesh ep=2`` (3 steps, each rank holding 4 of the 8 experts) against
    the one-process run. Its step times measure gloo staging every
    collective through the host, not the port on a multi-GPU node;
-8. ``operator``: the port's job path, from create to a terminal
+8. ``sp``: sequence parallelism on the one card. First which gloo ops
+   take CUDA tensors (send/recv, all_to_all_single, all_reduce,
+   all_gather, broadcast, each in a pair of processes of its own); then
+   llama3-8b at full width, 2 layers, B=1, S=8192, 3 AdamW steps,
+   through ``cmd.train.main`` on two processes over gloo (the world
+   phase's gang: ``--world-child``) with ``--mesh sp=2`` as the zigzag
+   ring, the contiguous ring and Ulysses, each loss curve held against
+   the one-process run of the same call (rtol 2e-3) and each rank's
+   flash launches against the hop count (ring: forward 24, dq and dk/dv
+   12; Ulysses: the one-process 12/6/6), with each rank's step_ms, peak
+   memory and transport bytes beside the one-process run's; gloo
+   through the host on one card, not a multi-GPU node;
+9. ``operator``: the port's job path, from create to a terminal
    condition, through its own control plane in this process
    (``InMemoryAPIServer``, ``TPUJobController``, ``LocalPodRunner``
    auto-binding, told the card count), every worker pod a process on the
@@ -123,7 +143,7 @@ Phases, in order:
    ``python -m mpi_operator_tpu_torch.cmd.operator --backend memory
    --apply mpi_operator_tpu_torch/examples/pi.yaml --exit-on-completion``
    as a process (exit 0, its wall time);
-9. ``observe``: the operator under faults, in this process's control
+10. ``observe``: the operator under faults, in this process's control
    plane with the step-skew and memory matrices and a monitoring
    server: llama3-8b / 2 layers on ``h100-1`` as a pod with
    ``--heartbeat-every 2`` and ``TPU_JAX_TRACE=1`` (its heartbeat and
@@ -145,9 +165,9 @@ Phases, in order:
    this process with ``--profile-dir`` (the trace must name the three
    flash kernels) and ``torch.cuda``'s sync debug mode, whose syncs the
    tracer must count;
-10. ``profile`` (opt-in, ``--phases profile``): where one training step's
+11. ``profile`` (opt-in, ``--phases profile``): where one training step's
    time goes, for each arm (device kernel time by kind, idle share);
-11. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
+12. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
    step, as a same-call A/B: the Llama and the BERT-base train runs
    synthetic and on a token file in turns (S D D S, four times), 10 steps
    each, with every run's step_ms and each side's median.
@@ -345,7 +365,10 @@ def norm_rel(got, want) -> float:
 
 
 def max_abs(got, want) -> float:
-    return float((got.double() - want.double()).abs().max())
+    """0 for empty operands (a hop whose every row sees nothing has no
+    live lse to compare)."""
+    diff = (got.double() - want.double()).abs()
+    return float(diff.max()) if diff.numel() else 0.0
 
 
 def bound(kind: str, shape: dict, dtype_name: str, pairs: int):
@@ -386,9 +409,11 @@ FLASH_SHAPES = [
     ("masked-rows", dict(b=1, sq=130, sk=70, h=4, hkv=2, d=128, dtype="f32",
                          causal=True), ("flat", "bhsd")),
     # Ids from two chunks each (as a zigzag ring hop holds them); q rows
-    # 16..39 see no column.
+    # 16..39 see no column. Ragged tiles (96 and 80 rows): the f32
+    # padded shape with ids.
     ("id-masked", dict(b=2, sq=96, sk=80, h=4, hkv=2, d=64, dtype="f32",
-                       causal=False, ids=True), ("bhsd",)),
+                       causal=False, ids="chunks", dead="some"),
+     ("flat", "bhsd")),
     # The same edges on the bf16 tensor-core bodies: ragged tiles, rows
     # that see nothing (out = 0, lse = -1e30 exactly), ids.
     ("padded-gqa-bf16", dict(b=2, sq=200, sk=200, h=8, hkv=2, d=64,
@@ -396,8 +421,9 @@ FLASH_SHAPES = [
     ("masked-rows-bf16", dict(b=1, sq=130, sk=70, h=4, hkv=2, d=128,
                               dtype="bf16", causal=True), ("flat", "bhsd")),
     ("id-masked-bf16", dict(b=2, sq=96, sk=80, h=4, hkv=2, d=64,
-                            dtype="bf16", causal=False, ids=True),
-     ("bhsd",)),
+                            dtype="bf16", causal=False, ids="chunks",
+                            dead="some"),
+     ("flat", "bhsd")),
     # Head dims the bf16 bodies are not instantiated at: they run on the
     # next width up (128, 64) with the columns past D zero-filled.
     ("d80-bf16", dict(b=2, sq=150, sk=150, h=4, hkv=2, d=80, dtype="bf16",
@@ -416,8 +442,27 @@ FLASH_SHAPES = [
     ("s2s-dec", dict(b=16, sq=256, sk=256, h=8, hkv=8, d=64, dtype="bf16",
                      causal=True), ("flat",)),
 ]
-# The shapes timed (kernel, plain version, SDPA) besides being checked.
-TIMED_SHAPES = ("llama", "bert", "vit", "s2s-cross")
+# The ring's hops in the sp phase's llama3-8b run (S=8192 on sp=2: q
+# [1, 4096, 32*128], kv [1, 4096, 8*128], bf16), each with its (layout,
+# rank, the k/v shard's rank) ids: the zigzag ring's four (rank, hop)
+# pairs (rank 0 holds chunks 0 and 3 of 4, rank 1 chunks 1 and 2: only
+# rank 0's chunk 0 on rank 1's shard sees nothing), and the contiguous
+# ring's rank 0 on rank 1's shard, where no row sees any column (out 0,
+# lse -1e30 and dq 0 exactly).
+SP_HOP = dict(b=1, sq=4096, sk=4096, h=32, hkv=8, d=128, dtype="bf16",
+              causal=False)
+SP_HOP_SEQ, SP_HOP_RANKS = 8192, 2
+FLASH_SHAPES += [
+    (f"sp-zigzag-r{rank}-s{src}",
+     dict(SP_HOP, ids=("zigzag", rank, src),
+          dead="some" if (rank, src) == (0, 1) else None), ("flat",))
+    for rank in range(SP_HOP_RANKS) for src in range(SP_HOP_RANKS)
+] + [("sp-contig-dead", dict(SP_HOP, ids=("contiguous", 0, 1), dead="all"),
+      ("flat",))]
+# The shapes timed (kernel, plain version, SDPA) besides being checked;
+# a shape with ids is also timed without them (every tile visited).
+TIMED_SHAPES = ("llama", "bert", "vit", "s2s-cross", "sp-zigzag-r0-s0",
+                "sp-zigzag-r0-s1", "sp-contig-dead")
 FLASH_NAMES = {
     "flat": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
     "bhsd": ("flash_bhsd_fwd", "flash_bhsd_bwd_dq", "flash_bhsd_bwd_dkv"),
@@ -428,12 +473,25 @@ FLASH_NAMES = {
 FLASH_RECORD_SHAPE = {"flat": "llama", "bhsd": "bert"}
 
 
-def _id_chunks():
+def _shape_ids(spec):
+    """(row_ids, col_ids) on the card for a FLASH_SHAPES ``ids`` entry:
+    "chunks" (two chunks each, q rows 16..39 seeing no column), or a
+    ring hop (layout, rank, the k/v shard's rank) of SP_HOP_RANKS ranks
+    over SP_HOP_SEQ positions; (None, None) without."""
     import torch
 
-    row = torch.cat([torch.arange(16, 64), torch.arange(160, 208)])
-    col = torch.cat([torch.arange(40, 80), torch.arange(120, 160)])
-    return row.to("cuda", torch.int32), col.to("cuda", torch.int32)
+    from mpi_operator_tpu_torch.ops import ring_attention as ring
+
+    if spec is None:
+        return None, None
+    if spec == "chunks":
+        row = torch.cat([torch.arange(16, 64), torch.arange(160, 208)])
+        col = torch.cat([torch.arange(40, 80), torch.arange(120, 160)])
+        return row.to("cuda", torch.int32), col.to("cuda", torch.int32)
+    layout, rank, src = spec
+    s_loc, zigzag = SP_HOP_SEQ // SP_HOP_RANKS, layout == "zigzag"
+    return tuple(ring._shard_ids(i, SP_HOP_RANKS, s_loc, zigzag, "cuda")
+                 for i in (rank, src))
 
 
 def _flash_calls(attn, layout: str, h: int, scale: float, causal: bool,
@@ -441,7 +499,7 @@ def _flash_calls(attn, layout: str, h: int, scale: float, causal: bool,
     """((fwd, dq, dkv) kernel wrappers, their plain versions), each taking
     (q, k, v) or (q, k, v, do, lse, delta) in ``layout``."""
     if layout == "flat":
-        tail = (h, scale, causal)
+        tail = (h, scale, causal, *ids)
         return ((lambda *a: attn.flash_fwd(*a, *tail),
                  lambda *a: attn.flash_bwd_dq(*a, *tail),
                  lambda *a: attn.flash_bwd_dkv(*a, *tail)),
@@ -571,7 +629,7 @@ def check_kernels() -> dict:
         dtype = torch.bfloat16 if s["dtype"] == "bf16" else torch.float32
         b, sq, sk, h, hkv, d = (s[k] for k in ("b", "sq", "sk", "h", "hkv", "d"))
         causal, scale = s["causal"], d ** -0.5
-        ids = _id_chunks() if s.get("ids") else (None, None)
+        ids = _shape_ids(s.get("ids"))
 
         def rand(*shape):
             return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
@@ -581,7 +639,10 @@ def check_kernels() -> dict:
                            ((h, sq), (hkv, sk), (hkv, sk), (h, sq)))
         lib_ms = None
         if label in TIMED_SHAPES:
-            lib_ms = _sdpa_ms(q4, k4, v4, do4, causal)
+            # SDPA on the same function: the ids' mask when there are ids.
+            mask = (None if ids[0] is None else
+                    ids[1][None, :] <= ids[0][:, None])
+            lib_ms = _sdpa_ms(q4, k4, v4, do4, causal, mask)
         for layout in layouts:
             if layout == "flat":
                 ops = [t.transpose(1, 2).reshape(b, t.shape[2], -1).contiguous()
@@ -607,8 +668,10 @@ def check_kernels() -> dict:
                 torch.all(lse[~live] == attn.NEG_INF)
                 and torch.all(out.reshape(*lse.shape, d)[~live] == 0)
                 and torch.all(dq.reshape(*lse.shape, d)[~live] == 0))
-            if s.get("ids") and bool(live.all()):
-                raise AssertionError("the id-masked shape has no masked row")
+            if (s.get("dead") == "some" and bool(live.all())) or (
+                    s.get("dead") == "all" and bool(live.any())):
+                raise AssertionError(f"{label}: want {s['dead']} rows to "
+                                     f"see nothing")
             errs = [
                 (max(max_abs(out, out_p), max_abs(lse[live], lse_p[live])),
                  norm_rel(out, out_p), max_abs(lse[live], lse_p[live])),
@@ -630,7 +693,11 @@ def check_kernels() -> dict:
                                          f"version at {label}")
             if lib_ms is None:
                 continue
-            pairs = int(attn._visible(sq, sk, causal, "cuda").sum())
+            # The work these inputs need: their visible pairs.
+            pairs = int(attn._mask(qx, kx, causal, *ids).sum())
+            noid = (_flash_calls(attn, layout, h, scale, causal,
+                                 (None, None))[0]
+                    if ids[0] is not None else None)
             for i, (name, kind) in enumerate(zip(FLASH_NAMES[layout],
                                                  ("fwd", "dq", "dkv"))):
                 args = (qx, kx, vx) if i == 0 else bwd_args
@@ -642,10 +709,14 @@ def check_kernels() -> dict:
                     "library_ms": lib_ms["fwd" if kind == "fwd" else "bwd"],
                     "max_abs_err": errs[i][0], "norm_rel_err": errs[i][1],
                 }
+                if noid is not None:
+                    # The same kernel without ids (no mask) at this shape.
+                    rec["noid_ms"] = time_ms(lambda: noid[i](*args), 2, 10)
                 timed[name, label] = rec
                 log(f"kernel {name} [{label}] timing: " + json.dumps(
                     {k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")}))
+                                         "bound_by", "library_ms", "noid_ms")
+                     if k in rec}))
             # The backward pair as the autograd backward runs it, against
             # SDPA's whole backward (dq, dk and dv in one call).
             pair_ms = time_ms(lambda: (kernels[1](*bwd_args),
@@ -704,25 +775,73 @@ def _kernel_record(kernel: str, replaces: str, rec: dict, shape: str,
             "replaces": replaces, "launches": 0, "shape": shape, **rec}
 
 
-def _sdpa_ms(q, k, v, do, causal: bool) -> dict:
+def _sdpa_ms(q, k, v, do, causal: bool, mask=None) -> dict:
     """Library yardstick, timed here only: SDPA's forward, and its whole
     backward (dq, dk and dv in one call, the yardstick for both backward
-    kernels), on the same values in [B, H, S, D]."""
+    kernels), on the same values in [B, H, S, D]; with ``mask`` (bool
+    [Sq, Sk], a ring hop's ids) under that mask."""
     import torch
     import torch.nn.functional as F
 
     gqa = q.shape[1] != k.shape[1]
+    kw = dict(is_causal=causal, enable_gqa=gqa, attn_mask=mask)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
-                                         enable_gqa=gqa)
+    out = F.scaled_dot_product_attention(qg, kg, vg, **kw)
     ms = {
         "fwd": time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=gqa), 2, 10),
+            q, k, v, **kw), 2, 10),
         "bwd": time_ms(lambda: torch.autograd.grad(
             out, (qg, kg, vg), do, retain_graph=True), 2, 10),
     }
     del out
     return ms
+
+
+def check_lse_cotangent() -> None:
+    """``flash_attention_bshd_lse`` at a zigzag hop of the sp phase (rank
+    1 on rank 0's shard, SP_HOP, bf16) with a nonzero lse cotangent: its
+    gradients through the kernels against the plain versions given
+    ``delta = rowsum(do * o) - dlse``, and farther from the gradients
+    without the cotangent than the tolerance (the path is exercised)."""
+    import torch
+
+    from mpi_operator_tpu_torch.ops import attention as attn
+
+    s = SP_HOP
+    b, n, h, hkv, d = s["b"], s["sq"], s["h"], s["hkv"], s["d"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    q, do = rand(b, n, h, d), rand(b, n, h, d)
+    k, v = rand(b, n, hkv, d), rand(b, n, hkv, d)
+    dlse = rand(b, n, h, dtype=torch.float32)
+    row, col = _shape_ids(("zigzag", 1, 0))
+    grads = []
+    for cotangent in (dlse, torch.zeros_like(dlse)):
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        out, lse = attn.flash_attention_bshd_lse(qg, kg, vg, row_ids=row,
+                                                 col_ids=col)
+        torch.autograd.backward((out, lse), (do, cotangent))
+        grads.append((qg.grad, kg.grad, vg.grad))
+    flat = [t.reshape(b, n, -1) for t in (q, k, v, do)]
+    delta = attn.flat_delta(flat[3], out.detach().reshape(b, n, -1), h, dlse)
+    f32 = [t.float() for t in flat]
+    tail = (h, d ** -0.5, False, row, col)
+    lse = lse.detach()
+    want = (attn.flash_bwd_dq_plain(*f32, lse, delta, *tail),
+            *attn.flash_bwd_dkv_plain(*f32, lse, delta, *tail))
+    tol = NORM_REL_TOL["bf16"]
+    errs = [norm_rel(g.reshape(w.shape), w) for g, w in zip(grads[0], want)]
+    moved = norm_rel(grads[1][0], grads[0][0])
+    ok = max(errs) <= tol and moved > 10 * tol
+    log(f"kernel flat lse cotangent [sp-zigzag-r1-s0]: dq/dk/dv norm_rel_err "
+        f"{[f'{e:.3e}' for e in errs]} (tol {tol:.0e}); dq moved by the "
+        f"cotangent {moved:.3e} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the lse cotangent's backward disagrees with "
+                             "its plain version")
 
 
 def check_bn_kernels() -> dict:
@@ -2710,13 +2829,21 @@ def _world_job(job: dict) -> dict:
     from mpi_operator_tpu_torch.cmd import eval as eval_cmd
     from mpi_operator_tpu_torch.cmd import train
 
+    import torch.distributed as dist
+
+    from mpi_operator_tpu_torch.parallel import sharding
+
     entry = eval_cmd.main if job.get("cmd") == "eval" else train.main
     curve, buf, works = [], io.StringIO(), []
+    torch.cuda.reset_peak_memory_stats()
+    for route in sharding.SEQUENCE_BYTES:
+        sharding.SEQUENCE_BYTES[route] = 0
     _reset_all_launch_counts()
     with _recorded(train, curve, job.get("sigterm_after", 0)), \
             _kept(train, works), contextlib.redirect_stdout(buf):
         rc = entry(job["argv"])
     launches = _all_launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if rc != 0:
         raise AssertionError(f"{job['argv']} returned {rc}")
     experts = [_expert_shapes(w.model) for w in works]
@@ -2727,7 +2854,9 @@ def _world_job(job: dict) -> dict:
              if line.startswith("{")]
     return {"line": lines[-1] if lines else None, "launches": launches,
             "curve": [float(x) for x in curve],
-            "experts": experts[0] if experts else []}
+            "experts": experts[0] if experts else [], "peak_gb": peak_gb,
+            "backend": dist.get_backend() if dist.is_initialized() else None,
+            "sequence_bytes": dict(sharding.SEQUENCE_BYTES)}
 
 
 def world_child(spec: str) -> int:
@@ -3048,6 +3177,188 @@ def run_world(tmp: Path) -> dict:
             "bert-base tp=2": got["tp=2"][0]["launches"],
             "eval dp=2": e0["launches"],
             "mixtral-8x7b ep=2": got["ep=2"][0]["launches"]}
+
+
+# -- sp: sequence parallelism on the one card -----------------------------
+
+# llama3-8b at full width (dim 4096, 32/8 heads of 128, ffn 14336, vocab
+# 128256), depth 2, B=1, S=8192 (4096 positions a rank on sp=2), three
+# AdamW steps: ~1.49 G parameters, 24 GB of f32 parameters, gradients and
+# AdamW moments a process. On the sp=2 gang each arm's loss curve is held
+# at WORLD_LOSS_RTOL against the one-process run of the same call (at
+# sp=1 the trainer runs the flat kernels and --sequence-parallel and
+# --zigzag-ring change nothing, so one run serves the three arms).
+SP_LAYERS, SP_STEPS, SP_HOPS = 2, 3, 2
+SP_ARGS = [
+    "--model", "llama3-8b", "--n-layers", str(SP_LAYERS), "--seq-len",
+    str(SP_HOP_SEQ), "--global-batch", "1", "--xent-chunk", "1024",
+    "--steps", str(SP_STEPS), "--warmup", "1", "--lr", "3e-4",
+    "--log-every", "1",
+]
+SP_ARMS = {
+    "ring zigzag": ["--mesh", "sp=2", "--sequence-parallel", "ring",
+                    "--zigzag-ring"],
+    "ring": ["--mesh", "sp=2", "--sequence-parallel", "ring"],
+    "ulysses": ["--mesh", "sp=2", "--sequence-parallel", "ulysses"],
+}
+# gloo on CUDA tensors, each op in a pair of processes of its own: what
+# the sequence-parallel transport could hand gloo without staging.
+GLOO_PROBE_OPS = ("send/recv", "all_to_all_single", "all_reduce",
+                  "all_gather", "broadcast")
+GLOO_PROBE_TIMEOUT_S = 90
+
+
+def gloo_probe_child(op: str) -> int:
+    """One rank of a gloo probe pair (the env names the rank and port):
+    ``op`` on CUDA tensors, one JSON line: whether it returned, and
+    whether what it returned is right."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    rank = int(os.environ["GLOO_PROBE_RANK"])
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{os.environ['GLOO_PROBE_PORT']}",
+        rank=rank, world_size=2)
+    x = torch.full((1024,), float(rank + 1), device="cuda")
+    line = {"op": op, "rank": rank}
+    try:
+        if op == "send/recv":
+            if rank == 0:
+                dist.send(x, 1)
+                want = x
+            else:
+                dist.recv(x, 0)
+                want = torch.full_like(x, 1.0)
+            got = x
+        elif op == "all_to_all_single":
+            got = torch.empty_like(x)
+            dist.all_to_all_single(got, x)
+            want = torch.cat([torch.full((512,), 1.0, device="cuda"),
+                              torch.full((512,), 2.0, device="cuda")])
+        elif op == "all_reduce":
+            dist.all_reduce(x)
+            got, want = x, torch.full_like(x, 3.0)
+        elif op == "all_gather":
+            parts = [torch.empty_like(x) for _ in range(2)]
+            dist.all_gather(parts, x)
+            got = torch.cat(parts)
+            want = torch.cat([torch.full_like(x, 1.0),
+                              torch.full_like(x, 2.0)])
+        else:
+            dist.broadcast(x, 0)
+            got, want = x, torch.full_like(x, 1.0)
+        torch.cuda.synchronize()
+        line["returned"], line["right"] = True, bool(torch.equal(got, want))
+    except Exception as e:  # the probe's finding, not a fallback
+        line["returned"], line["error"] = False, f"{type(e).__name__}: {e}"
+    print(json.dumps(line), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def gloo_cuda_probe(tmp: Path) -> dict:
+    """Which gloo ops take CUDA tensors on this machine: each of
+    GLOO_PROBE_OPS in a pair of processes of its own, all pairs at once.
+    Returns op -> "right", "wrong values", the error it raised, or how
+    the pair ended (hung, crashed). The transport stages the ring's hops
+    through the host on gloo whatever this finds; its all-to-alls go to
+    gloo as they are, so a gloo that refused them fails the Ulysses arm
+    after this."""
+    import os
+
+    from mpi_operator_tpu_torch.utils.net import free_port_pair
+
+    pairs = {}
+    for i, op in enumerate(GLOO_PROBE_OPS):
+        port = free_port_pair()
+        procs = []
+        for rank in range(2):
+            out = tmp / f"gloo{i}-{rank}.out"
+            env = {**os.environ, "GLOO_PROBE_RANK": str(rank),
+                   "GLOO_PROBE_PORT": str(port)}
+            procs.append((subprocess.Popen(
+                [sys.executable, __file__, "--gloo-probe", op], env=env,
+                stdout=out.open("w"), stderr=subprocess.STDOUT), out))
+        pairs[op] = procs
+    deadline = time.monotonic() + GLOO_PROBE_TIMEOUT_S
+    found = {}
+    for op, procs in pairs.items():
+        ends = []
+        for proc, out in procs:
+            try:
+                proc.wait(timeout=max(deadline - time.monotonic(), 0.1))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                ends.append("hung")
+                continue
+            lines = [json.loads(line) for line in out.read_text().splitlines()
+                     if line.startswith('{"op"')]
+            if not lines:
+                ends.append(f"exited {proc.returncode} without a result: "
+                            f"{out.read_text()[-300:]!r}")
+            elif not lines[0]["returned"]:
+                ends.append(lines[0]["error"][:200])
+            else:
+                ends.append("right" if lines[0]["right"] else "wrong values")
+        found[op] = ends[0] if len(set(ends)) == 1 else " / ".join(ends)
+        log(f"sp gloo probe {op} on CUDA tensors: {found[op]}")
+    return found
+
+
+def run_sp(tmp: Path) -> dict:
+    """Phase ``sp``: which gloo ops take CUDA tensors; then llama3-8b /
+    SP_LAYERS at S=8192 on two processes of one card over gloo (one
+    gang, the SP_ARMS in turn), each arm's curve against the one-process
+    run, each rank's launches against the hop count's (ring: the forward
+    SP_HOPS a layer and again in the remat recompute, dq and dk/dv
+    SP_HOPS a layer; Ulysses: the one-process counts), step_ms, peak
+    memory and the transport's bytes beside it. Returns rank 0's launch
+    counts by arm."""
+    import torch
+
+    probe = gloo_cuda_probe(tmp)
+    one = _world_job({"argv": SP_ARGS})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    jobs = {arm: {"argv": [*SP_ARGS, *flags]} for arm, flags in SP_ARMS.items()}
+    ranks = _run_gang(list(jobs.values()), tmp)
+    gang_s = time.perf_counter() - t0
+    got = {arm: [r[i] for r in ranks] for i, arm in enumerate(jobs)}
+    flat = FLASH_NAMES["flat"]
+    hops = SP_STEPS * SP_LAYERS * SP_HOPS
+    failed = []
+    for arm, results in got.items():
+        want = (one["launches"] if arm == "ulysses" else _want_launches(
+            {flat[0]: 2 * hops, flat[1]: hops, flat[2]: hops}))
+        curve = [sum(c) / WORLD_PROCESSES
+                 for c in zip(*(r["curve"] for r in results))]
+        lines = [r["line"] for r in results]
+        ok = (_close(curve, one["curve"], WORLD_LOSS_RTOL)
+              and all(r["launches"] == want for r in results)
+              and all(line["devices"] == 2 and line["steps"] == SP_STEPS
+                      for line in lines))
+        log(f"sp llama3-8b/{SP_LAYERS} S={SP_HOP_SEQ} {arm} sp=2: curve "
+            f"{[round(x, 6) for x in curve]} vs one process "
+            f"{[round(x, 6) for x in one['curve']]} (rtol {WORLD_LOSS_RTOL}); "
+            f"launches a rank {[r['launches'] for r in results]} (want "
+            f"{want}); step_ms {[line['step_ms'] for line in lines]} (one "
+            f"process {one['line']['step_ms']}); peak GB "
+            f"{[round(r['peak_gb'], 2) for r in results]} (one process "
+            f"{one['peak_gb']:.2f}); backend {results[0]['backend']}, "
+            f"transport bytes a rank {[r['sequence_bytes'] for r in results]}"
+            f" -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(arm)
+    log(f"sp gang: {WORLD_PROCESSES} processes on one card over gloo "
+        f"(the step times measure gloo through the host on one card, not a "
+        f"multi-GPU node), {len(jobs)} jobs in {gang_s:.1f} s; gloo on CUDA "
+        f"tensors: {json.dumps(probe)}")
+    if failed:
+        raise AssertionError(f"sp checks failed: {failed}")
+    return {f"sp {arm}": got[arm][0]["launches"] for arm in got}
 
 
 # Phase ``operator``: jobs taken from create to a terminal condition by
@@ -3769,12 +4080,13 @@ def run_observe(tmp: Path, direct: dict) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
-                        default="kernels,model,train,moe,decode,world,"
+                        default="kernels,model,train,moe,decode,world,sp,"
                                 "operator,observe",
                         help="comma-separated subset of kernels,model,train,"
-                             "moe,decode,world,operator,observe and the "
+                             "moe,decode,world,sp,operator,observe and the "
                              "opt-in profile and data")
     parser.add_argument("--world-child", default="", help=argparse.SUPPRESS)
+    parser.add_argument("--gloo-probe", default="", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -3785,6 +4097,8 @@ def main(argv=None) -> int:
         return 1
     if args.world_child:  # a rank of the world phase's gang
         return world_child(args.world_child)
+    if args.gloo_probe:  # a rank of one of the sp phase's gloo probes
+        return gloo_probe_child(args.gloo_probe)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3803,6 +4117,7 @@ def main(argv=None) -> int:
     records = {}
     if "kernels" in phases:
         records = {**check_kernels(), **check_bn_kernels()}
+        check_lse_cotangent()
         check_head()
     if "model" in phases:
         check_model()
@@ -3892,6 +4207,17 @@ def main(argv=None) -> int:
                 records[name].setdefault("launches_by_path", {}).update(
                     {f"world {k}": c[name] for k, c in by_path.items()})
         log(f"card: {card}; world phase done")
+    if "sp" in phases:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_") as tmp:
+            by_path = run_sp(Path(tmp))
+        for name in FLASH_NAMES["flat"]:
+            if name in records:
+                records[name].setdefault("launches_by_path", {}).update(
+                    {k: c[name] for k, c in by_path.items()})
+        log(f"card: {card}; sp phase done in "
+            f"{time.perf_counter() - t0:.1f} s")
     direct = None
     if "operator" in phases:
         torch.cuda.empty_cache()

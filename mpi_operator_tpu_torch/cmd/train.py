@@ -28,7 +28,9 @@ larger one forms its torch.distributed world from the controller's env)
 -> the mesh from ``--mesh`` over the world -> model, placed on the mesh
 (``parallel/sharding.py``: a tensor-parallel plan on tp, FSDP2 on fsdp,
 HSDP on dp x fsdp, MoE experts sharded on ep, gradient averaging on dp
-alone) + optimizer (ResNet:
+alone and on sp; on sp each rank keeps its positions of its rows and
+the attention runs as a ring or Ulysses over the sp group) + optimizer
+(ResNet:
 SGD nesterov momentum 0.9; Llama, BERT, ViT and seq2seq: AdamW) ->
 resume from ``--checkpoint-dir``
 (``utils/checkpoint.py``; ``--steps`` is an ABSOLUTE target)
@@ -123,8 +125,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "seq2seq-tiny")
     p.add_argument("--mesh", default="",
                    help="axis spec over the world's processes, e.g. dp=-1, "
-                        "dp=2,fsdp=2, tp=2 or dp=2,ep=2 (MoE; sp and pp are "
-                        "not ported yet)")
+                        "dp=2,fsdp=2, tp=2, dp=2,ep=2 (MoE) or dp=2,sp=2 "
+                        "(llama, bert: the sequence split over sp); pp is "
+                        "not ported yet")
     p.add_argument("--steps", type=int, default=100,
                    help="ABSOLUTE target step")
     p.add_argument("--warmup", type=int, default=3)
@@ -149,9 +152,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data", default="")
     p.add_argument("--prefetch-depth", type=int, default=2)
-    p.add_argument("--zigzag-ring", action="store_true")
+    p.add_argument("--zigzag-ring", action="store_true",
+                   help="balance causal ring-attention work with the zigzag "
+                        "sequence layout (llama + sp meshes; --seq-len must "
+                        "divide by 2*sp)")
     p.add_argument("--sequence-parallel", choices=["ring", "ulysses"],
-                   default="ring")
+                   default="ring",
+                   help="long-context strategy on sp>1 meshes: 'ring' (k/v "
+                        "shards around the sp group, the flat kernels a hop) "
+                        "or 'ulysses' (two all-to-alls around one flat "
+                        "kernel call on the local heads; sp must divide the "
+                        "head count)")
     p.add_argument("--remat-policy", choices=["full", "dots"], default="full",
                    help="per-layer checkpoint policy (llama); only 'full' "
                         "is ported")
@@ -224,6 +235,45 @@ def check_moe_mesh(args) -> None:
             f"--mesh ep={ep} needs an MoE model; {args.model} is dense")
     if ep > 1 and cfg.n_experts % ep:
         raise SystemExit(f"{cfg.n_experts} experts not divisible by ep={ep}")
+
+
+def check_sp_mesh(args) -> None:
+    """The sp axis against the rest of the call, as the JAX trainer
+    checks it: a token model (llama, bert), --seq-len divisible by sp
+    (by 2*sp for the zigzag ring), no MoE; tp x sp and BERT's gathered
+    positions on sp are not ported (naming the ROADMAP.md item)."""
+    from ..models import llama as lib
+
+    sizes = parse_mesh_spec(args.mesh)
+    sp = sizes.get("sp", 1)
+    if sp <= 1:
+        return
+    if not args.model.startswith(_TOKEN_MODELS):
+        raise SystemExit(
+            f"--mesh sp={sp} shards the sequence of the token models "
+            f"(llama, bert); --model {args.model} has none")
+    cfg = lib.CONFIGS[args.model]() if args.model in lib.CONFIGS else None
+    if cfg is not None and cfg.is_moe:
+        raise SystemExit(
+            f"--mesh sp={sp} with an MoE model (--model {args.model}): MoE "
+            f"composes with dp/tp/ep; sp (routing capacity is per sequence) "
+            f"does not apply")
+    refuse = "is not ported yet (ROADMAP.md queue (a) item 15)"
+    if sizes.get("tp", 1) > 1:
+        raise SystemExit(f"--mesh sp={sp},tp={sizes['tp']}: tensor x "
+                         f"sequence parallelism {refuse}")
+    if args.model.startswith("bert") and args.mlm_layout == "positions":
+        raise SystemExit(f"--mlm-layout positions with --mesh sp={sp} (its "
+                         f"[B, P] slots gather across sequence shards) "
+                         f"{refuse}")
+    if args.seq_len % sp:
+        raise SystemExit(f"--seq-len {args.seq_len} not divisible by sp={sp}")
+    if (args.zigzag_ring and args.sequence_parallel == "ring"
+            and cfg is not None and args.seq_len % (2 * sp)):
+        # ulysses (and BERT) ignore --zigzag-ring (llama_config_from_args
+        # forces it off), so the constraint only binds the Llama ring.
+        raise SystemExit(f"--zigzag-ring needs --seq-len divisible by "
+                         f"2*sp={2 * sp}")
 
 
 def _make_learning_rate(args):
@@ -322,8 +372,10 @@ def llama_config_from_args(args, sp: int):
     """Build the LlamaConfig a CLI invocation asks for."""
     from ..models import llama as lib
 
+    attention = args.sequence_parallel if sp > 1 else "flash"
     kw = dict(
-        attention_impl=args.sequence_parallel if sp > 1 else "flash",
+        attention_impl=attention,
+        zigzag_ring=bool(args.zigzag_ring and sp > 1 and attention == "ring"),
         remat_policy=args.remat_policy,
         xent_chunk=args.xent_chunk,
     )
@@ -382,7 +434,21 @@ def _as_tensors(arrays, device=None, pin: bool = False) -> tuple:
     return tuple(out)
 
 
-def _token_batch_fn(args, vocab: int, global_batch: int, mesh):
+def _sequence_batch(tokens, positions) -> tuple:
+    """An sp rank's Llama batch from global [B, S] tokens: (tokens,
+    next-token targets, weights), the targets built on the whole sequence
+    (the last position's weighted 0), then this rank's columns."""
+    import numpy as np
+
+    targets = np.zeros_like(tokens)
+    targets[:, :-1] = tokens[:, 1:]
+    weights = np.ones(tokens.shape, np.float32)
+    weights[:, -1] = 0.0
+    return tuple(a[:, positions] for a in (tokens, targets, weights))
+
+
+def _token_batch_fn(args, vocab: int, global_batch: int, mesh,
+                    positions=None):
     """``batch_fn(step)`` for ``--data`` (the JAX trainer's
     ``_token_stream`` and BERT ``batch_fn``): this process's Feistel-
     shuffled rows of the global batch, ``ds.rows(step, B, lo, hi) %
@@ -390,7 +456,8 @@ def _token_batch_fn(args, vocab: int, global_batch: int, mesh):
     rows); BERT layers its masking on top, drawn from ``RandomState(seed
     + step)`` for the global batch and sliced to the same rows. Returns
     host tensors, pinned on the card: the consuming thread copies them to
-    the device on its own stream."""
+    the device on its own stream. With ``positions`` (an sp rank's) the
+    columns are sliced as the synthetic batch's are."""
     import numpy as np
 
     from ..data import TokenDataset
@@ -405,20 +472,25 @@ def _token_batch_fn(args, vocab: int, global_batch: int, mesh):
         rows = np.concatenate([ds.rows(step, global_batch, lo, hi)
                                for lo, hi in ranges]).astype(np.int64) % vocab
         if not is_bert:
-            return _as_tensors((rows,), pin=pin)
+            batch = ((rows,) if positions is None
+                     else _sequence_batch(rows, positions))
+            return _as_tensors(batch, pin=pin)
         rand = np.random.RandomState(args.seed + step).rand(
             global_batch, args.seq_len)
         rand = np.concatenate([rand[lo:hi] for lo, hi in ranges])
-        return _as_tensors(_mlm_batch(rows, rand, args.mlm_layout), pin=pin)
+        batch = _mlm_batch(rows, rand, args.mlm_layout)
+        if positions is not None:
+            batch = tuple(a[:, positions] for a in batch)
+        return _as_tensors(batch, pin=pin)
 
     return batch_fn
 
 
-def _bert_model(args, device, rng, global_batch: int):
+def _bert_model(args, device, rng, global_batch: int, sp_group=None):
     """(model, make_step, batch) for a bert-* --model: the config the JAX
-    trainer builds (its attention_impl default; max_seq_len grown to
-    --seq-len) and its global batch as numpy arrays, drawn from ``rng``
-    in the JAX order."""
+    trainer builds (its attention_impl default, --sequence-parallel over
+    ``sp_group``; max_seq_len grown to --seq-len) and its global batch as
+    numpy arrays, drawn from ``rng`` in the JAX order."""
     import dataclasses
 
     import numpy as np
@@ -434,9 +506,11 @@ def _bert_model(args, device, rng, global_batch: int):
             f"bert-tiny"
         )
     cfg = lib.CONFIGS[args.model]()
+    if sp_group is not None:
+        cfg = dataclasses.replace(cfg, attention_impl=args.sequence_parallel)
     if args.seq_len > cfg.max_seq_len:
         cfg = dataclasses.replace(cfg, max_seq_len=args.seq_len)
-    model = lib.Bert(cfg, device=device)
+    model = lib.Bert(cfg, device=device, sp_group=sp_group)
     lib.init_params(model, torch.Generator(device=device).manual_seed(args.seed))
     rows = rng.randint(0, cfg.vocab_size, (global_batch, args.seq_len))
     batch = _mlm_batch(rows, rng.rand(global_batch, args.seq_len),
@@ -452,10 +526,11 @@ def _lm_workload(args, mesh, n_devices: int) -> Workload:
 
     from ..models import llama as lib
     from ..parallel.mesh import SP
-    from ..parallel.sharding import shard_params
+    from ..parallel.sharding import local_positions, shard_params
 
     sizes = mesh.sizes
     sp = sizes.get(SP, 1)
+    group = mesh.submesh(SP).get_group() if sp > 1 else None
     global_batch = args.global_batch or 8 * max(n_devices // sp, 1)
     batch_shards = sizes.get("dp", 1) * sizes.get("fsdp", 1)
     if args.grad_accum > 1:
@@ -476,16 +551,36 @@ def _lm_workload(args, mesh, n_devices: int) -> Workload:
         from ..models import bert as plan_lib
 
         model, make_step, batch = _bert_model(args, mesh.device, rng,
-                                              global_batch)
+                                              global_batch, group)
     else:
         plan_lib = lib
         cfg = llama_config_from_args(args, sp)
-        model = lib.Llama(cfg, device=mesh.device)
+        model = lib.Llama(cfg, device=mesh.device, sp_group=group)
         lib.init_params(
             model, torch.Generator(device=mesh.device).manual_seed(args.seed)
         )
         make_step = lib.make_train_step
         batch = (rng.randint(0, cfg.vocab_size, (global_batch, args.seq_len)),)
+    positions = None
+    if sp > 1:
+        # This rank's columns of the global batch (its rows follow in
+        # _adamw_workload); the model reads their global positions.
+        llama = plan_lib is lib
+        positions = local_positions(args.seq_len, mesh,
+                                    llama and model.config.zigzag_ring)
+        at = torch.as_tensor(positions, device=mesh.device)
+        if llama:
+            batch = _sequence_batch(batch[0], positions)
+            # The gradients are averaged over dp x fsdp x sp: scaled so,
+            # each rank's summed loss over one microbatch's global target
+            # count averages to the global next-token mean.
+            micro = global_batch // args.grad_accum
+            make_step = functools.partial(
+                make_step, positions=at,
+                scale=batch_shards * sp / (micro * (args.seq_len - 1)))
+        else:
+            batch = tuple(a[:, positions] for a in batch)
+            make_step = functools.partial(make_step, positions=at)
     tp = sizes.get("tp", 1)
     shard_params(model, mesh,
                  tp_plan=lambda: plan_lib.tensor_parallel_plan(model, tp))
@@ -493,7 +588,7 @@ def _lm_workload(args, mesh, n_devices: int) -> Workload:
                            tokens_per_step=global_batch * args.seq_len)
     if args.data:
         work.batch_fn = _token_batch_fn(args, model.config.vocab_size,
-                                        global_batch, mesh)
+                                        global_batch, mesh, positions)
     return work
 
 
@@ -741,6 +836,7 @@ def main(argv=None) -> int:
     refuse_unported(args)
     try:
         check_moe_mesh(args)
+        check_sp_mesh(args)
     except ValueError as e:
         raise SystemExit(f"--mesh {args.mesh!r}: {e}") from None
 

@@ -9,18 +9,21 @@
 // (wgmma, cp.async ring), f32 on the SIMT body (flash_bwd_dq.cuh).
 //
 // Design: the body (flash_bwd_dq.cuh) reads the [B, S, H*D] operands by
-// strides; delta = rowsum(do * o) comes from the wrapper as f32 [B, Sq, H].
+// strides; delta = rowsum(do * o) (less the lse cotangent) comes from the
+// wrapper as f32 [B, Sq, H]. With row/col ids every k tile is visited.
 #include "flash_bwd_dq.cuh"
 
 // q/dout/dq [B, q_len, H*D], k/v [B, kv_len, Hkv*D] (bf16 when is_bf16,
-// else f32), lse/delta f32 [B, q_len, H]. Returns a cudaError_t.
+// else f32), lse/delta f32 [B, q_len, H]; row_ids int32 [q_len] and
+// col_ids int32 [kv_len], both or neither (null). Returns a cudaError_t.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
-                            const void* delta, void* dq, int B, int q_len,
+                            const void* delta, void* dq, const void* row_ids,
+                            const void* col_ids, int B, int q_len,
                             int kv_len, int H, int Hkv, int D, float scale,
                             int causal, int is_bf16, void* stream) {
   return flash::bwd_dq(q, k, v, dout, lse, delta, dq,
                        flash::flat_geom(B, q_len, kv_len, H, Hkv, D, scale,
-                                        causal),
+                                        causal, row_ids, col_ids),
                        is_bf16, stream);
 }

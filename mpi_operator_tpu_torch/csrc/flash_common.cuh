@@ -34,8 +34,8 @@
 // finite NEG_INF = -1e30 (never -inf, so inf - inf never makes a NaN),
 // p = exp(visible ? s - m : NEG_INF), and a fully masked row gives
 // out = 0, lse = NEG_INF. Without ids the causal mask is bottom-right
-// aligned, col <= row + (kv_len - q_len); with ids (bhsd only) a pair is
-// visible iff col_ids[col] <= row_ids[row], whatever causal says. The
+// aligned, col <= row + (kv_len - q_len); with ids (either layout) a pair
+// is visible iff col_ids[col] <= row_ids[row], whatever causal says. The
 // bound checks row < q_len, col < kv_len take the place of JAX's +-2^30
 // padding ids.
 #pragma once
@@ -107,9 +107,12 @@ struct Geom {
 };
 
 inline Geom flat_geom(int B, int q_len, int kv_len, int H, int Hkv, int D,
-                      float scale, int causal) {
+                      float scale, int causal, const void* row_ids,
+                      const void* col_ids) {
   const size_t d = (size_t)D;
-  return Geom{B, H, Hkv, q_len, kv_len, D, scale, causal, nullptr, nullptr,
+  return Geom{B, H, Hkv, q_len, kv_len, D, scale, causal,
+              static_cast<const int*>(row_ids),
+              static_cast<const int*>(col_ids),
               {(size_t)q_len * H * d, d, (size_t)H * d},
               {(size_t)kv_len * Hkv * d, d, (size_t)Hkv * d},
               {(size_t)q_len * H, 1, (size_t)H}};

@@ -13,17 +13,23 @@
 //
 // Design: heads sit on the grid, where the TPU kernel looped over them
 // inside the program; the body (flash_fwd.cuh) reads the [B, S, H*D]
-// operands by strides, so no transpose surrounds it.
+// operands by strides, so no transpose surrounds it. With row/col ids (a
+// ring attention hop: the global positions of its q rows and k columns) a
+// pair is visible iff col_ids[col] <= row_ids[row], and every k tile is
+// visited.
 #include "flash_fwd.cuh"
 
 // q [B, q_len, H*D], k/v [B, kv_len, Hkv*D] (bf16 when is_bf16, else f32),
-// out like q, lse f32 [B, q_len, H]. Returns a cudaError_t (0 = launched).
+// out like q, lse f32 [B, q_len, H]; row_ids int32 [q_len] and col_ids
+// int32 [kv_len], both or neither (null). Returns a cudaError_t (0 =
+// launched).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
-                         void* out, void* lse, int B, int q_len, int kv_len,
+                         void* out, void* lse, const void* row_ids,
+                         const void* col_ids, int B, int q_len, int kv_len,
                          int H, int Hkv, int D, float scale, int causal,
                          int is_bf16, void* stream) {
   return flash::fwd(q, k, v, out, lse,
                     flash::flat_geom(B, q_len, kv_len, H, Hkv, D, scale,
-                                     causal),
+                                     causal, row_ids, col_ids),
                     is_bf16, stream);
 }

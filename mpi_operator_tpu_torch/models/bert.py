@@ -7,7 +7,10 @@ compute with float32 parameters.
   tanh-approximated GELU, as ``flax.linen.gelu``;
 - attention through the flat flash kernels on the projection layout
   (``flash``), the [B*H, S, D] kernels behind transposes (``flash-bhsd``,
-  the layout A/B) or the dense oracle (``dense``);
+  the layout A/B) or the dense oracle (``dense``); over an sp process
+  group, the non-causal ring or Ulysses, each rank holding a contiguous
+  slice of the sequence whose global positions the learned position
+  table reads;
 - the MLM head: ``mlm_dense`` -> gelu -> ``mlm_norm`` -> f32 logits
   against the tied ``tok_embed`` table (no bias), optionally only at
   gathered ``mlm_positions``.
@@ -50,8 +53,8 @@ class BertConfig:
     dtype: Any = torch.bfloat16
     # 'flash' (the flat CUDA kernels), 'flash-bhsd' (the [B*H, S, D]
     # kernels behind transposes) or 'dense' (the oracle); plain versions
-    # on the CPU. 'ring'/'ulysses' raise until sequence parallelism is
-    # ported.
+    # on the CPU. 'ring'/'ulysses' run over the sp group of
+    # Bert(sp_group=...).
     attention_impl: str = "flash"
     # Per-layer activation checkpointing; 'full' recomputes each layer
     # in the backward pass, 'dots' is not ported yet.
@@ -97,9 +100,10 @@ class LayerNorm(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, config: BertConfig, device=None):
+    def __init__(self, config: BertConfig, device=None, sp_group=None):
         super().__init__()
         cfg = self.config = config
+        self.sp_group = sp_group
         for name, n_in, n_out in (
             ("wq", cfg.dim, cfg.dim), ("wk", cfg.dim, cfg.dim),
             ("wv", cfg.dim, cfg.dim), ("wo", cfg.dim, cfg.dim),
@@ -121,11 +125,13 @@ class EncoderLayer(nn.Module):
         v = self.wv(x).reshape(shape)
         # Transpose-free dispatch first (flash on the projection layout);
         # flash-bhsd and the dense oracle need [B, H, S, D].
-        att = sp_attention_bshd(q, k, v, cfg.attention_impl, causal=False)
+        sp = dict(group=self.sp_group)
+        att = sp_attention_bshd(q, k, v, cfg.attention_impl, causal=False,
+                                **sp)
         if att is None:
             q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-            att = sp_attention(
-                q, k, v, cfg.attention_impl, causal=False).transpose(1, 2)
+            att = sp_attention(q, k, v, cfg.attention_impl, causal=False,
+                               **sp).transpose(1, 2)
         att = att.reshape(b, s, -1)
         x = self.attn_norm(x + self.wo(att))
         h = F.gelu(self.ffn_in(x), approximate="tanh")
@@ -133,7 +139,10 @@ class EncoderLayer(nn.Module):
 
 
 class Bert(nn.Module):
-    def __init__(self, config: BertConfig, device=None):
+    """``sp_group``: the sp process group that ``ring``/``ulysses``
+    attention runs over (None on one device)."""
+
+    def __init__(self, config: BertConfig, device=None, sp_group=None):
         super().__init__()
         if config.remat and config.remat_policy != "full":
             raise NotImplementedError(
@@ -147,7 +156,7 @@ class Bert(nn.Module):
                                        device=device)
         self.embed_norm = LayerNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device)
         for i in range(cfg.n_layers):
-            self.add_module(f"layer_{i}", EncoderLayer(cfg, device))
+            self.add_module(f"layer_{i}", EncoderLayer(cfg, device, sp_group))
         self.mlm_dense = Dense(cfg.dim, cfg.dim, dtype=cfg.dtype, bias=True,
                                device=device)
         self.mlm_norm = LayerNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device)
@@ -155,19 +164,23 @@ class Bert(nn.Module):
     def layers(self) -> list[EncoderLayer]:
         return [getattr(self, f"layer_{i}") for i in range(self.config.n_layers)]
 
-    def forward(self, tokens, token_types=None, mlm_positions=None):
+    def forward(self, tokens, token_types=None, mlm_positions=None,
+                positions=None):
         """Logits, f32: [B, S, V], or [B, P, V] with ``mlm_positions``
         ([B, P] int), which gathers the encoder output at those positions
         before the MLM head, so the head runs on P masked slots instead of
-        all S."""
+        all S. ``positions`` ([S] int, default ``arange(S)``): the global
+        positions of the tokens' columns (an sp rank's slice)."""
         cfg = self.config
         b, s = tokens.shape
         # Embed(dtype=compute) rounds its table before the lookup; the
         # tied decoder reads the same rounded table.
         table = self.tok_embed.weight.to(cfg.dtype)
         h = F.embedding(tokens.long(), table)
-        positions = torch.arange(s, device=tokens.device)
-        h = h + F.embedding(positions, self.pos_embed.weight.to(cfg.dtype))
+        if positions is None:
+            positions = torch.arange(s, device=tokens.device)
+        h = h + F.embedding(positions.to(tokens.device).long(),
+                            self.pos_embed.weight.to(cfg.dtype))
         if token_types is not None:
             h = h + F.embedding(token_types.long(),
                                 self.type_embed.weight.to(cfg.dtype))
@@ -238,12 +251,15 @@ def _weighted_xent(logits, targets, weights):
     return total / torch.clamp(count, min=1.0)
 
 
-def mlm_loss(model: Bert, tokens, mlm_positions_mask, mlm_targets):
+def mlm_loss(model: Bert, tokens, mlm_positions_mask, mlm_targets,
+             positions=None):
     """Masked-LM cross-entropy; ``mlm_positions_mask`` is 1.0 where the
     token was masked out (loss counted), 0.0 elsewhere. Computes the
     full [B, S, V] logits -- :func:`mlm_loss_positions` is the
-    gathered-head variant (same value for matching masks)."""
-    return _weighted_xent(model(tokens), mlm_targets, mlm_positions_mask)
+    gathered-head variant (same value for matching masks). ``positions``:
+    the columns' global positions on an sp rank."""
+    return _weighted_xent(model(tokens, positions=positions), mlm_targets,
+                          mlm_positions_mask)
 
 
 def mlm_loss_positions(model: Bert, tokens, mlm_positions, mlm_targets,
@@ -258,16 +274,17 @@ def mlm_loss_positions(model: Bert, tokens, mlm_positions, mlm_targets,
 
 
 def make_train_step(model: Bert, optimizer, accum_steps: int = 1,
-                    lr_schedule=None):
+                    lr_schedule=None, positions=None):
     """``step(tokens, mask, targets) -> loss``: one optimizer update.
     ``accum_steps > 1`` averages gradients over that many sequential
     microbatches (the mean of the microbatches' weighted means, as in
-    JAX) -- see ``parallel.accum``."""
+    JAX) -- see ``parallel.accum``. ``positions``: the global positions
+    of an sp rank's columns."""
     from ..parallel.accum import make_update_step
 
     return make_update_step(
-        lambda t, m, tg: mlm_loss(model, t, m, tg), optimizer, accum_steps,
-        lr_schedule=lr_schedule,
+        lambda t, m, tg: mlm_loss(model, t, m, tg, positions), optimizer,
+        accum_steps, lr_schedule=lr_schedule,
     )
 
 

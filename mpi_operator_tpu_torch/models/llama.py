@@ -5,7 +5,11 @@
 - attention through the hand-written flash kernels
   (``ops.attention.flash_attention_bshd``) on the projection layout, the
   [B*H, S, D] kernels (``flash-bhsd``, behind transposes) or the dense
-  oracle;
+  oracle; over an sp process group, ring attention (contiguous or
+  zigzag) or Ulysses, each rank holding its positions of the sequence
+  (``forward(positions=...)``: RoPE reads the global positions, and the
+  targets come sliced beside the tokens, so no permutation surrounds the
+  model);
 - per-layer activation checkpointing (``remat_policy="full"``) trades
   FLOPs for memory;
 - MoE configs (``mixtral-8x7b``, ``llama-moe-tiny``) replace every
@@ -52,10 +56,14 @@ class LlamaConfig:
     remat_policy: str = "full"
     tie_embeddings: bool = False
     # 'flash' (the CUDA kernels; plain versions on the CPU), 'flash-bhsd'
-    # (the [B*H, S, D] kernels behind transposes: the layout A/B) or
-    # 'dense' (the oracle). 'ring'/'ulysses' raise until sequence
-    # parallelism is ported.
+    # (the [B*H, S, D] kernels behind transposes: the layout A/B),
+    # 'dense' (the oracle), or over the sp group of Llama(sp_group=...):
+    # 'ring' (the flat kernels a hop) or 'ulysses' (all-to-alls around
+    # one flat kernel call; sp must divide the head count).
     attention_impl: str = "flash"
+    # With ring attention: rank i of n holds sequence chunks i and
+    # 2n-1-i of 2n (the positions it is handed), balancing causal work.
+    zigzag_ring: bool = False
     # Sparse MoE FFN (models/moe.py): 0 = dense SwiGLU; > 0 replaces every
     # block's MLP with n_experts experts routed top-k, experts sharded over
     # the ep mesh axis. The train loss adds router_aux_coef x the Switch
@@ -187,9 +195,10 @@ class RMSNorm(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, device=None, sp_group=None):
         super().__init__()
         cfg = self.config = config
+        self.sp_group = sp_group
         hd, kw = cfg.head_dim, dict(dtype=cfg.dtype, device=device)
         self.wq = Dense(cfg.dim, cfg.n_heads * hd, **kw)
         self.wk = Dense(cfg.dim, cfg.n_kv_heads * hd, **kw)
@@ -211,12 +220,14 @@ class Attention(nn.Module):
 
         # Transpose-free dispatch first: flash runs the projection-layout
         # kernels on q/k/v exactly as RoPE produced them ([B, S, H, D]).
-        out = sp_attention_bshd(q, k, v, cfg.attention_impl, causal=True)
+        sp = dict(group=self.sp_group, zigzag=cfg.zigzag_ring)
+        out = sp_attention_bshd(q, k, v, cfg.attention_impl, causal=True,
+                                **sp)
         if out is None:
             # [B, H, S, D] layout: flash-bhsd and the dense oracle.
             q, k, v = (t.transpose(1, 2) for t in (q, k, v))
             out = sp_attention(
-                q, k, v, cfg.attention_impl, causal=True
+                q, k, v, cfg.attention_impl, causal=True, **sp
             ).transpose(1, 2)
         return self.wo(out.reshape(b, s, -1))
 
@@ -235,10 +246,10 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, device=None, sp_group=None):
         super().__init__()
         self.attn_norm = RMSNorm(config.dim, config.norm_eps, device)
-        self.attn = Attention(config, device)
+        self.attn = Attention(config, device, sp_group)
         self.mlp_norm = RMSNorm(config.dim, config.norm_eps, device)
         if config.is_moe:
             from .moe import MoEMLP
@@ -263,7 +274,10 @@ class Block(nn.Module):
 
 
 class Llama(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None):
+    """``sp_group``: the sp process group that ``ring``/``ulysses``
+    attention runs over (None on one device)."""
+
+    def __init__(self, config: LlamaConfig, device=None, sp_group=None):
         super().__init__()
         if config.remat_policy != "full":
             raise NotImplementedError(
@@ -273,7 +287,7 @@ class Llama(nn.Module):
         self.config = config
         self.embed = nn.Embedding(config.vocab_size, config.dim, device=device)
         for i in range(config.n_layers):
-            self.add_module(f"layer_{i}", Block(config, device))
+            self.add_module(f"layer_{i}", Block(config, device, sp_group))
         self.final_norm = RMSNorm(config.dim, config.norm_eps, device)
         if not config.tie_embeddings:
             self.lm_head = F32LogitsDense(config.dim, config.vocab_size, device)
@@ -288,7 +302,8 @@ class Llama(nn.Module):
         return self.lm_head.weight.t()
 
     def forward(self, tokens, return_hidden: bool = False,
-                chunked_loss: bool = False, aux_coef: float = 0.0):
+                chunked_loss: bool = False, aux_coef: float = 0.0,
+                positions=None, targets=None, weights=None):
         """f32 logits; ``(logits, aux)`` for an MoE config, aux the blocks'
         summed router loss. ``return_hidden=True`` skips the LM head and
         returns the final hidden states (``(hidden, aux)`` for MoE).
@@ -296,12 +311,19 @@ class Llama(nn.Module):
         ``aux_coef`` x aux for MoE, with the head and cross-entropy
         applied ``cfg.xent_chunk`` positions at a time (ops/losses.py),
         so full logits never materialize; it runs inside the forward,
-        where a sharded root's parameters (the head) are gathered."""
+        where a sharded root's parameters (the head) are gathered.
+
+        ``positions`` ([S] int, default ``arange(S)``): the global
+        positions of the tokens' columns, which RoPE reads (an sp rank's
+        slice of the sequence). With ``targets`` ([B, S] int) and
+        ``weights`` ([B, S] float) the chunked loss is the weighted mean
+        of every position's cross-entropy against its target, instead of
+        each position's against the next token."""
         cfg = self.config
         tokens = tokens.long()
-        positions = torch.arange(
-            tokens.shape[1], device=tokens.device
-        ).expand(tokens.shape)
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device)
+        positions = positions.to(tokens.device).expand(tokens.shape)
         h = self.embed(tokens).to(cfg.dtype)
         remat = cfg.remat and torch.is_grad_enabled()
         aux = 0.0
@@ -315,8 +337,10 @@ class Llama(nn.Module):
         if return_hidden:
             return (h, aux) if cfg.is_moe else h
         if chunked_loss:
-            ce = lm_xent_chunked(h[:, :-1], self.head_kernel(),
-                                 tokens[:, 1:], chunk=cfg.xent_chunk)
+            if targets is None:
+                h, targets = h[:, :-1], tokens[:, 1:]
+            ce = lm_xent_chunked(h, self.head_kernel(), targets, weights,
+                                 chunk=cfg.xent_chunk)
             return ce + aux_coef * aux if cfg.is_moe and aux_coef else ce
         # Untied head (Llama-3 does not tie embeddings); f32 logits.
         logits = f32_logits(h, self.head_kernel())
@@ -369,17 +393,47 @@ def loss_fn(model: Llama, tokens, include_aux: bool = True):
     return ce + aux_coef * aux if cfg.is_moe and aux_coef else ce
 
 
+def sequence_loss(model: Llama, tokens, targets, weights, positions,
+                  scale: float):
+    """The loss an sp rank differentiates (a dense config): the sum of
+    its positions' cross-entropies against ``targets``, weighted by
+    ``weights`` ([B, S_local] each, this rank's columns of the global
+    next-token targets, the last global position weighted 0), times
+    ``scale``. With ``scale`` the number of ranks the gradients are
+    averaged over divided by the global target count, the mean of the
+    ranks' losses, and of their gradients, is the global batch's
+    next-token mean (:func:`loss_fn`)."""
+    cfg = model.config
+    if cfg.xent_chunk > 0:
+        mean = model(tokens, chunked_loss=True, positions=positions,
+                     targets=targets, weights=weights)
+    else:
+        logits = model(tokens, positions=positions)
+        ce = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                             targets.reshape(-1).long(), reduction="none")
+        w = weights.reshape(-1).float()
+        mean = torch.sum(ce * w) / torch.clamp(w.sum(), min=1.0)
+    return mean * weights.float().sum() * scale
+
+
 def make_train_step(model: Llama, optimizer, accum_steps: int = 1,
-                    lr_schedule=None):
+                    lr_schedule=None, positions=None, scale: float = 1.0):
     """``step(tokens) -> loss``: one optimizer update. ``accum_steps > 1``
     averages gradients over that many sequential microbatches (split on
-    the batch dim) first -- see ``parallel.accum``."""
+    the batch dim) first -- see ``parallel.accum``. With ``positions``
+    (an sp rank's global positions) the step is ``step(tokens, targets,
+    weights)`` on :func:`sequence_loss` with ``scale``."""
     from ..parallel.accum import make_update_step
 
-    return make_update_step(
-        lambda toks: loss_fn(model, toks), optimizer, accum_steps,
-        lr_schedule=lr_schedule,
-    )
+    if positions is None:
+        def loss(tokens):
+            return loss_fn(model, tokens)
+    else:
+        def loss(tokens, targets, weights):
+            return sequence_loss(model, tokens, targets, weights, positions,
+                                 scale)
+    return make_update_step(loss, optimizer, accum_steps,
+                            lr_schedule=lr_schedule)
 
 
 def tensor_parallel_plan(model: Llama, tp: int) -> dict:

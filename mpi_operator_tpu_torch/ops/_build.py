@@ -32,10 +32,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> (source, argtypes). Every pointer and the stream are
 # c_void_p: a bare Python int would be cut to 32 bits.
 KERNELS = {
-    "flash_fwd": ("flash_fwd.cu", [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P]),
-    "flash_bwd_dq": ("flash_bwd_dq.cu", [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P]),
+    "flash_fwd": ("flash_fwd.cu", [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P]),
+    "flash_bwd_dq": ("flash_bwd_dq.cu", [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P]),
     "flash_bwd_dkv": ("flash_bwd_dkv.cu",
-                      [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P]),
+                      [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P]),
     "flash_bhsd_fwd": ("flash_bhsd_fwd.cu",
                        [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P]),
     "flash_bhsd_bwd_dq": ("flash_bhsd_bwd_dq.cu",

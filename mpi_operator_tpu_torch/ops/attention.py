@@ -7,7 +7,8 @@ package (port of ``mpi_operator_tpu/ops/attention.py``):
   ``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu``. Operands keep
   the projection layout ``[B, S, H*D]`` that the q/k/v projections
   produce, so no transpose surrounds the kernels
-  (:func:`flash_attention_bshd`);
+  (:func:`flash_attention_bshd`, and :func:`flash_attention_bshd_lse`
+  with optional row/col ids, the ring attention hop);
 - the ``[B*H, S, D]`` path: ``_fwd_kernel``, ``_bwd_dq_kernel`` and
   ``_bwd_dkv_kernel`` become ``csrc/flash_bhsd_fwd.cu``,
   ``csrc/flash_bhsd_bwd_dq.cu`` and ``csrc/flash_bhsd_bwd_dkv.cu``, with
@@ -127,46 +128,57 @@ def _geometry(qf, kf, h):
     return b, q_len, kf.shape[1], d, kf.shape[2] // d
 
 
-def flash_fwd_plain(qf, kf, vf, h: int, sm_scale: float, causal: bool):
+def _mask(q, k, causal, row_ids, col_ids):
+    """[Sq, Sk] bool for the kernels of either layout (dim 1 of q and k is
+    the sequence): ``col_id <= row_id`` when ids are given (``causal``
+    then plays no part), else :func:`_visible`."""
+    if row_ids is not None:
+        return col_ids.to(q.device)[None, :] <= row_ids.to(q.device)[:, None]
+    return _visible(q.shape[1], k.shape[1], causal, q.device)
+
+
+def flash_fwd_plain(qf, kf, vf, h: int, sm_scale: float, causal: bool,
+                    row_ids=None, col_ids=None):
     """Plain version of the forward kernel: (out [B, Sq, H*D] like q,
     lse f32 [B, Sq, H])."""
-    _, q_len, kv_len, _, h_kv = _geometry(qf, kf, h)
+    h_kv = _geometry(qf, kf, h)[4]
     out, lse = _attend(
         _heads(qf, h), _heads(kf, h_kv, h // h_kv), _heads(vf, h_kv, h // h_kv),
-        _visible(q_len, kv_len, causal, qf.device), sm_scale,
+        _mask(qf, kf, causal, row_ids, col_ids), sm_scale,
     )
     return _flat(out, qf.dtype), lse.transpose(1, 2).contiguous()
 
 
-def _bwd_plain(qf, kf, vf, do, lse, delta, h, sm_scale, causal):
+def _bwd_plain(qf, kf, vf, do, lse, delta, h, sm_scale, causal, row_ids,
+               col_ids):
     """(p, ds, q, k, do) per q head, f32 [B, H, ...]."""
-    _, q_len, kv_len, _, h_kv = _geometry(qf, kf, h)
+    h_kv = _geometry(qf, kf, h)[4]
     q = _heads(qf, h)
     k = _heads(kf, h_kv, h // h_kv)
     dout = _heads(do, h)
     p, ds = _attend_grads(
         q, k, _heads(vf, h_kv, h // h_kv), dout, lse.transpose(1, 2),
-        delta.transpose(1, 2), _visible(q_len, kv_len, causal, qf.device),
+        delta.transpose(1, 2), _mask(qf, kf, causal, row_ids, col_ids),
         sm_scale,
     )
     return p, ds, q, k, dout
 
 
 def flash_bwd_dq_plain(qf, kf, vf, do, lse, delta, h: int, sm_scale: float,
-                       causal: bool):
+                       causal: bool, row_ids=None, col_ids=None):
     """Plain version of the dq kernel: dq [B, Sq, H*D] like q."""
     _, ds, _, k, _ = _bwd_plain(qf, kf, vf, do, lse, delta, h, sm_scale,
-                                causal)
+                                causal, row_ids, col_ids)
     return _flat(sm_scale * (ds @ k), qf.dtype)
 
 
 def flash_bwd_dkv_plain(qf, kf, vf, do, lse, delta, h: int, sm_scale: float,
-                        causal: bool):
+                        causal: bool, row_ids=None, col_ids=None):
     """Plain version of the dkv kernel: (dk, dv) [B, Sk, Hkv*D] like k, v;
     each kv head sums over the H / Hkv q heads that share it."""
     b, _, kv_len, d, h_kv = _geometry(qf, kf, h)
     p, ds, q, _, dout = _bwd_plain(qf, kf, vf, do, lse, delta, h, sm_scale,
-                                   causal)
+                                   causal, row_ids, col_ids)
 
     def per_kv_head(x):  # [B, H, Sk, D] -> [B, Hkv, Sk, D]
         return x.reshape(b, h_kv, h // h_kv, kv_len, d).sum(dim=2)
@@ -174,15 +186,6 @@ def flash_bwd_dkv_plain(qf, kf, vf, do, lse, delta, h: int, sm_scale: float,
     dk = per_kv_head(sm_scale * (ds.transpose(-1, -2) @ q))
     dv = per_kv_head(p.transpose(-1, -2) @ dout)
     return _flat(dk, kf.dtype), _flat(dv, vf.dtype)
-
-
-def _bhsd_mask(q, k, causal, row_ids, col_ids):
-    """[Sq, Sk] bool for the [B*H, S, D] kernels: ``col_id <= row_id``
-    when ids are given (``causal`` then plays no part), else
-    :func:`_visible`."""
-    if row_ids is not None:
-        return col_ids.to(q.device)[None, :] <= row_ids.to(q.device)[:, None]
-    return _visible(q.shape[1], k.shape[1], causal, q.device)
 
 
 def _kv_rows(x, groups: int):
@@ -196,7 +199,7 @@ def flash_bhsd_fwd_plain(q, k, v, sm_scale: float, causal: bool,
     lse f32 [B*H, Sq])."""
     groups = q.shape[0] // k.shape[0]
     out, lse = _attend(q.float(), _kv_rows(k, groups), _kv_rows(v, groups),
-                       _bhsd_mask(q, k, causal, row_ids, col_ids), sm_scale)
+                       _mask(q, k, causal, row_ids, col_ids), sm_scale)
     return out.to(q.dtype), lse
 
 
@@ -206,7 +209,7 @@ def _bhsd_bwd_plain(q, k, v, do, lse, delta, sm_scale, causal, row_ids,
     kx = _kv_rows(k, groups)
     p, ds = _attend_grads(q.float(), kx, _kv_rows(v, groups), do.float(),
                           lse, delta,
-                          _bhsd_mask(q, k, causal, row_ids, col_ids), sm_scale)
+                          _mask(q, k, causal, row_ids, col_ids), sm_scale)
     return p, ds, kx
 
 
@@ -278,7 +281,22 @@ def _dense(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _check_flat(qf, kf, vf, h, *extra):
+def _check_ids(row_ids, col_ids, q_len: int, kv_len: int) -> tuple:
+    """The ids as a tuple (empty without them), after checking that they
+    come together, one per q row and one per k column."""
+    if (row_ids is None) != (col_ids is None):
+        raise ValueError("row_ids and col_ids must be given together")
+    if row_ids is None:
+        return ()
+    for name, x, n, what in (("row_ids", row_ids, q_len, "q_len"),
+                             ("col_ids", col_ids, kv_len, "kv_len")):
+        if tuple(x.shape) != (n,):
+            raise ValueError(
+                f"{name} shape {tuple(x.shape)} != ({what},) = ({n},)")
+    return (row_ids, col_ids)
+
+
+def _check_flat(qf, kf, vf, h, row_ids, col_ids, *extra):
     if qf.ndim != 3 or kf.ndim != 3 or kf.shape != vf.shape:
         raise ValueError(
             f"expected q [B, Sq, H*D] and k, v [B, Sk, Hkv*D]; got "
@@ -291,7 +309,8 @@ def _check_flat(qf, kf, vf, h, *extra):
         )
     if h % (kf.shape[2] // (qf.shape[2] // h)):
         raise ValueError(f"q heads {h} not a multiple of the kv heads")
-    return _kernel_device((qf, kf, vf, *extra[:1]), extra[1:],
+    ids = _check_ids(row_ids, col_ids, qf.shape[1], kf.shape[1])
+    return _kernel_device((qf, kf, vf, *extra[:1]), (*extra[1:], *ids),
                           qf.shape[2] // h)
 
 
@@ -306,16 +325,7 @@ def _check_bhsd(q, k, v, row_ids, col_ids, *extra):
         raise ValueError(
             f"q rows {q.shape[0]} not a multiple of the kv rows {k.shape[0]}"
         )
-    ids = ()
-    if (row_ids is None) != (col_ids is None):
-        raise ValueError("row_ids and col_ids must be given together")
-    if row_ids is not None:
-        for name, x, n, what in (("row_ids", row_ids, q.shape[1], "q_len"),
-                                 ("col_ids", col_ids, k.shape[1], "kv_len")):
-            if tuple(x.shape) != (n,):
-                raise ValueError(
-                    f"{name} shape {tuple(x.shape)} != ({what},) = ({n},)")
-        ids = (row_ids, col_ids)
+    ids = _check_ids(row_ids, col_ids, q.shape[1], k.shape[1])
     return _kernel_device((q, k, v, *extra[:1]), (*extra[1:], *ids),
                           q.shape[2])
 
@@ -328,19 +338,23 @@ def _launch(name: str, device, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def flash_fwd(qf, kf, vf, h: int, sm_scale: float, causal: bool):
-    """Forward kernel: (out [B, Sq, H*D] like q, lse f32 [B, Sq, H])."""
-    device = _check_flat(qf, kf, vf, h)
+def flash_fwd(qf, kf, vf, h: int, sm_scale: float, causal: bool,
+              row_ids=None, col_ids=None):
+    """Forward kernel: (out [B, Sq, H*D] like q, lse f32 [B, Sq, H]); with
+    ids a pair is visible iff ``col_ids[col] <= row_ids[row]``."""
+    device = _check_flat(qf, kf, vf, h, row_ids, col_ids)
     if device.type == "cpu":
-        return flash_fwd_plain(qf, kf, vf, h, sm_scale, causal)
+        return flash_fwd_plain(qf, kf, vf, h, sm_scale, causal, row_ids,
+                               col_ids)
     qf, kf, vf = (_dense(t) for t in (qf, kf, vf))
     b, q_len, kv_len, d, h_kv = _geometry(qf, kf, h)
     out = torch.empty_like(qf)
     lse = torch.empty(b, q_len, h, dtype=torch.float32, device=device)
+    id_ptrs, _ids = _id_pointers(row_ids, col_ids)
     _launch(
         "flash_fwd", device, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, q_len, kv_len, h, h_kv, d, float(sm_scale),
-        int(causal), int(qf.dtype == torch.bfloat16),
+        lse.data_ptr(), *id_ptrs, b, q_len, kv_len, h, h_kv, d,
+        float(sm_scale), int(causal), int(qf.dtype == torch.bfloat16),
     )
     return out, lse
 
@@ -353,38 +367,41 @@ def _bwd_operands(qf, kf, vf, do, lse, delta):
 
 
 def flash_bwd_dq(qf, kf, vf, do, lse, delta, h: int, sm_scale: float,
-                 causal: bool):
+                 causal: bool, row_ids=None, col_ids=None):
     """dq kernel: dq [B, Sq, H*D] like q."""
-    device = _check_flat(qf, kf, vf, h, do, lse, delta)
+    device = _check_flat(qf, kf, vf, h, row_ids, col_ids, do, lse, delta)
     if device.type == "cpu":
         return flash_bwd_dq_plain(qf, kf, vf, do, lse, delta, h, sm_scale,
-                                  causal)
+                                  causal, row_ids, col_ids)
     qf, kf, vf, do, lse, delta = _bwd_operands(qf, kf, vf, do, lse, delta)
     b, q_len, kv_len, d, h_kv = _geometry(qf, kf, h)
     dq = torch.empty_like(qf)
+    id_ptrs, _ids = _id_pointers(row_ids, col_ids)
     _launch(
         "flash_bwd_dq", device, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, q_len, kv_len, h, h_kv, d,
-        float(sm_scale), int(causal), int(qf.dtype == torch.bfloat16),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *id_ptrs, b, q_len,
+        kv_len, h, h_kv, d, float(sm_scale), int(causal),
+        int(qf.dtype == torch.bfloat16),
     )
     return dq
 
 
 def flash_bwd_dkv(qf, kf, vf, do, lse, delta, h: int, sm_scale: float,
-                  causal: bool):
+                  causal: bool, row_ids=None, col_ids=None):
     """dkv kernel: (dk, dv) [B, Sk, Hkv*D] like k, v."""
-    device = _check_flat(qf, kf, vf, h, do, lse, delta)
+    device = _check_flat(qf, kf, vf, h, row_ids, col_ids, do, lse, delta)
     if device.type == "cpu":
         return flash_bwd_dkv_plain(qf, kf, vf, do, lse, delta, h, sm_scale,
-                                   causal)
+                                   causal, row_ids, col_ids)
     qf, kf, vf, do, lse, delta = _bwd_operands(qf, kf, vf, do, lse, delta)
     b, q_len, kv_len, d, h_kv = _geometry(qf, kf, h)
     dk = torch.empty_like(kf)
     dv = torch.empty_like(vf)
+    id_ptrs, _ids = _id_pointers(row_ids, col_ids)
     _launch(
         "flash_bwd_dkv", device, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, q_len, kv_len, h,
-        h_kv, d, float(sm_scale), int(causal),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *id_ptrs, b,
+        q_len, kv_len, h, h_kv, d, float(sm_scale), int(causal),
         int(qf.dtype == torch.bfloat16),
     )
     return dk, dv
@@ -467,6 +484,27 @@ def flash_bhsd_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float,
 # ---------------------------------------------------------------------------
 
 
+def flat_delta(do, out, h: int, dlse=None):
+    """delta = rowsum(do * o) per head, straight into the f32 [B, S, H]
+    layout the flat backward kernels read, less the lse cotangent when
+    there is one (it enters every ds of its row as -delta does): a plain
+    reduction, outside the kernels as in JAX."""
+    b, q_len, hd = out.shape
+    delta = (do.float() * out.float()).reshape(b, q_len, h, hd // h).sum(-1)
+    return delta if dlse is None else delta - dlse.float()
+
+
+def _flat_grads(ctx, do, dlse):
+    """The backward of both flat ops (``_flash_flat_bwd_impl``): delta,
+    then the dq and dkv kernels recomputing p from the saved lse."""
+    qf, kf, vf, out, lse, row_ids, col_ids = ctx.saved_tensors
+    delta = flat_delta(do, out, ctx.h, dlse)
+    args = (ctx.h, ctx.sm_scale, ctx.causal, row_ids, col_ids)
+    dq = flash_bwd_dq(qf, kf, vf, do, lse, delta, *args)
+    dk, dv = flash_bwd_dkv(qf, kf, vf, do, lse, delta, *args)
+    return dq, dk, dv
+
+
 class _FlashFlat(torch.autograd.Function):
     """``_flash_flat``'s custom VJP (``_flash_flat_fwd_impl`` and
     ``_flash_flat_bwd_impl`` in JAX): the forward kernel, then the dq and
@@ -475,22 +513,46 @@ class _FlashFlat(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qf, kf, vf, h, sm_scale, causal):
         out, lse = flash_fwd(qf, kf, vf, h, sm_scale, causal)
-        ctx.save_for_backward(qf, kf, vf, out, lse)
+        ctx.save_for_backward(qf, kf, vf, out, lse, None, None)
         ctx.h, ctx.sm_scale, ctx.causal = h, sm_scale, causal
         return out
 
     @staticmethod
     def backward(ctx, do):
-        qf, kf, vf, out, lse = ctx.saved_tensors
-        h, sm_scale, causal = ctx.h, ctx.sm_scale, ctx.causal
-        b, q_len, hd = qf.shape
-        # delta = rowsum(do * o) per head, straight into the [B, S, H]
-        # layout the kernels read: a plain reduction, outside the kernels
-        # as in JAX.
-        delta = (do.float() * out.float()).reshape(b, q_len, h, hd // h).sum(-1)
-        dq = flash_bwd_dq(qf, kf, vf, do, lse, delta, h, sm_scale, causal)
-        dk, dv = flash_bwd_dkv(qf, kf, vf, do, lse, delta, h, sm_scale, causal)
-        return dq, dk, dv, None, None, None
+        return (*_flat_grads(ctx, do, None), None, None, None)
+
+
+class _FlashFlatLse(torch.autograd.Function):
+    """``_flash_flat_lse``'s custom VJP: (out, lse), both differentiable;
+    the ids get no gradient."""
+
+    @staticmethod
+    def forward(ctx, qf, kf, vf, row_ids, col_ids, h, sm_scale, causal):
+        out, lse = flash_fwd(qf, kf, vf, h, sm_scale, causal, row_ids,
+                             col_ids)
+        ctx.save_for_backward(qf, kf, vf, out, lse, row_ids, col_ids)
+        ctx.h, ctx.sm_scale, ctx.causal = h, sm_scale, causal
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        return (*_flat_grads(ctx, do, dlse), None, None, None, None, None)
+
+
+def _flat_views(q, k, v, name: str):
+    """Checks of the public [B, S, H, D] entry points, then the flat
+    [B, S, H*D] views of q, k, v (free: H and D are contiguous)."""
+    if q.ndim != 4:
+        raise ValueError(f"expected [B, S, H, D] inputs, got rank {q.ndim}")
+    b, q_len, h, d = q.shape
+    if h % k.shape[2]:
+        raise ValueError(f"q heads {h} not a multiple of kv heads {k.shape[2]}")
+    if h > 128:
+        raise ValueError(
+            f"{name} lane-packs per-head stats (<=128 heads); got {h} — use "
+            f"flash_attention for wider models"
+        )
+    return [x.reshape(b, x.shape[1], x.shape[2] * d) for x in (q, k, v)]
 
 
 def flash_attention_bshd(
@@ -517,26 +579,33 @@ def flash_attention_bshd(
     <= 128, in bfloat16 a multiple of 8); tensors on the CPU through the
     plain versions.
     """
-    if q.ndim != 4:
-        raise ValueError(f"expected [B, S, H, D] inputs, got rank {q.ndim}")
-    b, q_len, h, d = q.shape
-    kv_len, h_kv = k.shape[1], k.shape[2]
-    if h % h_kv:
-        raise ValueError(f"q heads {h} not a multiple of kv heads {h_kv}")
-    if h > 128:
-        raise ValueError(
-            f"flash_attention_bshd lane-packs per-head stats (<=128 "
-            f"heads); got {h} — use flash_attention for wider models"
-        )
+    qf, kf, vf = _flat_views(q, k, v, "flash_attention_bshd")
     if sm_scale is None:
-        sm_scale = d ** -0.5
-    out = _FlashFlat.apply(
-        q.reshape(b, q_len, h * d),        # free: H, D are contiguous
-        k.reshape(b, kv_len, h_kv * d),
-        v.reshape(b, kv_len, h_kv * d),
-        h, sm_scale, causal,
-    )
-    return out.reshape(b, q_len, h, d)
+        sm_scale = q.shape[-1] ** -0.5
+    return _FlashFlat.apply(qf, kf, vf, q.shape[2], sm_scale,
+                            causal).reshape(q.shape)
+
+
+def flash_attention_bshd_lse(q, k, v, *, row_ids=None, col_ids=None,
+                             causal: bool = False,
+                             sm_scale: Optional[float] = None):
+    """Projection-layout flash attention returning ``(out, lse)``:
+    :func:`flash_attention_lse`'s flat twin (q [B, Sq, H, D]; k, v
+    [B, Sk, Hkv, D] -> out [B, Sq, H, D], lse f32 [B, Sq, H]), the
+    building block of the ring's per-hop partials.
+
+    ``row_ids``/``col_ids`` (1-D int, the global positions of the q rows
+    / k columns) switch masking to ``col_id <= row_id`` over any position
+    labeling (ring hops, zigzag layouts); without them ``causal`` applies
+    the bottom-right-aligned mask. A fully masked row gives out = 0,
+    lse = NEG_INF. Differentiable in q, k, v and lse (the lse cotangent
+    folds into the backward kernels' delta)."""
+    qf, kf, vf = _flat_views(q, k, v, "flash_attention_bshd_lse")
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    out, lse = _FlashFlatLse.apply(qf, kf, vf, row_ids, col_ids, q.shape[2],
+                                   sm_scale, causal)
+    return out.reshape(q.shape), lse
 
 
 def _bhsd_grads(ctx, do, dlse):

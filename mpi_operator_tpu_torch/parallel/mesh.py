@@ -8,9 +8,12 @@ Any subset may be used; sizes multiply to the world size (one process
 per device). A size of ``-1`` means "whatever is left" (at most one
 axis). A world of one keeps a one-device :class:`Mesh`; a larger world
 gets a ``torch.distributed`` ``DeviceMesh`` with the same axis names in
-the same order. ``sp`` and ``pp`` above 1 refuse, each naming the
-ROADMAP.md item that brings it. ``ep`` shards the MoE experts; the batch
-splits over dp and fsdp only, so an ep rank holds its dp row's batch.
+the same order. ``pp`` above 1 refuses, naming the ROADMAP.md item
+that brings it. ``ep`` shards the MoE experts; the batch splits over dp
+and fsdp only, so an ep rank holds its dp row's batch. ``sp`` shards the
+sequence: its ranks hold the same rows, each its own positions
+(``parallel/sharding.py:local_positions``), and its process group
+(``Mesh.submesh("sp")``) carries the ring and the all-to-alls.
 """
 
 from __future__ import annotations
@@ -33,7 +36,6 @@ BATCH_AXES = (DP, FSDP)  # the batch dim shards over these
 
 # Axes whose machinery is a later slice of the port.
 UNPORTED_AXES = {
-    SP: "sequence parallelism, ROADMAP.md queue (a) item 15",
     PP: "pipeline parallelism, ROADMAP.md queue (a) item 16",
 }
 
@@ -157,8 +159,8 @@ def batch_shards(mesh: Mesh) -> int:
 
 def local_batch_size(global_batch: int, mesh: Mesh) -> int:
     """The rows of the global batch this process holds: the batch dim
-    shards over dp x fsdp and is whole on every tp and ep rank. Raises when the
-    global batch does not split evenly."""
+    shards over dp x fsdp and is whole on every tp, ep and sp rank. Raises
+    when the global batch does not split evenly."""
     n = batch_shards(mesh)
     if global_batch % n:
         raise ValueError(

@@ -23,18 +23,27 @@ collectives are explicit:
   :func:`sum_grads` the gradients of the expert branch's inputs, so that
   every ep rank holds the whole gradient of each parameter it holds
   whole and the gradients are averaged over dp alone, as GSPMD's
-  gradients of these shardings are complete on every ep device.
+  gradients of these shardings are complete on every ep device;
+- the sequence: on ``sp`` each rank holds its positions of its batch
+  rows (:func:`local_positions`, contiguous or zigzag), the parameters
+  stay whole and their gradients are averaged over sp as over dp. The
+  sequence-parallel attention moves k/v around the ring
+  (:func:`ring_pass`; over gloo, whose point-to-point ops take CPU
+  tensors only, a CUDA tensor crosses through pinned host memory) or
+  re-shards heads against the sequence (:func:`all_to_all`, which NCCL
+  and gloo both take on CUDA tensors).
 """
 
 from __future__ import annotations
 
 import re
+from math import prod
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .mesh import DP, EP, FSDP, TP, Mesh, batch_shards, world_size
+from .mesh import DP, EP, FSDP, SP, TP, Mesh, batch_shards, world_size
 
 # The models' FSDP units: transformer layers (``layer_i``, ``enc_i``,
 # ``dec_i``) and ResNet's residual blocks (``stage{i}_block{j}``).
@@ -62,6 +71,25 @@ def local_rows(global_batch: int, mesh: Mesh, accum_steps: int = 1
     per = micro // n
     return [(i * micro + index * per, i * micro + (index + 1) * per)
             for i in range(accum_steps)]
+
+
+def local_positions(seq_len: int, mesh: Mesh, zigzag: bool = False
+                    ) -> np.ndarray:
+    """The global sequence positions this process holds, in its order:
+    its contiguous ``seq_len / sp`` run, or with ``zigzag`` the chunks
+    ``i`` and ``2 sp - 1 - i`` of ``2 sp`` (``i`` its sp coordinate), as
+    the ring's ``_shard_ids`` labels them. Every position without sp."""
+    n, i = mesh.axis_size(SP), mesh.coordinate(SP)
+    if seq_len % (2 * n if zigzag else n):
+        raise ValueError(f"sequence {seq_len} not divisible by "
+                         f"{'2 x ' if zigzag else ''}sp={n}")
+    if not zigzag:
+        per = seq_len // n
+        return np.arange(i * per, (i + 1) * per)
+    half = seq_len // (2 * n)
+    return np.concatenate([np.arange(i * half, (i + 1) * half),
+                           np.arange((2 * n - 1 - i) * half,
+                                     (2 * n - i) * half)])
 
 
 def shard_batch(arrays: Sequence[np.ndarray], mesh: Mesh,
@@ -150,16 +178,23 @@ def shard_experts(model: torch.nn.Module, ep_mesh) -> None:
 
 
 def average_gradients(optimizer, mesh: Mesh) -> None:
-    """On a ``dp`` mesh without ``fsdp`` (FSDP2 averages its own), average
-    ``optimizer``'s gradients over dp just before each of its steps: one
-    flat sum per dtype over the dp group."""
-    if mesh.axis_size(DP) == 1 or mesh.axis_size(FSDP) > 1:
-        return
+    """Average ``optimizer``'s gradients just before each of its steps
+    over the axes whose ranks hold the same parameters and other data:
+    dp (without fsdp: FSDP2 averages over its own mesh, dp included) and
+    sp, whose ranks hold other positions of the same rows. Sums over
+    each such group, a bucket of at most ``_BUCKET_BYTES`` of one dtype
+    at a time (a larger gradient alone, in place), so the flat copies
+    stay small beside the gradients; the gradient of an FSDP2 shard is
+    averaged the same way over sp."""
     import torch.distributed as dist
     from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
-    group = mesh.submesh(DP).get_group()
-    n = mesh.axis_size(DP)
+    axes = [a for a in ((DP,) if mesh.axis_size(FSDP) == 1 else ()) + (SP,)
+            if mesh.axis_size(a) > 1]
+    if not axes:
+        return
+    groups = [mesh.submesh(a).get_group() for a in axes]
+    n = prod(mesh.axis_size(a) for a in axes)
     params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def sync(*_) -> None:
@@ -171,13 +206,36 @@ def average_gradients(optimizer, mesh: Mesh) -> None:
             g = g.to_local() if hasattr(g, "to_local") else g
             grads.setdefault(g.dtype, []).append(g)
         for same in grads.values():
-            flat = _flatten_dense_tensors(same)
-            dist.all_reduce(flat, group=group)
-            flat.div_(n)
-            for g, synced in zip(same, _unflatten_dense_tensors(flat, same)):
-                g.copy_(synced)
+            for bucket in _buckets(same):
+                whole = len(bucket) == 1 and bucket[0].is_contiguous()
+                flat = bucket[0] if whole else _flatten_dense_tensors(bucket)
+                for group in groups:
+                    dist.all_reduce(flat, group=group)
+                flat.div_(n)
+                if not whole:
+                    for g, synced in zip(
+                            bucket, _unflatten_dense_tensors(flat, bucket)):
+                        g.copy_(synced)
 
     optimizer.register_step_pre_hook(sync)
+
+
+_BUCKET_BYTES = 1 << 28
+
+
+def _buckets(tensors):
+    """``tensors`` in order, in runs of at most ``_BUCKET_BYTES`` (a
+    larger tensor makes a run of its own)."""
+    run, size = [], 0
+    for t in tensors:
+        nbytes = t.numel() * t.element_size()
+        if run and size + nbytes > _BUCKET_BYTES:
+            yield run
+            run, size = [], 0
+        run.append(t)
+        size += nbytes
+    if run:
+        yield run
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -257,6 +315,101 @@ def sum_grads(x: torch.Tensor, group) -> torch.Tensor:
     branches from ``x`` are parts of one computation (each rank's
     experts)."""
     return _SumGrads.apply(x, group)
+
+
+# Bytes each rank sent over the sequence-parallel transport since the
+# last reset, by route: "host" (a CUDA tensor this module stages through
+# pinned host memory: a ring hop over gloo) and "direct" (handed to the
+# backend as it is: NCCL, a CPU tensor, or an all-to-all, which gloo
+# stages itself).
+SEQUENCE_BYTES = {"host": 0, "direct": 0}
+
+
+def _count(host: bool, t: torch.Tensor) -> None:
+    SEQUENCE_BYTES["host" if host else "direct"] += t.numel() * t.element_size()
+
+
+def ring_pass(tensors: Sequence[torch.Tensor], group) -> list:
+    """Send ``tensors`` to the next rank of ``group`` (``(rank + 1) %
+    n``) and return what the previous rank sent, of the same shapes and
+    dtypes: one message a hop, the tensors' bytes packed together."""
+    import torch.distributed as dist
+
+    n, rank = dist.get_world_size(group), dist.get_rank(group)
+    if n == 1:
+        return list(tensors)
+    flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                      for t in tensors])
+    dst = dist.get_global_rank(group, (rank + 1) % n)
+    src = dist.get_global_rank(group, (rank - 1) % n)
+    # gloo's send and recv read the tensor's pointer from the host: a
+    # CUDA tensor fails there ("Bad address"), so it is staged.
+    host = flat.is_cuda and dist.get_backend(group) == "gloo"
+    _count(host, flat)
+    if host:
+        send = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
+        send.copy_(flat)
+        recv = torch.empty_like(send, pin_memory=True)
+        for work in (dist.isend(send, dst, group=group),
+                     dist.irecv(recv, src, group=group)):
+            work.wait()
+        recv = recv.to(flat.device, non_blocking=True)
+    else:
+        recv = torch.empty_like(flat)
+        ops = [dist.P2POp(dist.isend, flat, dst, group),
+               dist.P2POp(dist.irecv, recv, src, group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    out, at = [], 0
+    for t in tensors:
+        size = t.numel() * t.element_size()
+        out.append(recv[at:at + size].view(t.dtype).reshape(t.shape))
+        at += size
+    return out
+
+
+def _all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int):
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    shape = list(x.shape)
+    if shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of {tuple(x.shape)} not divisible "
+                         f"by the group's {n} ranks")
+    shape[split_dim:split_dim + 1] = [n, shape[split_dim] // n]
+    # [n, ...]: block j goes to rank j.
+    send = x.reshape(shape).movedim(split_dim, 0).contiguous()
+    _count(False, send)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    # Block j came from rank j: it lands at offset j along concat_dim.
+    out = recv.movedim(0, concat_dim)
+    shape = list(out.shape)
+    shape[concat_dim:concat_dim + 2] = [shape[concat_dim]
+                                        * shape[concat_dim + 1]]
+    return out.reshape(shape)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all; its gradient is the reverse all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.args = (group, concat_dim, split_dim)
+        return _all_to_all(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad, *ctx.args), None, None, None
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """``lax.all_to_all(..., tiled=True)`` over ``group``: ``x`` split into
+    n blocks along ``split_dim``, block j sent to rank j, the blocks
+    received concatenated along ``concat_dim`` in rank order.
+    Differentiable."""
+    return _AllToAll.apply(x, group, split_dim, concat_dim)
 
 
 def any_process(local: bool, group) -> bool:

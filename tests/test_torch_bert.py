@@ -240,6 +240,16 @@ def test_remat_full_changes_nothing_and_dots_is_refused():
 
 
 def test_unported_attention_impls_raise():
-    model = tbert.Bert(tbert.tiny(attention_impl="ring"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model(torch.zeros(1, 8, dtype=torch.long))
+    """The pipeline's in-stage impls are a later slice (item 16); the
+    sequence-parallel ones need an sp group, which a model built without
+    one has not."""
+    tokens = torch.zeros(1, 8, dtype=torch.long)
+    for impl in ("ring-shard", "ulysses-shard"):
+        model = tbert.Bert(tbert.tiny(attention_impl=impl), device="cpu")
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP.md queue \(a\) item 16"):
+            model(tokens)
+    for impl in ("ring", "ulysses"):
+        model = tbert.Bert(tbert.tiny(attention_impl=impl), device="cpu")
+        with pytest.raises(ValueError, match="needs a mesh with an sp axis"):
+            model(tokens)

@@ -37,6 +37,7 @@ def _imported_roots(tree: ast.AST):
 def test_port_has_modules():
     assert len(FILES) > 10
     assert "mpi_operator_tpu_torch/ops/attention.py" in FILES
+    assert "mpi_operator_tpu_torch/ops/ulysses.py" in FILES
 
 
 @pytest.mark.parametrize("rel", FILES)

@@ -51,12 +51,13 @@ def test_mesh_config_resolves_as_the_jax_packages(name):
 
 
 def test_create_mesh_refuses_the_unported_axes_by_item():
-    for axis, item in (("sp", 15), ("pp", 16)):
+    for axis, item in (("pp", 16),):
         with pytest.raises(ValueError, match=f"queue \\(a\\) item {item}"):
             tmesh.create_mesh(device="cpu", dp=1, **{axis: 2})
-    # ep is ported: only the world size stands in its way here.
-    with pytest.raises(ValueError, match="require 2 devices, have 1"):
-        tmesh.create_mesh(device="cpu", dp=1, ep=2)
+    # ep and sp are ported: only the world size stands in their way here.
+    for axis in ("ep", "sp"):
+        with pytest.raises(ValueError, match="require 2 devices, have 1"):
+            tmesh.create_mesh(device="cpu", dp=1, **{axis: 2})
 
 
 class _Coordinates:
@@ -104,3 +105,42 @@ def test_microbatch_rows_are_each_microbatchs_shard():
         tsharding.local_rows(16, port, 3)
     with pytest.raises(ValueError, match="not divisible by dp x fsdp = 4"):
         tmesh.local_batch_size(10, port)
+
+
+SEQUENCE_MESHES = ["sp=8", "dp=2,sp=4", "dp=2,fsdp=2,sp=2"]
+
+
+@pytest.mark.parametrize("spec", SEQUENCE_MESHES)
+def test_each_process_holds_its_devices_positions_of_the_jax_batch(spec):
+    """On sp the process at a device's coordinate holds that device's
+    block of a [B, S] batch as the JAX trainer places it
+    (``shard_batch(..., sequence_axis=1)``): its rows (sp ranks the same
+    rows) and its contiguous run of positions (``local_positions``)."""
+    mesh = jmesh.create_mesh(**jtrain.parse_mesh_spec(spec))
+    whole = np.random.RandomState(5).randint(0, 256, (8, 16))
+    tokens = jax_shard_batch(whole, mesh, sequence_axis=1)
+    names = tuple(mesh.axis_names)
+    for shard in tokens.addressable_shards:
+        coord = np.argwhere(mesh.devices == shard.device)[0]
+        port = tmesh.Mesh(names, tuple(mesh.devices.shape), None,
+                          _Coordinates(coord))
+        rows = tsharding.shard_batch((whole,), port)[0]
+        mine = rows[:, tsharding.local_positions(16, port)]
+        np.testing.assert_array_equal(mine, np.asarray(shard.data))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_zigzag_positions_are_the_jax_ring_layout(n):
+    """With the zigzag ring, sp rank i holds block i of the sequence in
+    JAX's zigzag order (``zigzag_indices``): its chunks i and 2n-1-i."""
+    import importlib
+
+    jring = importlib.import_module("mpi_operator_tpu.ops.ring_attention")
+    perm = jring.zigzag_indices(8 * n, n)
+    for i in range(n):
+        port = tmesh.Mesh(("sp",), (n,), None, _Coordinates((i,)))
+        np.testing.assert_array_equal(
+            tsharding.local_positions(8 * n, port, zigzag=True),
+            perm[i * 8:(i + 1) * 8])
+    with pytest.raises(ValueError, match="not divisible by 2 x sp"):
+        tsharding.local_positions(8 * n + 2, port, zigzag=True)

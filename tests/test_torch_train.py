@@ -66,7 +66,11 @@ REFUSED = {
     "moe": (["--model", "mixtral-8x7b", "--mesh", "tp=2"], "item 13"),
     "moe-tiny": (["--model", "llama-moe-tiny", "--mesh", "fsdp=2"],
                  "item 13"),
-    "mesh": (["--mesh", "sp=2"], "item 15"),
+    # sp trains since ring and Ulysses came; with tp it refuses, and so
+    # do BERT's gathered positions on it.
+    "mesh": (["--mesh", "sp=2,tp=2"], "item 15"),
+    "mesh-sp-positions": (["--model", "bert-tiny", "--mlm-layout",
+                           "positions", "--mesh", "sp=2"], "item 15"),
     "mesh-pp": (["--mesh", "dp=1,pp=2"], "item 16"),
     "mesh-ep": (["--model", "llama-moe-tiny", "--mesh", "ep=2,tp=2"],
                 "item 13"),
@@ -80,6 +84,47 @@ def test_unported_flags_refuse_loudly(flag):
     argv = ["--device", "cpu", "--model", "llama-tiny", "--steps", "1", *extra]
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue \\(a\\) {item}"):
         train.main(argv)
+
+
+SP_REFUSED = {
+    # The JAX trainer's reasons.
+    "moe": (["--model", "llama-moe-tiny", "--mesh", "sp=2"],
+            "routing capacity is per sequence"),
+    "seq-len": (["--mesh", "sp=2", "--seq-len", "15"],
+                "--seq-len 15 not divisible by sp=2"),
+    "zigzag": (["--mesh", "sp=2", "--seq-len", "18", "--zigzag-ring"],
+               "--zigzag-ring needs --seq-len divisible by 2\\*sp=4"),
+    "no-sequence": (["--model", "resnet18", "--mesh", "sp=2"],
+                    "shards the sequence of the token models"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SP_REFUSED))
+def test_sp_mesh_refuses_what_it_cannot_shard(case):
+    extra, match = SP_REFUSED[case]
+    argv = ["--device", "cpu", "--model", "llama-tiny", "--steps", "1", *extra]
+    with pytest.raises(SystemExit, match=match):
+        train.main(argv)
+
+
+def test_sp_batch_targets_cross_the_ranks_edges():
+    """An sp rank's Llama batch: the next-token target of its last
+    position is the next rank's first token, the last global position is
+    weighted 0, and the zigzag ranks' columns together are the whole
+    sequence's targets."""
+    tokens = np.arange(24).reshape(2, 12)
+    positions = np.array([0, 1, 2, 9, 10, 11])  # zigzag rank 0 of 2
+    toks, targets, weights = train._sequence_batch(tokens, positions)
+    np.testing.assert_array_equal(toks, tokens[:, positions])
+    np.testing.assert_array_equal(targets[0], [1, 2, 3, 10, 11, 0])
+    np.testing.assert_array_equal(weights[0], [1, 1, 1, 1, 1, 0])
+    args = train.build_parser().parse_args(["--zigzag-ring",
+                                            "--model", "llama-tiny"])
+    assert train.llama_config_from_args(args, 2).zigzag_ring
+    assert not train.llama_config_from_args(args, 1).zigzag_ring
+    args.sequence_parallel = "ulysses"  # ulysses ignores --zigzag-ring
+    cfg = train.llama_config_from_args(args, 2)
+    assert cfg.attention_impl == "ulysses" and not cfg.zigzag_ring
 
 
 @pytest.mark.parametrize("bn_kernel", ["xla", "pallas"])
@@ -360,15 +405,15 @@ def test_adopted_trace_id_reaches_log_lines(capsys):
 
 def test_mesh_is_one_device():
     """A world of one process keeps the one-device mesh; a wider axis
-    needs that many processes (ep too, now ported), and sp and pp refuse
-    naming their ROADMAP items (``tests/test_torch_mesh.py`` holds the
+    needs that many processes (ep and sp too, now ported), and pp refuses
+    naming its ROADMAP item (``tests/test_torch_mesh.py`` holds the
     rest)."""
     mesh = create_mesh(device="cpu", dp=-1, tp=1)
     assert mesh.sizes == {"dp": 1, "tp": 1} and mesh.device_mesh is None
-    for axis in ("fsdp", "ep"):
+    for axis in ("fsdp", "ep", "sp"):
         with pytest.raises(ValueError, match="require 2 devices, have 1"):
             create_mesh(device="cpu", **{axis: 2})
-    for axis, item in (("sp", 15), ("pp", 16)):
+    for axis, item in (("pp", 16),):
         with pytest.raises(ValueError, match=f"queue \\(a\\) item {item}"):
             create_mesh(device="cpu", **{axis: 2})
 

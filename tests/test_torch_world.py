@@ -14,7 +14,9 @@ This file also holds the spawn helper the other ``test_torch_world_*``
 files use: ``run_gang`` starts ``n`` processes of one world (a free port
 pair, ``torch.set_num_threads(1)``, a timeout of its own so that a hung
 rank fails the test and never stalls the run) and runs a list of jobs,
-each a ``cmd.train`` or ``cmd.eval`` call, in every process in turn.
+each a ``cmd.train`` or ``cmd.eval`` call (or an op job: a function of
+a test module called in the world, ``_run_op``), in every process in
+turn.
 """
 
 import contextlib
@@ -24,6 +26,8 @@ import os
 import pathlib
 import subprocess
 import sys
+import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -57,22 +61,25 @@ def run_gang(n: int, jobs: list, *, timeout: float = 180.0,
 
     port = free_port_pair()
     spec = json.dumps(jobs)
-    procs = []
+    procs, logs = [], []
     for rank in range(n):
         penv = {**os.environ, **(env or {}),
                 "TPUJOB_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
                 "TPUJOB_NUM_PROCESSES": str(n),
                 "TPUJOB_PROCESS_ID": str(rank), "TPU_WORKER_ID": str(rank),
                 "OMP_NUM_THREADS": "1"}
+        # Files, not pipes: a rank blocked on a full pipe the parent is
+        # not reading yet would stall its peers' collectives.
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        logs.append((out, err))
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "tests.test_torch_world", spec], env=penv,
-            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True))
-    outs = []
+            cwd=REPO, stdout=out, stderr=err, text=True))
+    deadline = time.monotonic() + timeout
     try:
         for rank, p in enumerate(procs):
             try:
-                outs.append(p.communicate(timeout=timeout))
+                p.wait(timeout=max(deadline - time.monotonic(), 0.1))
             except subprocess.TimeoutExpired:
                 pytest.fail(f"rank {rank} of {n} still running after "
                             f"{timeout:.0f} s")
@@ -80,9 +87,12 @@ def run_gang(n: int, jobs: list, *, timeout: float = 180.0,
         for p in procs:  # a wedged rank must not outlive the test
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+                p.wait()
     results = []
-    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+    for rank, (p, (out, err)) in enumerate(zip(procs, logs)):
+        out.seek(0)
+        err.seek(0)
+        out, err = out.read(), err.read()
         assert p.returncode == 0, (
             f"rank {rank} of {n} exited {p.returncode}:\n{err[-4000:]}")
         results.append([json.loads(line)["result"]
@@ -145,9 +155,26 @@ def _preempt_after(rank: int, n_steps: int) -> None:
     train.build_workload = build
 
 
+def _run_op(job: dict) -> dict:
+    """An op job: ``fn`` ("module:function") called with ``args`` in this
+    process's world (formed here when no command formed it yet); what it
+    returns is the record's line."""
+    import importlib
+
+    from mpi_operator_tpu_torch.launcher import bootstrap
+
+    bootstrap.initialize(device_type="cpu")
+    module, name = job["fn"].split(":")
+    return {"line": getattr(importlib.import_module(module), name)(
+        **job["args"])}
+
+
 def _run_job(job: dict) -> dict:
     from mpi_operator_tpu_torch.cmd import eval as eval_cmd
     from mpi_operator_tpu_torch.cmd import train
+
+    if job.get("cmd") == "op":
+        return _run_op(job)
 
     real_build = train.build_workload
     if job.get("sigterm"):
