@@ -126,7 +126,21 @@ Phases, in order:
    12; Ulysses: the one-process 12/6/6), with each rank's step_ms, peak
    memory and transport bytes beside the one-process run's; gloo
    through the host on one card, not a multi-GPU node;
-9. ``operator``: the port's job path, from create to a terminal
+9. ``tp``: tensor parallelism and FSDP on the one card, each run
+   through ``cmd.train.main`` on a gang over gloo (the world phase's
+   ``--world-child``), 3 steps, against the one-process run of the same
+   call (curve at rtol 2e-3): mixtral-8x7b at full width, 1 layer, B=2,
+   S=2048, lr 3e-5 on ``--mesh fsdp=2`` and on ``--mesh tp=2`` (16 q / 4
+   kv heads and half of every expert's hidden dim a rank); vit-base, seq2seq-small
+   and resnet101 (``--bn-kernel xla``, the replicated layout) on
+   ``tp=2``; bert-base S=512 (the mask layout) on ``--mesh sp=2,tp=2``,
+   four processes, as the ring and as Ulysses. Each rank's flat kernel
+   launches are held to the run's count at the local head counts (the
+   wrappers count them by q/kv heads, ``ops/attention.py:LAUNCH_HEADS``);
+   step_ms, peak GB a rank and the bytes the first step hands gloo a
+   rank (by c10d op, from a dispatch mode) are printed beside the
+   one-process run's;
+10. ``operator``: the port's job path, from create to a terminal
    condition, through its own control plane in this process
    (``InMemoryAPIServer``, ``TPUJobController``, ``LocalPodRunner``
    auto-binding, told the card count), every worker pod a process on the
@@ -143,7 +157,7 @@ Phases, in order:
    ``python -m mpi_operator_tpu_torch.cmd.operator --backend memory
    --apply mpi_operator_tpu_torch/examples/pi.yaml --exit-on-completion``
    as a process (exit 0, its wall time);
-10. ``observe``: the operator under faults, in this process's control
+11. ``observe``: the operator under faults, in this process's control
    plane with the step-skew and memory matrices and a monitoring
    server: llama3-8b / 2 layers on ``h100-1`` as a pod with
    ``--heartbeat-every 2`` and ``TPU_JAX_TRACE=1`` (its heartbeat and
@@ -165,9 +179,9 @@ Phases, in order:
    this process with ``--profile-dir`` (the trace must name the three
    flash kernels) and ``torch.cuda``'s sync debug mode, whose syncs the
    tracer must count;
-11. ``profile`` (opt-in, ``--phases profile``): where one training step's
+12. ``profile`` (opt-in, ``--phases profile``): where one training step's
    time goes, for each arm (device kernel time by kind, idle share);
-12. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
+13. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
    step, as a same-call A/B: the Llama and the BERT-base train runs
    synthetic and on a token file in turns (S D D S, four times), 10 steps
    each, with every run's step_ms and each side's median.
@@ -275,6 +289,15 @@ S2S_TRAIN_ARGS = [
     "--steps", "6", "--warmup", "2", "--lr", "3e-4", "--log-every", "1",
 ]
 S2S_ATTENTION_CALLS = 18  # 6 encoder self, 6 decoder self, 6 cross
+
+
+def _with_flag(argv: list, flag: str, value) -> list:
+    i = argv.index(flag)
+    return argv[:i + 1] + [str(value)] + argv[i + 2:]
+
+
+def _with_steps(argv: list, steps: int) -> list:
+    return _with_flag(argv, "--steps", steps)
 
 # The data, checkpoint and eval checks of the train phase.
 # llama3-8b on 5 x 2048 tokens: at B=2, step 2 takes positions 4 and 5,
@@ -2780,10 +2803,11 @@ MOE_WORLD_ARGS = [
 
 
 @contextlib.contextmanager
-def _recorded(train, curve: list, sigterm_after: int = 0):
+def _recorded(train, curve: list, sigterm_after: int = 0, first_under=None):
     """Each step's (local) loss appended to ``curve``; with
     ``sigterm_after``, SIGTERM this process after that many steps, as a
-    kubelet preempting its pod."""
+    kubelet preempting its pod; with ``first_under`` (a context manager),
+    the first step runs inside it."""
     import signal
 
     real = train.build_workload
@@ -2793,7 +2817,11 @@ def _recorded(train, curve: list, sigterm_after: int = 0):
         step_fn = work.step_fn
 
         def step(*batch):
-            loss = step_fn(*batch)
+            if first_under is not None and not curve:
+                with first_under:
+                    loss = step_fn(*batch)
+            else:
+                loss = step_fn(*batch)
             curve.append(loss.detach().clone())
             if len(curve) == sigterm_after:
                 signal.raise_signal(signal.SIGTERM)
@@ -2817,17 +2845,71 @@ def _expert_shapes(model) -> list:
             if name.endswith("moe.expert_wg")]
 
 
+# The bytes a rank hands to each kind of collective (its input: what it
+# contributes to an all-reduce, an all-gather or a reduce-scatter), by
+# the c10d op the call reaches: the index of that op's input argument.
+# An op not listed is counted with all its tensors, under its own name.
+COLLECTIVE_INPUT = {
+    "c10d.allreduce_": 0, "c10d.allreduce_coalesced_": 0,
+    "c10d.broadcast_": 0, "c10d.send": 0, "c10d._allgather_base_": 1,
+    "c10d.allgather_": 1, "c10d.allgather_into_tensor_coalesced_": 1,
+    "c10d._reduce_scatter_base_": 1, "c10d.reduce_scatter_": 1,
+    "c10d.reduce_scatter_tensor_coalesced_": 1, "c10d.alltoall_base_": 1,
+    "_c10d_functional.all_reduce": 0,
+    "_c10d_functional.all_gather_into_tensor": 0,
+    "_c10d_functional.reduce_scatter_tensor": 0,
+    "_c10d_functional.all_to_all_single": 0,
+}
+# Ops of c10d that move no payload of their own.
+COLLECTIVE_QUIET = ("_c10d_functional.wait_tensor",
+                    "_c10d_functional._wrap_tensor_autograd", "c10d.recv_",
+                    "c10d.barrier")
+
+
+def _collective_counter():
+    """A dispatch mode that adds the bytes of each collective this process
+    enters while it is on to ``bytes`` (op -> bytes), by
+    COLLECTIVE_INPUT: what one step hands gloo, whoever calls it (FSDP2,
+    DTensor's redistributions, the port's own sums)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Counter(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.bytes = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = str(func.overloadpacket)
+            if "c10d" in name and name not in COLLECTIVE_QUIET:
+                at = COLLECTIVE_INPUT.get(name)
+                payload = (args if at is None else args[at],
+                           kwargs if at is None else ())
+                size = sum(t.numel() * t.element_size()
+                           for t in tree_leaves(payload)
+                           if isinstance(t, torch.Tensor))
+                self.bytes[name] = self.bytes.get(name, 0) + size
+            return func(*args, **(kwargs or {}))
+
+    return Counter()
+
+
 def _world_job(job: dict) -> dict:
     """One ``cmd.train`` or ``cmd.eval`` call in this process, with every
     launch counter set to 0 just before it and read just after; returns
-    its last JSON line (None when it printed none), the counts, the curve
-    of its local losses and the trained model's local expert shapes."""
+    its last JSON line (None when it printed none), the counts (also by
+    the flat kernels' head counts), the curve of its local losses and the
+    trained model's local expert shapes. With ``count_bytes`` the first
+    step (a warmup step, outside step_ms) runs under
+    :func:`_collective_counter` and its bytes come back by op."""
     import gc
 
     import torch
 
     from mpi_operator_tpu_torch.cmd import eval as eval_cmd
     from mpi_operator_tpu_torch.cmd import train
+    from mpi_operator_tpu_torch.ops import attention as attn
 
     import torch.distributed as dist
 
@@ -2835,14 +2917,16 @@ def _world_job(job: dict) -> dict:
 
     entry = eval_cmd.main if job.get("cmd") == "eval" else train.main
     curve, buf, works = [], io.StringIO(), []
+    counter = _collective_counter() if job.get("count_bytes") else None
     torch.cuda.reset_peak_memory_stats()
     for route in sharding.SEQUENCE_BYTES:
         sharding.SEQUENCE_BYTES[route] = 0
     _reset_all_launch_counts()
-    with _recorded(train, curve, job.get("sigterm_after", 0)), \
+    with _recorded(train, curve, job.get("sigterm_after", 0), counter), \
             _kept(train, works), contextlib.redirect_stdout(buf):
         rc = entry(job["argv"])
     launches = _all_launch_counts()
+    heads = dict(attn.LAUNCH_HEADS)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if rc != 0:
         raise AssertionError(f"{job['argv']} returned {rc}")
@@ -2853,10 +2937,25 @@ def _world_job(job: dict) -> dict:
     lines = [json.loads(line) for line in buf.getvalue().splitlines()
              if line.startswith("{")]
     return {"line": lines[-1] if lines else None, "launches": launches,
-            "curve": [float(x) for x in curve],
+            "heads": heads, "curve": [float(x) for x in curve],
+            "step_bytes": counter.bytes if counter is not None else None,
             "experts": experts[0] if experts else [], "peak_gb": peak_gb,
             "backend": dist.get_backend() if dist.is_initialized() else None,
             "sequence_bytes": dict(sharding.SEQUENCE_BYTES)}
+
+
+# One-process reference runs by argv, made once a run: the tp phase holds
+# two gangs against each of its Mixtral and BERT calls.
+_ONE_PROCESS: dict = {}
+
+
+def _one_process(argv: list) -> dict:
+    """:func:`_world_job` of ``argv`` in this process, the first time it
+    is asked for in this run; the same result after."""
+    key = tuple(argv)
+    if key not in _ONE_PROCESS:
+        _ONE_PROCESS[key] = _world_job({"argv": argv})
+    return _ONE_PROCESS[key]
 
 
 def world_child(spec: str) -> int:
@@ -2890,11 +2989,11 @@ def world_child(spec: str) -> int:
     return 0
 
 
-def _run_gang(jobs: list, tmp: Path) -> list:
-    """``jobs`` in each of WORLD_PROCESSES processes of one world on the
-    card (``python3 chip_smoke.py --world-child``, gloo). A rank that
-    fails stops every rank and fails the phase, naming the rank and
-    showing the end of its log. Returns each rank's job results."""
+def _run_gang(jobs: list, tmp: Path, n: int = WORLD_PROCESSES) -> list:
+    """``jobs`` in each of ``n`` processes of one world on the card
+    (``python3 chip_smoke.py --world-child``, gloo). A rank that fails
+    stops every rank and fails the phase, naming the rank and showing the
+    end of its log. Returns each rank's job results."""
     import os
 
     from mpi_operator_tpu_torch.utils.net import free_port_pair
@@ -2903,10 +3002,10 @@ def _run_gang(jobs: list, tmp: Path) -> list:
     spec.write_text(json.dumps(jobs))
     port = free_port_pair()
     procs, logs = [], []
-    for rank in range(WORLD_PROCESSES):
+    for rank in range(n):
         env = {**os.environ,
                "TPUJOB_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
-               "TPUJOB_NUM_PROCESSES": str(WORLD_PROCESSES),
+               "TPUJOB_NUM_PROCESSES": str(n),
                "TPUJOB_PROCESS_ID": str(rank), "TPU_WORKER_ID": str(rank),
                "TPUJOB_DIST_BACKEND": "gloo"}
         out, err = tmp / f"rank{rank}.out", tmp / f"rank{rank}.err"
@@ -3361,6 +3460,123 @@ def run_sp(tmp: Path) -> dict:
     return {f"sp {arm}": got[arm][0]["launches"] for arm in got}
 
 
+# -- tp: tensor parallelism and FSDP on every model the trainer shards ----
+
+# Each run: (the one-process call, the flags that put it on its mesh, the
+# processes, the flat kernels' launches a rank and the q/kv heads they
+# see). Mixtral at the world phase's ep=2 depth (1 layer, full width,
+# B=2, S=2048, 3 steps) at a tenth of its rate: at 3e-4 the one-layer
+# model overshoots by step 3 (10.88 -> 5.45 -> 7.68 on one process),
+# which magnifies the bf16 rounding that a layout moves (tp sums its
+# partial products in bf16 across the ranks, fsdp multiplies other row
+# counts) past any fixed tolerance: 8.7e-2 (tp=2) and 4.3e-3 (fsdp=2)
+# apart at 3e-4, from 3.1e-5 and 0 at the first step; ep=2 keeps 3e-4,
+# its partial sums being exact (one nonzero part an element). On fsdp=2
+# FSDP2 shards everything on dim 0 (the experts' E among it)
+# and splits the batch, each kernel sees the 32/8 heads; on tp=2 each
+# rank holds 16 q and 4 kv heads and half of every expert's hidden dim.
+# vit-base and seq2seq-small on tp=2 (6/6 and 4/4 heads a rank),
+# resnet101 on tp=2 as the replicated layout (the xla BN route: the
+# pallas kernels refuse any multi-device mesh), 3 steps each; bert-base
+# S=512 on sp=2,tp=2 over four processes (the mask layout: gathered
+# positions are not ported on sp), the ring on 6/6 heads a rank and
+# Ulysses on 3/3 (sp splits the 6 local heads again), 3 steps each. Each
+# curve (the ranks' mean) is held to the one-process curve of the same
+# call at WORLD_LOSS_RTOL.
+TP_STEPS = 3
+RESNET_TP_ARGS = _with_steps(
+    [a if a != "pallas" else "xla" for a in RESNET_TRAIN_ARGS], TP_STEPS)
+BERT_SP_TP_ARGS = _with_steps(
+    [a if a != "positions" else "mask" for a in BERT_TRAIN_ARGS], TP_STEPS)
+MOE_TP_ARGS = _with_flag(MOE_WORLD_ARGS, "--lr", "3e-5")
+_MOE_FLASH = (2 * TP_STEPS, TP_STEPS, TP_STEPS)  # one layer, remat
+_TP2 = ["--mesh", "tp=2"]
+TP_RUNS = {
+    "mixtral-8x7b/1 fsdp=2": (MOE_TP_ARGS, ["--mesh", "fsdp=2"], 2,
+                              _MOE_FLASH, (32, 8)),
+    "mixtral-8x7b/1 tp=2": (MOE_TP_ARGS, _TP2, 2, _MOE_FLASH, (16, 4)),
+    "vit-base tp=2": (_with_steps(VIT_TRAIN_ARGS, TP_STEPS), _TP2, 2,
+                      (VIT_LAYERS * TP_STEPS,) * 3, (6, 6)),
+    "seq2seq-small tp=2": (_with_steps(S2S_TRAIN_ARGS, TP_STEPS), _TP2, 2,
+                           (S2S_ATTENTION_CALLS * TP_STEPS,) * 3, (4, 4)),
+    "resnet101 tp=2": (RESNET_TP_ARGS, _TP2, 2, (0, 0, 0), None),
+    "bert-base sp=2,tp=2 ring": (
+        BERT_SP_TP_ARGS, ["--mesh", "sp=2,tp=2", "--sequence-parallel",
+                          "ring"], 4,
+        (SP_HOPS * BERT_LAYERS * TP_STEPS,) * 3, (6, 6)),
+    "bert-base sp=2,tp=2 ulysses": (
+        BERT_SP_TP_ARGS, ["--mesh", "sp=2,tp=2", "--sequence-parallel",
+                          "ulysses"], 4, (BERT_LAYERS * TP_STEPS,) * 3,
+        (3, 3)),
+}
+
+
+def run_tp(tmp: Path) -> dict:
+    """Phase ``tp``: each of TP_RUNS on its gang of processes on the one
+    card over gloo (the two-process runs in one gang, the four-process
+    ones in another), against the one-process run of the same call: the
+    curve, each rank's flat kernel launches and the head counts they saw,
+    step_ms, peak GB a rank and the bytes one step hands gloo a rank (the
+    first step, counted by op). Returns rank 0's launch counts by run."""
+    import torch
+
+    card = card_line()
+    t0 = time.perf_counter()
+    one = {name: _one_process(run[0]) for name, run in TP_RUNS.items()}
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+    got, gang_s = {}, {}
+    for n in sorted({run[2] for run in TP_RUNS.values()}):
+        names = [name for name, run in TP_RUNS.items() if run[2] == n]
+        t0 = time.perf_counter()
+        ranks = _run_gang([{"argv": TP_RUNS[name][0] + TP_RUNS[name][1],
+                            "count_bytes": True} for name in names], tmp, n)
+        gang_s[n] = time.perf_counter() - t0
+        got.update({name: [r[i] for r in ranks]
+                    for i, name in enumerate(names)})
+    flat = FLASH_NAMES["flat"]
+    failed = []
+    for name, (argv, flags, n, counts, heads) in TP_RUNS.items():
+        results, ref = got[name], one[name]
+        want = _want_launches(dict(zip(flat, counts)))
+        want_heads = ({f"{k} {heads[0]}/{heads[1]}": c
+                       for k, c in zip(flat, counts)} if heads else {})
+        curve = [sum(c) / n for c in zip(*(r["curve"] for r in results))]
+        lines = [r["line"] for r in results]
+        ok = (_close(curve, ref["curve"], WORLD_LOSS_RTOL)
+              and curve[-1] < curve[0]
+              and all(r["launches"] == want and r["heads"] == want_heads
+                      for r in results)
+              and all(line["devices"] == n and line["steps"] == TP_STEPS
+                      for line in lines))
+        if name.startswith("mixtral"):
+            # Each rank's experts after the steps: FSDP2's shard of dim 0
+            # on fsdp=2; half of every expert's hidden dim on tp=2.
+            shape = [8, 4096, 7168] if flags == _TP2 else [4, 4096, 14336]
+            ok = ok and all(r["experts"] == [shape] for r in results)
+        log(f"tp {name}: curve {[round(x, 6) for x in curve]} vs one "
+            f"process {[round(x, 6) for x in ref['curve']]} (rtol "
+            f"{WORLD_LOSS_RTOL}); flat launches a rank by heads "
+            f"{[r['heads'] for r in results]} (want {want_heads}; every "
+            f"other counter 0: "
+            f"{all(r['launches'] == want for r in results)}); step_ms "
+            f"{[line['step_ms'] for line in lines]} (one process "
+            f"{ref['line']['step_ms']}); peak GB "
+            f"{[round(r['peak_gb'], 2) for r in results]} (one process "
+            f"{ref['peak_gb']:.2f}); bytes to gloo a rank in step 1 "
+            f"{[r['step_bytes'] for r in results]}; card {card} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(name)
+    log(f"tp phase: one-process runs {one_s:.1f} s; gangs on one card over "
+        f"gloo (the step times measure gloo through the host on one card, "
+        f"not a multi-GPU node) {json.dumps({k: round(v, 1) for k, v in gang_s.items()})} s "
+        f"by processes")
+    if failed:
+        raise AssertionError(f"tp checks failed: {failed}")
+    return {f"tp {name}": got[name][0]["launches"] for name in TP_RUNS}
+
+
 # Phase ``operator``: jobs taken from create to a terminal condition by
 # the port's own control plane in this process (InMemoryAPIServer,
 # TPUJobController, LocalPodRunner auto-binding to its node), every
@@ -3559,11 +3775,6 @@ def run_operator(tmp: Path, direct: dict) -> dict:
 
 # llama3-8b / 2 layers as a pod with step heartbeats: warmup 2, 8 timed
 # steps, a window every 2 (4 windows, one device-memory sample each).
-def _with_steps(argv: list, steps: int) -> list:
-    i = argv.index("--steps")
-    return argv[:i + 1] + [str(steps)] + argv[i + 2:]
-
-
 OBSERVE_STEPS = 10
 OBSERVE_TRAIN_ARGS = _with_steps(TRAIN_ARGS, OBSERVE_STEPS) + [
     "--heartbeat-every", "2"]
@@ -4081,10 +4292,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,model,train,moe,decode,world,sp,"
-                                "operator,observe",
+                                "tp,operator,observe",
                         help="comma-separated subset of kernels,model,train,"
-                             "moe,decode,world,sp,operator,observe and the "
-                             "opt-in profile and data")
+                             "moe,decode,world,sp,tp,operator,observe and "
+                             "the opt-in profile and data")
     parser.add_argument("--world-child", default="", help=argparse.SUPPRESS)
     parser.add_argument("--gloo-probe", default="", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
@@ -4217,6 +4428,17 @@ def main(argv=None) -> int:
                 records[name].setdefault("launches_by_path", {}).update(
                     {k: c[name] for k, c in by_path.items()})
         log(f"card: {card}; sp phase done in "
+            f"{time.perf_counter() - t0:.1f} s")
+    if "tp" in phases:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+            by_path = run_tp(Path(tmp))
+        for name in FLASH_NAMES["flat"]:
+            if name in records:
+                records[name].setdefault("launches_by_path", {}).update(
+                    {k: c[name] for k, c in by_path.items()})
+        log(f"card: {card}; tp phase done in "
             f"{time.perf_counter() - t0:.1f} s")
     direct = None
     if "operator" in phases:

@@ -148,9 +148,6 @@ def main(argv=None) -> int:
         cfg = lib.config_for(args.model, attention_impl="flash")
     except KeyError:
         raise SystemExit(f"unknown --model {args.model!r} (llama family only)")
-    if cfg.is_moe and (sizes.get("tp", 1) > 1 or sizes.get("fsdp", 1) > 1):
-        raise SystemExit(f"--mesh {args.mesh} with an MoE model is not "
-                         f"ported yet (ROADMAP.md queue (a) item 13)")
     seq_len = args.seq_len or cfg.max_seq_len
     if seq_len > cfg.max_seq_len:
         raise SystemExit(

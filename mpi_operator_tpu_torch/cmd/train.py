@@ -26,10 +26,12 @@ per device:
 Flow: rendezvous (launcher.bootstrap: a one-process job skips it; a
 larger one forms its torch.distributed world from the controller's env)
 -> the mesh from ``--mesh`` over the world -> model, placed on the mesh
-(``parallel/sharding.py``: a tensor-parallel plan on tp, FSDP2 on fsdp,
-HSDP on dp x fsdp, MoE experts sharded on ep, gradient averaging on dp
-alone and on sp; on sp each rank keeps its positions of its rows and
-the attention runs as a ring or Ulysses over the sp group) + optimizer
+(``parallel/sharding.py``: a tensor-parallel plan on tp, ResNet's
+replicated over it, FSDP2 on fsdp, HSDP on dp x fsdp, MoE experts
+sharded on ep and their hidden dim on tp, gradient averaging on dp alone
+and on sp; on sp each rank keeps its positions of its rows and the
+attention runs as a ring or Ulysses over the sp group of its tp
+coordinate, on its local heads) + optimizer
 (ResNet:
 SGD nesterov momentum 0.9; Llama, BERT, ViT and seq2seq: AdamW) ->
 resume from ``--checkpoint-dir``
@@ -125,9 +127,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "seq2seq-tiny")
     p.add_argument("--mesh", default="",
                    help="axis spec over the world's processes, e.g. dp=-1, "
-                        "dp=2,fsdp=2, tp=2, dp=2,ep=2 (MoE) or dp=2,sp=2 "
-                        "(llama, bert: the sequence split over sp); pp is "
-                        "not ported yet")
+                        "dp=2,fsdp=2, tp=2, dp=2,ep=2 or ep=2,tp=2 (MoE), "
+                        "dp=2,sp=2 or sp=2,tp=2 (llama, bert: the sequence "
+                        "split over sp); pp is not ported yet")
     p.add_argument("--steps", type=int, default=100,
                    help="ABSOLUTE target step")
     p.add_argument("--warmup", type=int, default=3)
@@ -214,21 +216,16 @@ def refuse_unported(args) -> None:
 
 
 def check_moe_mesh(args) -> None:
-    """The mesh against the model: MoE with tp or fsdp is not ported
-    (naming its ROADMAP.md item); the JAX trainer's checks that ``ep > 1``
-    needs an MoE model whose expert count it divides. Raises ValueError
-    for a malformed ``--mesh``."""
+    """The mesh against the model, the JAX trainer's checks: ``ep > 1``
+    needs an MoE model whose expert count it divides. (tp and fsdp take
+    any model: an MoE model's experts split their hidden dim over tp and
+    FSDP2 shards them over fsdp.) Raises ValueError for a malformed
+    ``--mesh``."""
     from ..models import llama as lib
 
     sizes = parse_mesh_spec(args.mesh)
     cfg = lib.CONFIGS[args.model]() if args.model in lib.CONFIGS else None
     moe = cfg is not None and cfg.is_moe
-    for axis in ("tp", "fsdp"):
-        if moe and sizes.get(axis, 1) > 1:
-            raise SystemExit(
-                f"--mesh {axis}={sizes[axis]} with an MoE model (--model "
-                f"{args.model}) is not ported yet (ROADMAP.md queue (a) "
-                f"item 13)")
     ep = sizes.get("ep", 1)
     if ep > 1 and not moe:
         raise SystemExit(
@@ -240,8 +237,10 @@ def check_moe_mesh(args) -> None:
 def check_sp_mesh(args) -> None:
     """The sp axis against the rest of the call, as the JAX trainer
     checks it: a token model (llama, bert), --seq-len divisible by sp
-    (by 2*sp for the zigzag ring), no MoE; tp x sp and BERT's gathered
-    positions on sp are not ported (naming the ROADMAP.md item)."""
+    (by 2*sp for the zigzag ring), no MoE; with tp, Ulysses splits the
+    local heads (n_heads / tp) over sp. BERT's gathered positions on sp
+    are not ported (naming the ROADMAP.md item)."""
+    from ..models import bert
     from ..models import llama as lib
 
     sizes = parse_mesh_spec(args.mesh)
@@ -258,14 +257,10 @@ def check_sp_mesh(args) -> None:
             f"--mesh sp={sp} with an MoE model (--model {args.model}): MoE "
             f"composes with dp/tp/ep; sp (routing capacity is per sequence) "
             f"does not apply")
-    refuse = "is not ported yet (ROADMAP.md queue (a) item 15)"
-    if sizes.get("tp", 1) > 1:
-        raise SystemExit(f"--mesh sp={sp},tp={sizes['tp']}: tensor x "
-                         f"sequence parallelism {refuse}")
     if args.model.startswith("bert") and args.mlm_layout == "positions":
         raise SystemExit(f"--mlm-layout positions with --mesh sp={sp} (its "
-                         f"[B, P] slots gather across sequence shards) "
-                         f"{refuse}")
+                         f"[B, P] slots gather across sequence shards) is not "
+                         f"ported yet (ROADMAP.md queue (a) item 15)")
     if args.seq_len % sp:
         raise SystemExit(f"--seq-len {args.seq_len} not divisible by sp={sp}")
     if (args.zigzag_ring and args.sequence_parallel == "ring"
@@ -274,6 +269,14 @@ def check_sp_mesh(args) -> None:
         # forces it off), so the constraint only binds the Llama ring.
         raise SystemExit(f"--zigzag-ring needs --seq-len divisible by "
                          f"2*sp={2 * sp}")
+    tp = sizes.get("tp", 1)
+    if cfg is None and args.model in bert.CONFIGS:
+        cfg = bert.CONFIGS[args.model]()
+    if (args.sequence_parallel == "ulysses" and cfg is not None
+            and not cfg.n_heads % tp and (cfg.n_heads // tp) % sp):
+        raise SystemExit(
+            f"--sequence-parallel ulysses needs sp={sp} to divide the "
+            f"{cfg.n_heads // tp} heads a tp={tp} rank holds; use the ring")
 
 
 def _make_learning_rate(args):
@@ -342,7 +345,8 @@ def _resnet_workload(args, mesh, n_devices: int) -> Workload:
     lib.init_params(
         model, torch.Generator(device=mesh.device).manual_seed(args.seed)
     )
-    shard_params(model, mesh)
+    shard_params(model, mesh, tp_plan=lambda: lib.tensor_parallel_plan(
+        model, mesh.axis_size("tp")))
     lr = _make_learning_rate(args)
     schedule = lr if callable(lr) else None
     # optax.sgd(lr, momentum=0.9, nesterov=True): no dampening, no decay.
@@ -654,7 +658,8 @@ def _vit_workload(args, mesh, n_devices: int) -> Workload:
     model = lib.ViT(cfg, device=mesh.device)
     lib.init_params(
         model, torch.Generator(device=mesh.device).manual_seed(args.seed))
-    shard_params(model, mesh)
+    shard_params(model, mesh, tp_plan=lambda: lib.tensor_parallel_plan(
+        model, mesh.axis_size("tp")))
     rng = np.random.RandomState(args.seed)
     images = rng.standard_normal(
         (global_batch, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
@@ -681,7 +686,8 @@ def _seq2seq_workload(args, mesh, n_devices: int) -> Workload:
     model = lib.Seq2Seq(cfg, device=mesh.device)
     lib.init_params(
         model, torch.Generator(device=mesh.device).manual_seed(args.seed))
-    shard_params(model, mesh)
+    shard_params(model, mesh, tp_plan=lambda: lib.tensor_parallel_plan(
+        model, mesh.axis_size("tp")))
     rng = np.random.RandomState(args.seed)
     src = rng.randint(1, cfg.vocab_size, (global_batch, src_len))
     return _adamw_workload(args, mesh, model, lib.make_train_step,

@@ -303,9 +303,12 @@ def make_train_step_positions(model: Bert, optimizer, accum_steps: int = 1,
 def tensor_parallel_plan(model: Bert, tp: int) -> dict:
     """Megatron tensor parallelism over ``tp`` ranks, the JAX package's
     ``param_sharding_rules`` (models/bert.py:222) on DTensor: q/k/v and
-    ffn_in column-parallel, wo and ffn_out row-parallel. The token table
-    (which the MLM head reads, tied) stays whole on every tp rank (JAX
-    splits its vocab over tp): same result, replicated."""
+    ffn_in column-parallel (their biases split with their features), wo
+    and ffn_out row-parallel (each bias added once, to the sum across
+    tp). The token table (which the MLM head reads, tied) stays whole on
+    every tp rank (JAX splits its vocab over tp): same result,
+    replicated. ViT's encoder layers carry the same names, and this is
+    its plan too."""
     from torch.distributed.tensor.parallel import (
         ColwiseParallel,
         RowwiseParallel,

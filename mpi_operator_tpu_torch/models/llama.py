@@ -442,28 +442,30 @@ def tensor_parallel_plan(model: Llama, tp: int) -> dict:
     column-parallel q/k/v, gate and up (output features, so heads and ffn
     width, split over tp), row-parallel wo and down (their products
     summed across tp). Attention runs on the local heads and the MLP on
-    the local ffn width. The embedding and the LM head stay whole on
-    every tp rank (JAX splits the vocab over tp): same result, the head
-    replicated instead of sharded."""
+    the local ffn width. An MoE block's attention takes the same plan;
+    its experts split their hidden dim over tp outside the plan
+    (``parallel/sharding.py:shard_experts``) and its router stays whole.
+    The embedding and the LM head stay whole on every tp rank (JAX
+    splits the vocab over tp): same result, the head replicated instead
+    of sharded."""
     from torch.distributed.tensor.parallel import (
         ColwiseParallel,
         RowwiseParallel,
     )
 
     cfg = model.config
-    if cfg.is_moe:
-        raise SystemExit(
-            f"--mesh tp={tp} with an MoE model is not ported yet (ROADMAP.md "
-            f"queue (a) item 13)")
     if cfg.n_kv_heads % tp or cfg.n_heads % tp or cfg.ffn_dim % tp:
         raise SystemExit(
             f"--mesh tp={tp} must divide n_kv_heads={cfg.n_kv_heads}, "
             f"n_heads={cfg.n_heads} and ffn_dim={cfg.ffn_dim}")
+    columns = ("attn.wq", "attn.wk", "attn.wv")
+    rows = ("attn.wo",)
+    if not cfg.is_moe:
+        columns += ("mlp.w_gate", "mlp.w_up")
+        rows += ("mlp.w_down",)
     plan = {}
     for i in range(cfg.n_layers):
-        for name in ("attn.wq", "attn.wk", "attn.wv", "mlp.w_gate",
-                     "mlp.w_up"):
-            plan[f"layer_{i}.{name}"] = ColwiseParallel()
-        for name in ("attn.wo", "mlp.w_down"):
-            plan[f"layer_{i}.{name}"] = RowwiseParallel()
+        plan.update({f"layer_{i}.{name}": ColwiseParallel()
+                     for name in columns})
+        plan.update({f"layer_{i}.{name}": RowwiseParallel() for name in rows})
     return plan

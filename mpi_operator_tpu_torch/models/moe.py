@@ -25,17 +25,21 @@ The load-balance loss is Switch's ``E * sum_e f_e * p_e`` (f_e: the
 share of tokens whose top-1 choice is e; p_e: the mean router
 probability), 1.0 at perfect balance.
 
-Expert parallelism: the expert weights may be DTensors sharded on dim 0
-over the ``ep`` axis (``parallel/sharding.py:shard_experts``). Each ep
-rank then routes its batch rows over all E experts, runs its E/ep
-experts on their slots and combines them into a partial output; the
-partial outputs are summed over the ep group in f32 (``sum_partials``),
-which is what GSPMD makes of the JAX package's shardings (an all-reduce,
-not an all-to-all). In the backward the gradients of the expert
-branch's two inputs from the replicated part, the tokens and the
-combine weights, are summed over ep (``sum_grads``), as GSPMD's
-transposed products sum them: every rank then holds the whole gradient
-of the router, the attention and the embeddings, and each expert's own.
+Expert and tensor parallelism: the expert weights may be DTensors
+sharded on dim 0 over the ``ep`` axis and on the hidden dim F over the
+``tp`` axis (``parallel/sharding.py:shard_experts``; the JAX rules'
+``P(ep, fsdp, tp)``). Each rank then routes its batch rows over all E
+experts, runs its E/ep experts on their slots with its F/tp columns of
+the hidden layer (a SwiGLU is elementwise in F, and the down projection
+sums over F) and combines them into a partial output; the partial
+outputs are summed over the ep and the tp group in f32
+(``sum_partials``), which is what GSPMD makes of the JAX package's
+shardings (all-reduces, not an all-to-all). In the backward the
+gradients of the expert branch's two inputs from the replicated part,
+the tokens and the combine weights, are summed over the same groups
+(``sum_grads``), as GSPMD's transposed products sum them: every rank
+then holds the whole gradient of the router, the attention and the
+embeddings, and each expert block's own.
 """
 
 from __future__ import annotations
@@ -50,6 +54,8 @@ from torch import nn
 from ..ops.losses import HeadProduct
 
 EXPERT_PARAMS = ("expert_wg", "expert_wu", "expert_wd")
+# The dim of each that holds the expert hidden dim F (split over tp).
+EXPERT_HIDDEN_DIM = {"expert_wg": 2, "expert_wu": 2, "expert_wd": 1}
 
 
 def expert_capacity(tokens_per_group: int, n_experts: int, top_k: int,
@@ -146,16 +152,21 @@ class MoEMLP(nn.Module):
                                                   **kw))
 
     def local_experts(self):
-        """(wg, wu, wd, group, first): this rank's expert weights, the ep
-        process group their partial outputs are summed over (None when
-        the experts are whole here) and the index of the first one."""
+        """(wg, wu, wd, groups, first): this rank's block of the expert
+        weights, the process groups (ep, tp) its partial outputs are
+        summed over (none when the experts are whole here) and the index
+        of its first expert."""
         ws = [getattr(self, name) for name in EXPERT_PARAMS]
         if not hasattr(ws[0], "to_local"):  # whole, not a DTensor
-            return (*ws, None, 0)
+            return (*ws, [], 0)
         mesh = ws[0].device_mesh
         local = [w.to_local() for w in ws]
-        return (*local, mesh.get_group(),
-                mesh.get_local_rank() * local[0].shape[0])
+        first = 0
+        for dim, placement in enumerate(ws[0].placements):
+            if placement.is_shard(0):  # the experts, over ep
+                first = mesh.get_local_rank(dim) * local[0].shape[0]
+        return (*local, [mesh.get_group(d) for d in range(mesh.ndim)],
+                first)
 
     def forward(self, x):
         from ..parallel.sharding import sum_grads, sum_partials
@@ -170,19 +181,20 @@ class MoEMLP(nn.Module):
         dispatch = dispatch.to(dtype)
         combine = combine.to(self.combine_dtype or dtype)
 
-        wg, wu, wd, group, first = self.local_experts()
+        wg, wu, wd, groups, first = self.local_experts()
         xin = x.to(dtype)
-        if group is not None:
-            n = wg.shape[0]
+        for group in groups:
             xin = sum_grads(xin, group)
-            dispatch = dispatch[:, :, first:first + n]  # 0/1: no gradient
-            combine = sum_grads(combine, group)[:, :, first:first + n]
+            combine = sum_grads(combine, group)
+        n = wg.shape[0]
+        dispatch = dispatch[:, :, first:first + n]  # 0/1: no gradient
+        combine = combine[:, :, first:first + n]
         expert_in = torch.einsum("gsec,gsd->egcd", dispatch, xin)
         h = (F.silu(torch.einsum("egcd,edf->egcf", expert_in, wg.to(dtype)))
              * torch.einsum("egcd,edf->egcf", expert_in, wu.to(dtype)))
         expert_out = torch.einsum("egcf,efd->egcd", h, wd.to(dtype))
         out = _combine(combine, expert_out)
-        if group is not None:
-            # This rank's experts' share of every token: summed in f32.
+        for group in groups:
+            # This rank's block's share of every token: summed in f32.
             out = sum_partials(out, group)
         return out.to(x.dtype), aux

@@ -282,3 +282,14 @@ def make_train_step(model: ResNet, optimizer, lr_schedule=None):
         lambda images, labels: loss_fn(model, images, labels), optimizer,
         lr_schedule=lr_schedule,
     )
+
+
+def tensor_parallel_plan(model: ResNet, tp: int) -> dict:
+    """The replicated layout over ``tp`` ranks: an empty plan. The JAX
+    package has no rule for ResNet (``mpi_operator_tpu/cmd/train.py``
+    shards its params with the default rules), so GSPMD replicates its
+    parameters and work over tp: each tp rank computes its dp x fsdp
+    coordinate's whole batch, and no sum runs across tp. The BN moments
+    of the ``xla`` route, summed over the world, count each tp rank's
+    rows and its element count alike."""
+    return {}

@@ -100,11 +100,14 @@ class _Attention(nn.Module):
         cfg = self.config
         b, sq, _ = x.shape
         sk = kv.shape[1]
-        q = self.wq(x).reshape(b, sq, cfg.n_heads, -1)
-        k = self.wk(kv).reshape(b, sk, cfg.n_heads, -1)
-        v = self.wv(kv).reshape(b, sk, cfg.n_heads, -1)
+        # -1: the heads this process holds (all of them, or n/tp under a
+        # tensor-parallel plan, which shards the projections by head).
+        hd = cfg.head_dim
+        q = self.wq(x).reshape(b, sq, -1, hd)
+        k = self.wk(kv).reshape(b, sk, -1, hd)
+        v = self.wv(kv).reshape(b, sk, -1, hd)
         att = _attend(cfg, q, k, v, self.causal)
-        return self.wo(att.reshape(b, sq, cfg.dim))
+        return self.wo(att.reshape(b, sq, -1))
 
 
 class _MLP(nn.Module):
@@ -232,3 +235,36 @@ def make_train_step(model: Seq2Seq, optimizer, accum_steps: int = 1,
         lambda s, t: loss_fn(model, s, t), optimizer, accum_steps,
         lr_schedule=lr_schedule,
     )
+
+
+def tensor_parallel_plan(model: Seq2Seq, tp: int) -> dict:
+    """Megatron tensor parallelism over ``tp`` ranks, the JAX package's
+    ``param_sharding_rules`` (models/seq2seq.py:230) on DTensor, over the
+    encoder's self-attention, the decoder's self- and cross-attention and
+    every MLP: q/k/v and ffn_in column-parallel, wo and ffn_out
+    row-parallel. The shared token table (encoder, decoder and the tied
+    head) and the position table stay whole on every tp rank (JAX splits
+    the token table's vocab over tp): same result, replicated."""
+    from torch.distributed.tensor.parallel import (
+        ColwiseParallel,
+        RowwiseParallel,
+    )
+
+    cfg = model.config
+    if cfg.n_heads % tp or cfg.ffn_dim % tp:
+        raise SystemExit(f"--mesh tp={tp} must divide n_heads={cfg.n_heads} "
+                         f"and ffn_dim={cfg.ffn_dim}")
+    sublayers = ([f"enc_{i}.self_attn" for i in range(cfg.n_enc_layers)]
+                 + [f"dec_{i}.{kind}" for i in range(cfg.n_dec_layers)
+                    for kind in ("self_attn", "cross_attn")])
+    mlps = ([f"enc_{i}.mlp" for i in range(cfg.n_enc_layers)]
+            + [f"dec_{i}.mlp" for i in range(cfg.n_dec_layers)])
+    plan = {}
+    for at in sublayers:
+        plan.update({f"{at}.{name}": ColwiseParallel()
+                     for name in ("wq", "wk", "wv")})
+        plan[f"{at}.wo"] = RowwiseParallel()
+    for at in mlps:
+        plan[f"{at}.ffn_in"] = ColwiseParallel()
+        plan[f"{at}.ffn_out"] = RowwiseParallel()
+    return plan

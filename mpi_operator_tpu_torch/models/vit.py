@@ -36,7 +36,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention_reference, flash_attention_bshd
 from ..ops.losses import f32_logits
-from .bert import LayerNorm, flax_default_init
+# The tensor-parallel plan is BERT's: the JAX package's ViT rules
+# (models/vit.py:219) split the same encoder layers, named alike
+# (``layer_{i}.wq`` ...), and the embed, cls, pos_embed and head stay whole.
+from .bert import LayerNorm, flax_default_init, tensor_parallel_plan  # noqa: F401
 from .llama import Dense
 
 
@@ -104,7 +107,9 @@ class EncoderBlock(nn.Module):
     def forward(self, x):
         cfg = self.config
         b, s, _ = x.shape
-        shape = (b, s, cfg.n_heads, cfg.head_dim)
+        # -1: the heads this process holds (all of them, or n/tp under a
+        # tensor-parallel plan, which shards the projections by head).
+        shape = (b, s, -1, cfg.head_dim)
         h = self.attn_norm(x)
         q = self.wq(h).reshape(shape)
         k = self.wk(h).reshape(shape)
@@ -120,7 +125,7 @@ class EncoderBlock(nn.Module):
                 f"vit attention_impl must be 'flash' or 'dense', got "
                 f"{cfg.attention_impl!r}"
             )
-        x = x + self.wo(att.reshape(b, s, cfg.dim))
+        x = x + self.wo(att.reshape(b, s, -1))
         h = F.gelu(self.ffn_in(self.mlp_norm(x)), approximate="tanh")
         return x + self.ffn_out(h)
 
@@ -220,3 +225,4 @@ def flops_per_image(cfg: ViTConfig) -> float:
     )
     attn = cfg.n_layers * 4 * n * n * cfg.dim
     return 2.0 * per_token_params * n + attn + 2.0 * cfg.dim * cfg.num_classes
+

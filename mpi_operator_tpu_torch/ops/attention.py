@@ -47,9 +47,16 @@ _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _KERNEL_MAX_D = 128  # csrc/flash_common.cuh MAX_D
 
 
+# The flat kernels' launches since the last reset_launch_counts(), by
+# entry point and the q and kv head counts the launch was given ("flash_fwd
+# 16/4"): a tensor-parallel rank's local heads. Counted beside LAUNCHES.
+LAUNCH_HEADS: dict = {}
+
+
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCH_HEADS.clear()
 
 
 def attention_reference(
@@ -330,12 +337,15 @@ def _check_bhsd(q, k, v, row_ids, col_ids, *extra):
                           q.shape[2])
 
 
-def _launch(name: str, device, *args) -> None:
+def _launch(name: str, device, *args, heads=None) -> None:
     fn = _build.kernel(name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         _build.check(name, fn(*args, stream))
     LAUNCHES[name] += 1
+    if heads is not None:
+        key = f"{name} {heads[0]}/{heads[1]}"
+        LAUNCH_HEADS[key] = LAUNCH_HEADS.get(key, 0) + 1
 
 
 def flash_fwd(qf, kf, vf, h: int, sm_scale: float, causal: bool,
@@ -355,6 +365,7 @@ def flash_fwd(qf, kf, vf, h: int, sm_scale: float, causal: bool,
         "flash_fwd", device, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(),
         lse.data_ptr(), *id_ptrs, b, q_len, kv_len, h, h_kv, d,
         float(sm_scale), int(causal), int(qf.dtype == torch.bfloat16),
+        heads=(h, h_kv),
     )
     return out, lse
 
@@ -381,7 +392,7 @@ def flash_bwd_dq(qf, kf, vf, do, lse, delta, h: int, sm_scale: float,
         "flash_bwd_dq", device, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *id_ptrs, b, q_len,
         kv_len, h, h_kv, d, float(sm_scale), int(causal),
-        int(qf.dtype == torch.bfloat16),
+        int(qf.dtype == torch.bfloat16), heads=(h, h_kv),
     )
     return dq
 
@@ -402,7 +413,7 @@ def flash_bwd_dkv(qf, kf, vf, do, lse, delta, h: int, sm_scale: float,
         "flash_bwd_dkv", device, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *id_ptrs, b,
         q_len, kv_len, h, h_kv, d, float(sm_scale), int(causal),
-        int(qf.dtype == torch.bfloat16),
+        int(qf.dtype == torch.bfloat16), heads=(h, h_kv),
     )
     return dk, dv
 

@@ -9,21 +9,23 @@ collectives are explicit:
   the batch dim; tp ranks hold the same rows), as ``batch_spec`` /
   ``shard_batch`` place them;
 - the parameters: a model's tensor-parallel plan on the ``tp`` axis
-  (DTensor ``ColwiseParallel``/``RowwiseParallel``), then FSDP2
-  ``fully_shard`` per block and at the root over ``fsdp`` (with ``dp`` as
-  well: HSDP on the 2-D mesh); with ``dp`` alone the parameters stay
-  whole and :func:`average_gradients` averages the gradients over
-  ``dp``;
+  (DTensor ``ColwiseParallel``/``RowwiseParallel``; ResNet's plan is
+  empty, its work replicated over tp), then FSDP2 ``fully_shard`` per
+  block and at the root over ``fsdp`` (with ``dp`` as well: HSDP on the
+  2-D mesh); with ``dp`` alone the parameters stay whole and
+  :func:`average_gradients` averages the gradients over ``dp``, each
+  rank's local shard over the ranks that share its tp coordinate;
 - :func:`all_reduce_sum`, the autograd-aware sum across the world that
   the global-batch statistics take (BatchNorm's moments, BERT's MLM
   weight count), as GSPMD takes them over the global batch;
-- the MoE experts: sharded on their expert dim over ``ep``
-  (:func:`shard_experts`). An ep rank sees its dp row's batch and runs
-  its experts; :func:`sum_partials` adds the ranks' partial outputs and
+- the MoE experts: sharded on their expert dim over ``ep`` and on
+  their hidden dim over ``tp`` (:func:`shard_experts`). An ep x tp rank
+  sees its dp row's batch and runs its block of its experts;
+  :func:`sum_partials` adds the ranks' partial outputs and
   :func:`sum_grads` the gradients of the expert branch's inputs, so that
-  every ep rank holds the whole gradient of each parameter it holds
-  whole and the gradients are averaged over dp alone, as GSPMD's
-  gradients of these shardings are complete on every ep device;
+  every rank holds the whole gradient of each parameter it holds whole
+  and the gradients are averaged over dp alone, as GSPMD's gradients of
+  these shardings are complete on every ep and tp device;
 - the sequence: on ``sp`` each rank holds its positions of its batch
   rows (:func:`local_positions`, contiguous or zigzag), the parameters
   stay whole and their gradients are averaged over sp as over dp. The
@@ -115,23 +117,24 @@ def active_mesh_axis(mesh: Optional[Mesh], name: str) -> Optional[str]:
 def shard_params(model: torch.nn.Module, mesh: Mesh, *,
                  tp_plan: Optional[Callable[[], dict]] = None
                  ) -> torch.nn.Module:
-    """Lay ``model``'s parameters out on ``mesh``, in place: the
-    tensor-parallel plan ``tp_plan()`` (module name -> ParallelStyle) on
-    the tp axis, then FSDP2 ``fully_shard`` on each block (a child named
-    as the models name their layers) and at the root over fsdp (HSDP
-    over dp x fsdp). Parameters the forward reads outside a block
-    (embeddings, heads) stay with the root, whose forward gathers them.
-    On ep the MoE experts shard (:func:`shard_experts`). A world of one,
-    or dp alone, leaves the parameters whole. Build the optimizer after
-    this: it must hold the sharded parameters."""
-    if mesh.axis_size(EP) > 1:
-        shard_experts(model, mesh.submesh(EP))
+    """Lay ``model``'s parameters out on ``mesh``, in place: the MoE
+    experts on ep x tp (:func:`shard_experts`), the tensor-parallel plan
+    ``tp_plan()`` (module name -> ParallelStyle) on the tp axis, then
+    FSDP2 ``fully_shard`` on each block (a child named as the models name
+    their layers) and at the root over fsdp (HSDP over dp x fsdp).
+    Parameters the forward reads outside a block (embeddings, heads) stay
+    with the root, whose forward gathers them. An empty plan is the
+    replicated layout (ResNet, which JAX leaves to GSPMD with no rule):
+    every tp rank computes its dp x fsdp coordinate's whole batch and no
+    sum runs across tp. A world of one, or dp alone, leaves the
+    parameters whole. Build the optimizer after this: it must hold the
+    sharded parameters."""
+    shard_experts(model, mesh)
     if mesh.axis_size(TP) > 1:
         if tp_plan is None:
-            raise SystemExit(
-                f"--mesh tp={mesh.axis_size(TP)}: tensor parallelism for "
-                f"{type(model).__name__} is not ported yet (ROADMAP.md "
-                f"queue (a) item 7)")
+            raise ValueError(f"--mesh tp={mesh.axis_size(TP)}: no "
+                             f"tensor-parallel plan for "
+                             f"{type(model).__name__}")
         from torch.distributed.tensor.parallel import parallelize_module
 
         plan = tp_plan()
@@ -143,6 +146,10 @@ def shard_params(model: torch.nn.Module, mesh: Mesh, *,
     if mesh.axis_size(FSDP) > 1:
         from torch.distributed.fsdp import fully_shard
 
+        # The ep x tp meshes of the experts and the plan are children of
+        # the same DeviceMesh as this one, as FSDP2 requires of a DTensor
+        # parameter; where the experts' dim 0 is already split over ep,
+        # FSDP2 splits it again over fsdp (a strided shard).
         shard_mesh = mesh.submesh(DP, FSDP)
         for name, block in model.named_children():
             if _BLOCK_NAME.match(name):
@@ -151,29 +158,42 @@ def shard_params(model: torch.nn.Module, mesh: Mesh, *,
     return model
 
 
-def shard_experts(model: torch.nn.Module, ep_mesh) -> None:
-    """Replace every MoE expert weight (``models/moe.py:EXPERT_PARAMS``,
-    [E, ...]) of ``model`` by a DTensor sharded on its expert dim over
-    ``ep_mesh``: each rank keeps its block of E/ep experts, cut from the
-    whole weight every rank built from one seed. DCP then writes each
-    rank's experts and reshards them on load."""
+def shard_experts(model: torch.nn.Module, mesh: Mesh) -> None:
+    """Replace every MoE expert weight (``models/moe.py:EXPERT_PARAMS``)
+    of ``model`` by a DTensor over the ep x tp submesh of ``mesh`` (the
+    axes of size > 1; nothing to do without either), as the JAX rules
+    ``P(ep, fsdp, tp)`` / ``P(ep, tp, fsdp)`` shard them: the expert dim
+    E over ep and the expert hidden dim F over tp (``expert_wg`` and
+    ``expert_wu`` [E, D, F] on dim 2, ``expert_wd`` [E, F, D] on dim 1).
+    Each rank keeps its block, cut from the whole weight every rank built
+    from one seed. DCP then writes each rank's block and reshards it on
+    load."""
     from torch.distributed.tensor import DTensor, Shard
 
-    from ..models.moe import EXPERT_PARAMS
+    from ..models.moe import EXPERT_HIDDEN_DIM, EXPERT_PARAMS
 
-    n, rank = ep_mesh.size(), ep_mesh.get_local_rank()
+    axes = [a for a in (EP, TP) if mesh.axis_size(a) > 1]
+    if not axes:
+        return
+    sub = mesh.submesh(*axes)
     for module in model.modules():
         for name in EXPERT_PARAMS:
             p = module._parameters.get(name)
             if p is None:
                 continue
-            if p.shape[0] % n:
-                raise SystemExit(f"{p.shape[0]} experts not divisible by "
-                                 f"ep={n}")
-            per = p.shape[0] // n
-            local = p.detach()[rank * per:(rank + 1) * per].clone()
+            dims = [0 if a == EP else EXPERT_HIDDEN_DIM[name] for a in axes]
+            local = p.detach()
+            for axis, dim in zip(axes, dims):
+                n = mesh.axis_size(axis)
+                if local.shape[dim] % n:
+                    what = "experts" if axis == EP else "expert hidden dim"
+                    raise SystemExit(f"{p.shape[dim]} ({what}) not divisible "
+                                     f"by {axis}={n}")
+                per = local.shape[dim] // n
+                local = local.narrow(dim, mesh.coordinate(axis) * per, per)
             module.register_parameter(name, torch.nn.Parameter(
-                DTensor.from_local(local, ep_mesh, [Shard(0)],
+                DTensor.from_local(local.clone(), sub,
+                                   [Shard(d) for d in dims],
                                    run_check=False)))
 
 
@@ -185,7 +205,9 @@ def average_gradients(optimizer, mesh: Mesh) -> None:
     each such group, a bucket of at most ``_BUCKET_BYTES`` of one dtype
     at a time (a larger gradient alone, in place), so the flat copies
     stay small beside the gradients; the gradient of an FSDP2 shard is
-    averaged the same way over sp."""
+    averaged the same way over sp. A group holds the ranks that share
+    every other coordinate, tp's among them, so a tensor-parallel
+    gradient's local shard meets only the same shard on its peers."""
     import torch.distributed as dist
     from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 

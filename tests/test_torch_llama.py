@@ -151,10 +151,15 @@ def test_init_params_follows_flax_distributions_and_seed():
 
 def test_unported_configs_raise():
     # MoE configs build since models/moe.py came (tests/test_torch_moe.py);
-    # tensor parallelism over their experts does not.
+    # their tensor-parallel plan is the attention's (the experts split
+    # outside it), and tp must divide the heads.
     moe = tllama.Llama(tllama.config_for("llama-moe-tiny"), device="cpu")
-    with pytest.raises(SystemExit, match="item 13"):
-        tllama.tensor_parallel_plan(moe, 2)
+    plan = tllama.tensor_parallel_plan(moe, 2)
+    assert sorted(plan) == sorted(
+        f"layer_{i}.attn.{w}" for i in range(2)
+        for w in ("wq", "wk", "wv", "wo"))
+    with pytest.raises(SystemExit, match="must divide n_kv_heads=2"):
+        tllama.tensor_parallel_plan(moe, 4)
     with pytest.raises(NotImplementedError, match="item 4"):
         tllama.Llama(tllama.tiny(remat_policy="dots"), device="cpu")
     with pytest.raises(KeyError, match="unknown llama model"):

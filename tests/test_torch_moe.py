@@ -262,7 +262,7 @@ def test_mixtral_takes_the_llama_workload(monkeypatch, tmp_path, data):
     train.build_workload(train.build_parser().parse_args(argv), None, 1)
     assert seen == ["mixtral-8x7b"]
     for mesh, match in (("ep=3", "8 experts not divisible by ep=3"),
-                        ("tp=2", r"queue \(a\) item 13")):
+                        ("tp=2", "require 2 devices, have 1")):
         with pytest.raises(SystemExit, match=match):
             train.main(["--device", "cpu", "--model", "mixtral-8x7b",
                         "--mesh", mesh])

@@ -62,18 +62,11 @@ def test_loss_falls_with_grad_accum_and_cosine_schedule(capsys):
 
 
 REFUSED = {
-    # MoE trains since the ep axis came; with tp or fsdp it refuses.
-    "moe": (["--model", "mixtral-8x7b", "--mesh", "tp=2"], "item 13"),
-    "moe-tiny": (["--model", "llama-moe-tiny", "--mesh", "fsdp=2"],
-                 "item 13"),
-    # sp trains since ring and Ulysses came; with tp it refuses, and so
-    # do BERT's gathered positions on it.
-    "mesh": (["--mesh", "sp=2,tp=2"], "item 15"),
+    # sp trains since ring and Ulysses came, with tp too; BERT's gathered
+    # positions on it refuse.
     "mesh-sp-positions": (["--model", "bert-tiny", "--mlm-layout",
                            "positions", "--mesh", "sp=2"], "item 15"),
     "mesh-pp": (["--mesh", "dp=1,pp=2"], "item 16"),
-    "mesh-ep": (["--model", "llama-moe-tiny", "--mesh", "ep=2,tp=2"],
-                "item 13"),
     "remat": (["--remat-policy", "dots"], "item 4"),
 }
 
@@ -83,6 +76,24 @@ def test_unported_flags_refuse_loudly(flag):
     extra, item = REFUSED[flag]
     argv = ["--device", "cpu", "--model", "llama-tiny", "--steps", "1", *extra]
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue \\(a\\) {item}"):
+        train.main(argv)
+
+
+PORTED_MESHES = {
+    # MoE on tp and fsdp, with ep or not, and tp x sp: past the mesh
+    # checks, one process stops only at the mesh's device count.
+    "moe": (["--model", "mixtral-8x7b", "--mesh", "tp=2"], 2),
+    "moe-tiny": (["--model", "llama-moe-tiny", "--mesh", "fsdp=2"], 2),
+    "mesh": (["--mesh", "sp=2,tp=2"], 4),
+    "mesh-ep": (["--model", "llama-moe-tiny", "--mesh", "ep=2,tp=2"], 4),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(PORTED_MESHES))
+def test_ported_meshes_pass_the_checks(flag):
+    extra, n = PORTED_MESHES[flag]
+    argv = ["--device", "cpu", "--model", "llama-tiny", "--steps", "1", *extra]
+    with pytest.raises(SystemExit, match=f"require {n} devices, have 1"):
         train.main(argv)
 
 
@@ -96,6 +107,10 @@ SP_REFUSED = {
                "--zigzag-ring needs --seq-len divisible by 2\\*sp=4"),
     "no-sequence": (["--model", "resnet18", "--mesh", "sp=2"],
                     "shards the sequence of the token models"),
+    # Ulysses splits a tp rank's heads (4 / tp=2) over sp.
+    "ulysses-tp": (["--mesh", "sp=4,tp=2", "--seq-len", "16",
+                    "--sequence-parallel", "ulysses"],
+                   "needs sp=4 to divide the 2 heads a tp=2 rank holds"),
 }
 
 

@@ -108,10 +108,11 @@ def _init_from(weights: str):
     JAX init): after the model's own init, so that a parameter the JAX
     tree lacks (BERT's type_embed, which gets no gradient) is seeded as
     usual."""
-    from mpi_operator_tpu_torch.models import bert, llama, resnet
+    from mpi_operator_tpu_torch.models import bert, llama, resnet, seq2seq, vit
 
     state = torch.load(weights)
-    own = {lib: lib.init_params for lib in (bert, llama, resnet)}
+    own = {lib: lib.init_params for lib in (bert, llama, resnet, seq2seq,
+                                            vit)}
     for lib, real in own.items():
         def init(model, generator, _real=real):
             _real(model, generator)
@@ -234,6 +235,10 @@ def jax_reference(argv: list, mesh_spec: str, steps: int = 3):
                                               host["batch_stats"])
     elif args.model.startswith("bert"):
         init = interop.bert_params_from_jax(host["params"])
+    elif args.model.startswith("vit"):
+        init = interop.vit_params_from_jax(host["params"])
+    elif args.model.startswith("seq2seq"):
+        init = interop.seq2seq_params_from_jax(host["params"])
     else:
         init = interop.llama_params_from_jax(host["params"])
     return losses, init

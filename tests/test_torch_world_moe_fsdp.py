@@ -1,0 +1,21 @@
+"""The MoE Llama on ``--mesh fsdp=2``, two processes on the CPU over gloo,
+against the JAX trainer on the 8-device CPU mesh with ``dp=-1,fsdp=2``:
+llama-moe-tiny (4 experts, top-2), FSDP2 sharding every parameter on
+dim 0 (the experts' E among them) and the batch over fsdp, from the JAX
+init, the first and third global-batch loss at rtol 1e-5 (f32 both
+sides; only the order of the sums differs). The spawn helper is
+``tests/test_torch_world.py``'s.
+"""
+
+import pytest
+
+from tests.test_torch_world import assert_matches_jax, compare_to_jax
+from tests.test_torch_world_ep import MOE
+
+pytestmark = pytest.mark.kernel
+
+
+def test_moe_matches_the_jax_trainer(tmp_path):
+    want, lines = compare_to_jax(tmp_path, "fsdp=2", "dp=-1,fsdp=2", 2,
+                                 models=MOE)["llama-moe-tiny"]
+    assert_matches_jax(want, lines, 2)

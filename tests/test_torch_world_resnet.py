@@ -19,8 +19,8 @@ so the run is held, from the JAX init, to two references:
   alone puts between the one-process port and JAX (7.8e-5 and 5.6e-3).
 
 The ``pallas`` route keeps JAX's single-device refusal, with JAX's
-message, and ``tp`` refuses for the models without a tensor-parallel
-plan. The spawn helper is ``tests/test_torch_world.py``'s.
+message, on dp and on tp. The spawn helper is
+``tests/test_torch_world.py``'s.
 """
 
 import numpy as np
@@ -62,18 +62,13 @@ def test_resnet_dp2_xla_route_normalises_by_the_global_moments(tmp_path):
 
 def test_unported_layouts_refuse_on_two_processes():
     """The ``pallas`` BN route refuses any multi-device mesh with JAX's
-    message; tp for a model without a tensor-parallel plan (ViT, seq2seq,
-    ResNet) refuses naming its ROADMAP item."""
+    message: dp=2, and tp=2, whose replicated layout runs the ``xla``
+    route (``tests/test_torch_world_tp_models.py``)."""
     cpu = ["--device", "cpu", *BASE]
-    jobs = [{"argv": [*cpu, "--mesh", "dp=2", *RESNET[:-1], "pallas"]},
-            *({"argv": [*cpu, "--mesh", "tp=2", "--model", model,
-                        "--image-size", "16"]}
-              for model in ("vit-tiny", "seq2seq-tiny", "resnet18"))]
+    jobs = [{"argv": [*cpu, "--mesh", mesh, *RESNET[:-1], "pallas"]}
+            for mesh in ("dp=2", "tp=2")]
     for rank in run_gang(2, jobs):
-        assert rank[0]["exit"] == ("--bn-kernel pallas runs the "
-                                   "single-device path only; this mesh has "
-                                   "2 devices")
-        for record, name in zip(rank[1:], ("ViT", "Seq2Seq", "ResNet")):
-            assert record["exit"] == (
-                f"--mesh tp=2: tensor parallelism for {name} is not ported "
-                f"yet (ROADMAP.md queue (a) item 7)")
+        for record in rank:
+            assert record["exit"] == ("--bn-kernel pallas runs the "
+                                      "single-device path only; this mesh "
+                                      "has 2 devices")
