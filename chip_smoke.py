@@ -137,9 +137,9 @@ Phases, in order:
    four processes, as the ring and as Ulysses. Each rank's flat kernel
    launches are held to the run's count at the local head counts (the
    wrappers count them by q/kv heads, ``ops/attention.py:LAUNCH_HEADS``);
-   step_ms, peak GB a rank and the bytes the first step hands gloo a
-   rank (by c10d op, from a dispatch mode) are printed beside the
-   one-process run's;
+   step_ms, peak GB a rank (allocated and reserved) and the bytes the
+   first step hands gloo a rank (by c10d op, from a dispatch mode) are
+   printed beside the one-process run's;
 10. ``operator``: the port's job path, from create to a terminal
    condition, through its own control plane in this process
    (``InMemoryAPIServer``, ``TPUJobController``, ``LocalPodRunner``
@@ -179,9 +179,24 @@ Phases, in order:
    this process with ``--profile-dir`` (the trace must name the three
    flash kernels) and ``torch.cuda``'s sync debug mode, whose syncs the
    tracer must count;
-12. ``profile`` (opt-in, ``--phases profile``): where one training step's
+12. ``kube``: the port's operator on a cluster's terms: ``python -m
+   mpi_operator_tpu_torch.cmd.operator --backend kube --kubeconfig
+   <file>`` as a process against ``APIServerFrontend`` (the envtest
+   analog: real HTTP, a random bearer token, watch streams) over a fresh
+   ``InMemoryAPIServer``, with a ``LocalPodRunner`` over its own REST
+   client playing the node's kubelet (in this script only; a cluster
+   brings its own). pi on ``h100-2`` (create to both pods Running and to
+   Succeeded over REST, beside the operator phase's in-memory numbers);
+   llama3-8b / 2 layers on ``h100-1`` with the train phase's arguments
+   (24/12/12, first loss within rtol 1e-3 of the direct call) through a
+   429 burst the operator absorbs (its ``/metrics`` counts the retries)
+   and a compaction of the watch history while the node's pod watch is
+   down (it resumes with a 410 and relists); a malformed command
+   (Failed, naming the pod); ``--apply`` of the shipped pi.yaml over REST
+   as a process (exit 0); ``--backend kube --enable-scheduler`` refused;
+13. ``profile`` (opt-in, ``--phases profile``): where one training step's
    time goes, for each arm (device kernel time by kind, idle share);
-13. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
+14. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
    step, as a same-call A/B: the Llama and the BERT-base train runs
    synthetic and on a token file in turns (S D D S, four times), 10 steps
    each, with every run's step_ms and each side's median.
@@ -356,6 +371,24 @@ REPLACES = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def free_card(label: str) -> None:
+    """Hand this process's cached device memory back to the card before
+    other processes take it (the gangs and pods put two to four more
+    processes on the one card), and log what this process still holds
+    beside what the card has in use."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"card memory before {label}: this process allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, reserved "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB; the card "
+        f"{(total - free) / 1e9:.2f} GB in use of {total / 1e9:.2f} GB")
 
 
 def card_line() -> str:
@@ -2788,6 +2821,9 @@ WORLD_MESH_STEPS = 3
 # rounding at the loss.
 WORLD_LOSS_RTOL = 2e-3
 WORLD_TIMEOUT_S = 600
+# What a gang rank takes on the card outside its caching allocator (the
+# CUDA context, cuBLAS and kernel modules: ~1 GB a process, measured).
+RANK_CONTEXT_BYTES = 1_500_000_000
 # Mixtral-8x7B with --mesh ep=2 on the two processes, depth 1 (16.1 GB of
 # f32 state a rank: the 262 M embedding and head and 42 M of attention
 # whole, 4 of the 8 experts' 1.41 G), B=2, S=2048, 3 steps, against one
@@ -2928,6 +2964,7 @@ def _world_job(job: dict) -> dict:
     launches = _all_launch_counts()
     heads = dict(attn.LAUNCH_HEADS)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_reserved_gb = torch.cuda.max_memory_reserved() / 1e9
     if rc != 0:
         raise AssertionError(f"{job['argv']} returned {rc}")
     experts = [_expert_shapes(w.model) for w in works]
@@ -2940,6 +2977,7 @@ def _world_job(job: dict) -> dict:
             "heads": heads, "curve": [float(x) for x in curve],
             "step_bytes": counter.bytes if counter is not None else None,
             "experts": experts[0] if experts else [], "peak_gb": peak_gb,
+            "peak_reserved_gb": peak_reserved_gb,
             "backend": dist.get_backend() if dist.is_initialized() else None,
             "sequence_bytes": dict(sharding.SEQUENCE_BYTES)}
 
@@ -2968,6 +3006,10 @@ def world_child(spec: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rank = int(os.environ["TPUJOB_PROCESS_ID"])
+    share = int(os.environ.get("CHIP_SMOKE_RANK_MEMORY_BYTES", "0"))
+    if share:
+        torch.cuda.set_per_process_memory_fraction(
+            min(1.0, share / torch.cuda.mem_get_info()[1]))
     for job in json.loads(Path(spec).read_text()):
         if job.get("sigterm_rank", rank) != rank:
             job = {**job, "sigterm_after": 0}
@@ -2993,13 +3035,23 @@ def _run_gang(jobs: list, tmp: Path, n: int = WORLD_PROCESSES) -> list:
     """``jobs`` in each of ``n`` processes of one world on the card
     (``python3 chip_smoke.py --world-child``, gloo). A rank that fails
     stops every rank and fails the phase, naming the rank and showing the
-    end of its log. Returns each rank's job results."""
+    end of its log. Each rank's caching allocator is held to an equal
+    share of the card's free memory (less RANK_CONTEXT_BYTES), so it
+    hands cached blocks back before it takes what another rank needs.
+    Returns each rank's job results."""
     import os
+
+    import torch
 
     from mpi_operator_tpu_torch.utils.net import free_port_pair
 
     spec = tmp / "world_jobs.json"
     spec.write_text(json.dumps(jobs))
+    free, total = torch.cuda.mem_get_info()
+    share = max(free // n - RANK_CONTEXT_BYTES, 0)
+    log(f"gang of {n} on the card: each rank's allocator held to "
+        f"{share / 1e9:.2f} GB ({free / 1e9:.2f} GB free of "
+        f"{total / 1e9:.2f} GB)")
     port = free_port_pair()
     procs, logs = [], []
     for rank in range(n):
@@ -3007,7 +3059,8 @@ def _run_gang(jobs: list, tmp: Path, n: int = WORLD_PROCESSES) -> list:
                "TPUJOB_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
                "TPUJOB_NUM_PROCESSES": str(n),
                "TPUJOB_PROCESS_ID": str(rank), "TPU_WORKER_ID": str(rank),
-               "TPUJOB_DIST_BACKEND": "gloo"}
+               "TPUJOB_DIST_BACKEND": "gloo",
+               "CHIP_SMOKE_RANK_MEMORY_BYTES": str(share)}
         out, err = tmp / f"rank{rank}.out", tmp / f"rank{rank}.err"
         logs.append((out, err))
         procs.append(subprocess.Popen(
@@ -3516,14 +3569,15 @@ def run_tp(tmp: Path) -> dict:
     card over gloo (the two-process runs in one gang, the four-process
     ones in another), against the one-process run of the same call: the
     curve, each rank's flat kernel launches and the head counts they saw,
-    step_ms, peak GB a rank and the bytes one step hands gloo a rank (the
-    first step, counted by op). Returns rank 0's launch counts by run."""
+    step_ms, peak GB a rank (allocated and reserved) and the bytes one
+    step hands gloo a rank (the first step, counted by op). Returns rank
+    0's launch counts by run."""
     import torch
 
     card = card_line()
     t0 = time.perf_counter()
     one = {name: _one_process(run[0]) for name, run in TP_RUNS.items()}
-    torch.cuda.empty_cache()
+    free_card("the tp gangs")
     one_s = time.perf_counter() - t0
     got, gang_s = {}, {}
     for n in sorted({run[2] for run in TP_RUNS.values()}):
@@ -3562,8 +3616,10 @@ def run_tp(tmp: Path) -> dict:
             f"{all(r['launches'] == want for r in results)}); step_ms "
             f"{[line['step_ms'] for line in lines]} (one process "
             f"{ref['line']['step_ms']}); peak GB "
-            f"{[round(r['peak_gb'], 2) for r in results]} (one process "
-            f"{ref['peak_gb']:.2f}); bytes to gloo a rank in step 1 "
+            f"{[round(r['peak_gb'], 2) for r in results]}, reserved "
+            f"{[round(r['peak_reserved_gb'], 2) for r in results]} (one "
+            f"process {ref['peak_gb']:.2f}, reserved "
+            f"{ref['peak_reserved_gb']:.2f}); bytes to gloo a rank in step 1 "
             f"{[r['step_bytes'] for r in results]}; card {card} -> "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -3585,6 +3641,9 @@ OPERATOR_STARTUP_BOUND_S = 200  # PERF.md section 2, the reference's bound
 OPERATOR_JOB_TIMEOUT_S = 240
 OPERATOR_LOSS_RTOL = 1e-3
 PI_YAML = "mpi_operator_tpu_torch/examples/pi.yaml"
+# The operator phase's pi job in this run (in-memory control plane), for
+# the kube phase to print its REST numbers beside.
+OPERATOR_PI: dict = {}
 
 
 def _operator_cluster():
@@ -3674,6 +3733,7 @@ def run_operator(tmp: Path, direct: dict) -> dict:
     try:
         api.create("tpujobs", _operator_job("pi", "h100-2", None))
         pi = _await_job(api, "pi", 2)
+        OPERATOR_PI.update(pi)
         log(runner.pod_log("default", "pi-worker-0").strip()[-2000:])
         check("pi h100-2",
               pi["condition"]["type"] == "Succeeded"
@@ -3768,6 +3828,277 @@ def run_operator(tmp: Path, direct: dict) -> dict:
         log(out.stderr[-4000:])
     if failed:
         raise AssertionError(f"operator checks failed: {failed}")
+    return launches
+
+
+# -- kube: the operator as a process against an apiserver over REST ------
+
+KUBE_PROBE_ANNOTATION = "chip-smoke/relist-probe"
+KUBE_SETTLE_S = 3.0  # > the 2 s a 10-token burst takes to refill at 5 QPS
+
+
+def _hold_watch(watch):
+    """Drop a KubeWatch's stream and hold its reconnect until the returned
+    event is set: while it is held, writes land that it cannot see."""
+    import socket
+    import threading
+
+    gate = threading.Event()
+    reopen = watch._open_stream
+
+    def gated():
+        gate.wait(OPERATOR_JOB_TIMEOUT_S)
+        return reopen()
+
+    watch._open_stream = gated
+    conn = watch._conn
+    conn.sock.shutdown(socket.SHUT_RDWR)
+    conn.close()
+    return gate
+
+
+def _until(predicate, what: str, timeout: float = OPERATOR_JOB_TIMEOUT_S):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = predicate()
+        if got:
+            return got
+        time.sleep(0.05)
+    raise AssertionError(f"kube phase: timed out waiting for {what}")
+
+
+def _scrape(port: int) -> dict:
+    """The operator's /metrics as {series: value} (unlabelled series)."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=10) as resp:
+        text = resp.read().decode()
+    out = {}
+    for line in text.splitlines():
+        parts = line.split()
+        if len(parts) == 2 and not line.startswith("#"):
+            try:
+                out[parts[0]] = float(parts[1])
+            except ValueError:
+                pass
+    return out
+
+
+def _scrape_or_none(port: int):
+    try:
+        return _scrape(port)
+    except OSError:
+        return None
+
+
+def run_kube(tmp: Path, direct: dict) -> dict:
+    """Phase ``kube``: ``python -m mpi_operator_tpu_torch.cmd.operator
+    --backend kube --kubeconfig <file>`` as a process against
+    ``APIServerFrontend`` (the envtest analog, a random bearer token, on
+    localhost) over a fresh ``InMemoryAPIServer``. A ``LocalPodRunner``
+    over its own REST client plays the node's kubelet here and nowhere in
+    the product, told the card count. Jobs go in through a REST client:
+    pi on ``h100-2``; llama3-8b / 2 layers on ``h100-1`` with TRAIN_ARGS,
+    held to ``direct`` (the train phase's summary of the same call), and,
+    while it runs, a 429 burst the operator must absorb (3 requests shed)
+    and a compaction of the watch history while the node's pod watch is
+    down, so that its resume 410s and it relists; a malformed command.
+    Then ``--apply`` of the shipped pi.yaml as a process over REST, and
+    ``--enable-scheduler`` with ``--backend kube`` refused. Returns the
+    Llama pod's launch counts."""
+    import secrets
+    import signal
+    import socket
+
+    import torch
+
+    from mpi_operator_tpu_torch.runtime.apiserver import InMemoryAPIServer
+    from mpi_operator_tpu_torch.runtime.httpserver import APIServerFrontend
+    from mpi_operator_tpu_torch.runtime.kube import KubeAPIServer, RestConfig
+    from mpi_operator_tpu_torch.runtime.podrunner import LocalPodRunner
+
+    failed = []
+    root = Path(__file__).resolve().parent
+
+    def check(label: str, ok: bool, detail: str) -> None:
+        log(f"kube {label}: {detail} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(label)
+
+    token = secrets.token_hex(16)
+    fe = APIServerFrontend(InMemoryAPIServer(), token=token).start()
+    kubeconfig = tmp / "kubeconfig"
+    kubeconfig.write_text(json.dumps({
+        "apiVersion": "v1", "kind": "Config", "current-context": "envtest",
+        "clusters": [{"name": "envtest", "cluster": {"server": fe.url}}],
+        "contexts": [{"name": "envtest", "context": {
+            "cluster": "envtest", "user": "operator"}}],
+        "users": [{"name": "operator", "user": {"token": token}}],
+    }))
+    client = KubeAPIServer(RestConfig(host=fe.url, token=token))
+    node = KubeAPIServer(RestConfig(host=fe.url, token=token))
+    runner = LocalPodRunner(node, workdir=str(root),
+                            cuda_devices=torch.cuda.device_count())
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    operator_log = tmp / "operator.log"
+    cmd = [sys.executable, "-m", "mpi_operator_tpu_torch.cmd.operator",
+           "--backend", "kube", "--kubeconfig", str(kubeconfig)]
+    operator = None
+    try:
+        runner.start()
+        with open(operator_log, "w") as out:
+            operator = subprocess.Popen(
+                cmd + ["--monitoring-port", str(port)], cwd=root,
+                stdout=out, stderr=subprocess.STDOUT)
+        _until(lambda: _scrape_or_none(port), "the operator's /metrics")
+        # The operator's start (the CRD preflight, then six informers' lists
+        # and watch opens: 13 requests) overdraws its client's 10-token
+        # burst at 5 QPS. Let the bucket refill, so that pi's times are a
+        # running operator's and not its start's.
+        time.sleep(KUBE_SETTLE_S)
+        startup_throttle = _scrape(port).get(
+            "tpu_operator_rest_client_throttle_seconds_total")
+        log(f"kube operator start: {startup_throttle} s waited on the "
+            f"client limiter (--kube-api-qps 5, burst 10)")
+
+        client.create("tpujobs", _operator_job("pi", "h100-2", None))
+        pi = _await_job(client, "pi", 2)
+        log(runner.pod_log("default", "pi-worker-0").strip()[-2000:])
+        memory = (f"{OPERATOR_PI['running_s']:.3f} s and "
+                  f"{OPERATOR_PI['done_s']:.3f} s" if OPERATOR_PI else
+                  "not run in this call")
+        check("pi h100-2",
+              pi["condition"]["type"] == "Succeeded"
+              and pi["done_s"] < OPERATOR_STARTUP_BOUND_S
+              and "pi is approximately" in runner.pod_log(
+                  "default", "pi-worker-0"),
+              f"over REST create -> both pods Running {pi['running_s']:.3f} "
+              f"s, -> {pi['condition']['type']} {pi['done_s']:.3f} s "
+              f"(in-memory, operator phase: {memory}; startup bound "
+              f"{OPERATOR_STARTUP_BOUND_S} s)")
+
+        # The Llama pod stays up after its steps until released, so the
+        # faults below land while it runs.
+        spec = tmp / "kube_llama.json"
+        release = tmp / "kube_llama.release"
+        spec.write_text(json.dumps([{"argv": TRAIN_ARGS,
+                                     "release": str(release)}]))
+        client.create("tpujobs", _operator_job(
+            "llama", "h100-1",
+            ["python", "chip_smoke.py", "--world-child", str(spec)]))
+        t0 = time.perf_counter()
+        api = fe.api  # read directly: no request of this script meets a 429
+        _until(lambda: any((p.get("status") or {}).get("phase") == "Running"
+                           for p in api.list("pods", "default")
+                           if p["metadata"]["name"] == "llama-worker-0"),
+               "the Llama pod Running")
+        pod_watch = runner._pod_watch
+        gate = _hold_watch(pod_watch)
+        # With the node's pod watch down and this script's client idle,
+        # the operator's own calls meet the burst: its re-create of the
+        # job's headless Service, deleted behind its back.
+        fe.throttle_429 = 3
+        api.delete("services", "default", "llama-worker")
+        _until(lambda: fe.throttle_429 == 0 and any(
+            s["metadata"]["name"] == "llama-worker"
+            for s in api.list("services", "default")),
+            "the Service re-created through the 429 burst")
+        pod = api.get("pods", "default", "llama-worker-0")
+        pod["metadata"].setdefault("annotations", {})[
+            KUBE_PROBE_ANNOTATION] = "1"
+        rv = int(api.update("pods", pod)["metadata"]["resourceVersion"])
+        _until(lambda: any(erv >= rv for erv, _ in fe._history["pods"]),
+               "the probe in the watch history")
+        fe.compact()
+        gate.set()
+        _until(lambda: pod_watch.relist_count >= 1, "the node's relist")
+        release.write_text("go")
+        llama = _await_job(client, "llama", 1)
+        llama["done_s"] = time.perf_counter() - t0
+        pod_log = runner.pod_log("default", "llama-worker-0")
+        results = [json.loads(line)["result"] for line in pod_log.splitlines()
+                   if line.startswith('{"result"')]
+        if llama["condition"]["type"] != "Succeeded" or not results:
+            raise AssertionError(
+                f"kube llama3-8b job: {llama['condition']}\n"
+                f"{pod_log[-6000:]}")
+        got, launches = results[0]["line"], results[0]["launches"]
+        layers, steps = 2, got["steps"]
+        want = _want_launches({"flash_fwd": 2 * layers * steps,
+                               "flash_bwd_dq": layers * steps,
+                               "flash_bwd_dkv": layers * steps})
+        rel = abs(got["first_loss"] - direct["first_loss"]) / abs(
+            direct["first_loss"])
+        metrics = _scrape(port)
+        retries = metrics.get("tpu_operator_rest_client_retries_total", 0)
+        check("llama3-8b/2 layers h100-1",
+              steps == 6 and launches == want and math.isfinite(got["loss"])
+              and got["loss"] < got["first_loss"]
+              and rel <= OPERATOR_LOSS_RTOL,
+              f"{llama['condition']['type']} in {llama['done_s']:.3f} s; "
+              f"launches {launches} (want {want}); loss "
+              f"{got['first_loss']:.6f} -> {got['loss']:.6f}; first loss vs "
+              f"the direct call {direct['first_loss']:.6f}: rel {rel:.3e} "
+              f"(tol {OPERATOR_LOSS_RTOL:.0e}); step_ms {got['step_ms']}")
+        check("faults during the Llama job",
+              fe.throttle_hits == 3 and retries >= 1
+              and pod_watch.relist_count >= 1,
+              f"429s served {fe.throttle_hits}; the operator's /metrics "
+              f"tpu_operator_rest_client_retries_total {retries}, "
+              f"throttle_seconds_total "
+              f"{metrics.get('tpu_operator_rest_client_throttle_seconds_total')}"
+              f"; the node's pod-watch relists {pod_watch.relist_count}, its "
+              f"client's retries {node.retry_count}")
+
+        client.create("tpujobs", _operator_job(
+            "broken", "h100-1", ["python", "-c", "raise SystemExit(3)"]))
+        broken = _await_job(client, "broken", 1)
+        check("malformed command",
+              broken["condition"]["type"] == "Failed"
+              and "broken-worker-0" in broken["condition"]["message"],
+              f"{broken['condition']['type']} in {broken['done_s']:.3f} s: "
+              f"{broken['condition']['message'][:200]!r}")
+
+        # One operator at a time (no leader election here): stop this one,
+        # and free the name pi for the shipped manifest.
+        operator.send_signal(signal.SIGINT)
+        operator.wait(timeout=60)
+        client.delete("tpujobs", "default", "pi")
+        _until(lambda: not any(p["metadata"]["name"].startswith("pi-")
+                               for p in api.list("pods", "default")),
+               "pi's pods collected")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            cmd + ["--apply", PI_YAML, "--exit-on-completion"], cwd=root,
+            capture_output=True, text=True, timeout=OPERATOR_JOB_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        check("cmd.operator --backend kube --apply pi.yaml",
+              out.returncode == 0
+              and "TPUJob default/pi: Succeeded" in out.stdout,
+              f"exit {out.returncode} in {wall:.3f} s wall: "
+              f"{out.stdout.strip().splitlines()[-1:]}")
+        if out.returncode != 0:
+            log(out.stderr[-4000:])
+        refused = subprocess.run(cmd + ["--enable-scheduler"], cwd=root,
+                                 capture_output=True, text=True, timeout=60)
+        check("--backend kube --enable-scheduler refused",
+              refused.returncode == 1
+              and "requires --backend memory" in refused.stderr,
+              f"exit {refused.returncode}: {refused.stderr.strip()[-200:]!r}")
+    finally:
+        if operator is not None and operator.poll() is None:
+            operator.kill()
+            operator.wait()
+        runner.stop()
+        node.close()
+        client.close()
+        fe.stop()
+    if failed:
+        log(operator_log.read_text()[-4000:])
+        raise AssertionError(f"kube checks failed: {failed}")
     return launches
 
 
@@ -4292,10 +4623,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,model,train,moe,decode,world,sp,"
-                                "tp,operator,observe",
+                                "tp,operator,observe,kube",
                         help="comma-separated subset of kernels,model,train,"
-                             "moe,decode,world,sp,tp,operator,observe and "
-                             "the opt-in profile and data")
+                             "moe,decode,world,sp,tp,operator,observe,kube "
+                             "and the opt-in profile and data")
     parser.add_argument("--world-child", default="", help=argparse.SUPPRESS)
     parser.add_argument("--gloo-probe", default="", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
@@ -4409,8 +4740,8 @@ def main(argv=None) -> int:
                     {f"decode {k}": c[name] for k, c in d_paths.items()})
         log(f"card: {card}; decode phase done")
     del moe_model
-    torch.cuda.empty_cache()
     if "world" in phases:
+        free_card("the world phase")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_world_") as tmp:
             by_path = run_world(Path(tmp))
         for name in FLASH_NAMES["flat"]:
@@ -4419,7 +4750,7 @@ def main(argv=None) -> int:
                     {f"world {k}": c[name] for k, c in by_path.items()})
         log(f"card: {card}; world phase done")
     if "sp" in phases:
-        torch.cuda.empty_cache()
+        free_card("the sp phase")
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_") as tmp:
             by_path = run_sp(Path(tmp))
@@ -4430,7 +4761,7 @@ def main(argv=None) -> int:
         log(f"card: {card}; sp phase done in "
             f"{time.perf_counter() - t0:.1f} s")
     if "tp" in phases:
-        torch.cuda.empty_cache()
+        free_card("the tp phase")
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
             by_path = run_tp(Path(tmp))
@@ -4444,7 +4775,7 @@ def main(argv=None) -> int:
     if "operator" in phases:
         torch.cuda.empty_cache()
         direct = summary if "train" in phases else run_train()[0]
-        torch.cuda.empty_cache()
+        free_card("the operator phase")
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_operator_") as tmp:
             o_launches = run_operator(Path(tmp), direct)
@@ -4458,7 +4789,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         if direct is None:
             direct = summary if "train" in phases else run_train()[0]
-        torch.cuda.empty_cache()
+        free_card("the observe phase")
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_observe_") as tmp:
             h_launches = run_observe(Path(tmp), direct)
@@ -4467,6 +4798,20 @@ def main(argv=None) -> int:
                 records[name].setdefault("launches_by_path", {})[
                     "observe llama3-8b heartbeats"] = h_launches[name]
         log(f"card: {card}; observe phase done in "
+            f"{time.perf_counter() - t0:.1f} s")
+    if "kube" in phases:
+        torch.cuda.empty_cache()
+        if direct is None:
+            direct = summary if "train" in phases else run_train()[0]
+        free_card("the kube phase")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_kube_") as tmp:
+            k_launches = run_kube(Path(tmp), direct)
+        for name in FLASH_NAMES["flat"]:
+            if name in records:
+                records[name].setdefault("launches_by_path", {})[
+                    "kube llama3-8b"] = k_launches[name]
+        log(f"card: {card}; kube phase done in "
             f"{time.perf_counter() - t0:.1f} s")
     if records:
         log(json.dumps({"kernels": list(records.values())}))

@@ -6,19 +6,24 @@ Reference analog: /root/reference/v2/cmd/mpi-operator/ — flags
 election (server.go:210-257), /healthz (:192-208), Prometheus /metrics
 (main.go:29-40), then the controller run loop.
 
-``--backend memory`` boots the in-memory API server with the
-LocalPodRunner kubelet sim (a self-contained "cluster in a process"):
-jobs are admitted, their one-GPU worker pods rendered, bound (by the
-runner, or with ``--enable-scheduler`` by the gang scheduler onto the
-``--node-inventory`` of 8-GPU nodes) and run as local processes on the
-machine's GPUs. With ``--enable-queue`` a job that names a LocalQueue
-starts suspended and is admitted against its ClusterQueue's GPU quota
-(``queue/``; ``--cluster-queue name:h100=<gpus>`` bootstraps one). This
-process imports no torch; the workers do.
+Backends:
+- ``--backend memory`` boots the in-memory API server with the
+  LocalPodRunner kubelet sim (a self-contained "cluster in a process"):
+  jobs are admitted, their one-GPU worker pods rendered, bound (by the
+  runner, or with ``--enable-scheduler`` by the gang scheduler onto the
+  ``--node-inventory`` of 8-GPU nodes) and run as local processes on the
+  machine's GPUs. With ``--enable-queue`` a job that names a LocalQueue
+  starts suspended and is admitted against its ClusterQueue's GPU quota
+  (``queue/``; ``--cluster-queue name:h100=<gpus>`` bootstraps one);
+- ``--backend kube`` talks to a real kube-apiserver over REST
+  (``runtime/kube.py``; kubeconfig / in-cluster config, server.go:103-109
+  analog) — the cluster's kubelet and GC do what LocalPodRunner simulates
+  locally, and its scheduler and queue are the cluster's own. The cluster
+  must serve the port's CRD (``mpi_operator_tpu_torch/deploy/crd.yaml``,
+  which admits ``h100-<gpus>``); ``deploy/gpu-operator.yaml`` next to it
+  installs the operator.
 
-One flag of the JAX package's operator refuses here, naming the ROADMAP
-item that ports it: ``--backend kube`` (the real-cluster backend, item
-19).
+This process imports no torch; the workers do.
 
 Run:  python -m mpi_operator_tpu_torch.cmd.operator --help
       python -m mpi_operator_tpu_torch.cmd.operator --backend memory \
@@ -26,6 +31,8 @@ Run:  python -m mpi_operator_tpu_torch.cmd.operator --help
       python -m mpi_operator_tpu_torch.cmd.operator --backend memory \
           --enable-queue --cluster-queue gpus:h100=2 --enable-scheduler \
           --apply job-a.yaml --apply job-b.yaml --exit-on-completion
+      python -m mpi_operator_tpu_torch.cmd.operator --backend kube \
+          --kubeconfig ~/.kube/config --namespace training
 """
 
 from __future__ import annotations
@@ -49,6 +56,10 @@ from ..runtime.podrunner import LocalPodRunner
 from ..utils import devstats, flightrecorder, goodput, metrics, profiling, stepstats, trace
 from ..utils import logging as logutil
 from ..version import version_string
+
+# The CRD this operator needs: the port's, whose acceleratorType pattern
+# admits h100-<gpus> (the JAX package's crd/ admits only TPU types).
+CRD_MANIFEST = "mpi_operator_tpu_torch/deploy/crd.yaml"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -109,8 +120,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="namespace of the leader-election Lease")
     p.add_argument("--backend", choices=["memory", "kube"], default="memory",
                    help="cluster backend: memory = in-process apiserver + "
-                        "kubelet sim; kube = a real cluster, not ported "
-                        "yet (ROADMAP item 19); refuses")
+                        "kubelet sim; kube = real cluster over REST")
+    p.add_argument("--kubeconfig", default="",
+                   help="path to kubeconfig (default: $KUBECONFIG, then "
+                        "~/.kube/config, then in-cluster config)")
+    p.add_argument("--kube-context", default="",
+                   help="kubeconfig context to use (default: current-context)")
+    p.add_argument("--kube-api-qps", type=float, default=5.0,
+                   help="maximum sustained QPS to the apiserver from this "
+                        "client (0 disables throttling)")
+    p.add_argument("--kube-api-burst", type=int, default=10,
+                   help="maximum burst for apiserver client throttle")
     p.add_argument("--apply", action="append", default=[],
                    help="TPUJob YAML file(s) to apply at startup")
     p.add_argument("--lock-trace", action="store_true",
@@ -402,8 +422,8 @@ def check_crd_exists(api, namespace: str = "") -> None:
         api.list("tpujobs", namespace or None)
     except NotFoundError:
         print(
-            "CRD tpujobs.kubeflow.org not served; install the CRD first "
-            "(kubectl apply -f crd/kubeflow.org_tpujobs.yaml)",
+            "CRD tpujobs.kubeflow.org not served; install the GPU CRD "
+            f"first (kubectl apply -f {CRD_MANIFEST})",
             file=sys.stderr,
         )
         raise SystemExit(1)
@@ -413,8 +433,19 @@ def check_crd_exists(api, namespace: str = "") -> None:
 
 
 def build_backend(args):
-    """Returns (api, runner): the in-memory API server and its kubelet
-    sim, which runs the pods on this machine's GPUs."""
+    """Returns (api, runner): the cluster backend plus, for the memory
+    backend only, the in-process kubelet sim, which runs the pods on this
+    machine's GPUs (a real cluster brings its own kubelet and garbage
+    collector)."""
+    if args.backend == "kube":
+        from ..runtime.kube import KubeAPIServer, load_config
+
+        config = load_config(args.kubeconfig or None,
+                             args.kube_context or None)
+        print(f"connecting to apiserver {config.host}")
+        return KubeAPIServer(
+            config, qps=args.kube_api_qps, burst=args.kube_api_burst,
+        ), None
     api = InMemoryAPIServer()
     # With the in-process scheduler on, the kubelet sim stops playing
     # scheduler: it only launches pods something has bound.
@@ -451,10 +482,17 @@ def run(argv=None) -> int:
         # Before any backend/controller construction: locks created while
         # tracing is off stay plain forever.
         locktrace.enable()
-    if args.backend != "memory":
+    if args.enable_scheduler and args.backend != "memory":
         print(
-            "--backend kube is not ported to the GPU operator yet "
-            "(ROADMAP item 19, runtime/kube.py); use --backend memory",
+            "--enable-scheduler requires --backend memory (a real cluster "
+            "brings its own scheduler)",
+            file=sys.stderr,
+        )
+        return 1
+    if args.enable_queue and args.backend != "memory":
+        print(
+            "--enable-queue requires --backend memory (point a real cluster "
+            "at sigs.k8s.io/kueue instead)",
             file=sys.stderr,
         )
         return 1
@@ -485,6 +523,24 @@ def run(argv=None) -> int:
     is_leader = metrics.new_gauge(
         "tpu_operator_is_leader", "1 if this replica is the leader", (), registry
     )
+    if hasattr(api, "retry_count"):
+        # REST-client flow control observability (client-go's
+        # rest_client_* metrics analog): monotonic totals mirrored from
+        # the client at scrape time.
+        rest_retries = metrics.new_counter(
+            "tpu_operator_rest_client_retries_total",
+            "requests retried after 429/transient failures",
+            registry=registry,
+        )
+        rest_throttle = metrics.new_counter(
+            "tpu_operator_rest_client_throttle_seconds_total",
+            "seconds spent waiting on the client-side QPS limiter",
+            registry=registry,
+        )
+        registry.on_scrape(lambda: (
+            rest_retries.mirror_total(api.retry_count),
+            rest_throttle.mirror_total(round(api.throttle_wait, 3)),
+        ))
     scheduler = None
     if args.enable_scheduler:
         from ..scheduler import DEFAULT_SCHEDULER_NAME, GangScheduler, register_nodes
@@ -559,7 +615,8 @@ def run(argv=None) -> int:
                     print(f"error: {path}: {exc}", file=sys.stderr)
                     return 1
                 except AlreadyExistsError:
-                    # The same job applied twice: adopt the existing one.
+                    # The same job applied twice, or cluster state that
+                    # outlives the operator run: adopt the existing job.
                     created = api.get(
                         "tpujobs", meta["namespace"], meta["name"]
                     )
@@ -629,8 +686,9 @@ def run(argv=None) -> int:
     for t in threads:
         t.start()
 
-    # The memory backend is free to poll fast.
-    poll_interval = 0.2
+    # The memory backend is free to poll fast; against a real apiserver
+    # every poll is an HTTP GET per applied job, so back off.
+    poll_interval = 0.2 if args.backend == "memory" else 2.0
     try:
         while not stop.is_set():
             if args.exit_on_completion and applied:

@@ -11,17 +11,21 @@ All clients speak dicts to the backend and typed objects to callers.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import TYPE_CHECKING, Optional, Union
 
 from ..api.v2beta1.types import TPUJob
 from .apiserver import InMemoryAPIServer
 from .objects import KubeObject
 
+if TYPE_CHECKING:
+    from .kube import KubeAPIServer
+
 
 class ResourceClient:
     """Namespaced CRUD for one resource, KubeObject-typed."""
 
-    def __init__(self, api: InMemoryAPIServer, resource: str, namespace: str):
+    def __init__(self, api: Union[InMemoryAPIServer, KubeAPIServer],
+                 resource: str, namespace: str):
         self._api = api
         self.resource = resource
         self.namespace = namespace
@@ -58,7 +62,7 @@ class ResourceClient:
 class KubeClient:
     """Core/v1 + batch/v1 + coordination surface used by the operator."""
 
-    def __init__(self, api: InMemoryAPIServer):
+    def __init__(self, api: Union[InMemoryAPIServer, KubeAPIServer]):
         self.api = api
 
     def pods(self, namespace: str) -> ResourceClient:
@@ -90,7 +94,7 @@ class KubeClient:
 class SchedulingClient:
     """Gang-scheduling PodGroups (volcano clientset analog)."""
 
-    def __init__(self, api: InMemoryAPIServer):
+    def __init__(self, api: Union[InMemoryAPIServer, KubeAPIServer]):
         self.api = api
 
     def podgroups(self, namespace: str) -> ResourceClient:
@@ -100,7 +104,8 @@ class SchedulingClient:
 class TPUJobResourceClient:
     """Namespaced CRUD for TPUJobs, TPUJob-typed."""
 
-    def __init__(self, api: InMemoryAPIServer, namespace: str):
+    def __init__(self, api: Union[InMemoryAPIServer, KubeAPIServer],
+                 namespace: str):
         self._api = api
         self.namespace = namespace
 
@@ -132,7 +137,7 @@ class TPUJobResourceClient:
 
 
 class TPUJobClient:
-    def __init__(self, api: InMemoryAPIServer):
+    def __init__(self, api: Union[InMemoryAPIServer, KubeAPIServer]):
         self.api = api
 
     def tpujobs(self, namespace: str) -> TPUJobResourceClient:

@@ -19,7 +19,7 @@ from __future__ import annotations
 import copy
 import time
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import TYPE_CHECKING, Callable, Optional, Union
 
 from ..utils import profiling
 from . import locktrace
@@ -31,6 +31,9 @@ from .apiserver import (
     InMemoryAPIServer,
     match_labels,
 )
+
+if TYPE_CHECKING:
+    from .kube import KubeAPIServer
 
 
 # -- built-in indexers --------------------------------------------------
@@ -106,7 +109,7 @@ class Lister:
 class Informer:
     def __init__(
         self,
-        api: InMemoryAPIServer,
+        api: Union[InMemoryAPIServer, KubeAPIServer],
         resource: str,
         namespace: str = "",
         resync_interval: Optional[float] = None,
@@ -418,7 +421,7 @@ class InformerFactory:
 
     def __init__(
         self,
-        api: InMemoryAPIServer,
+        api: Union[InMemoryAPIServer, KubeAPIServer],
         namespace: str = "",
         resync_interval: Optional[float] = None,
         profiler: Optional[profiling.PhaseProfiler] = None,

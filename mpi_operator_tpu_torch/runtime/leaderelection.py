@@ -12,7 +12,7 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import TYPE_CHECKING, Callable, Optional, Union
 
 from .apiserver import (
     AlreadyExistsError,
@@ -20,6 +20,9 @@ from .apiserver import (
     InMemoryAPIServer,
     NotFoundError,
 )
+
+if TYPE_CHECKING:
+    from .kube import KubeAPIServer
 
 DEFAULT_LEASE_DURATION = 15.0
 DEFAULT_RENEW_DEADLINE = 10.0
@@ -39,7 +42,7 @@ class LeaderElectionConfig:
 class LeaderElector:
     def __init__(
         self,
-        api: InMemoryAPIServer,
+        api: Union[InMemoryAPIServer, KubeAPIServer],
         config: LeaderElectionConfig,
         *,
         on_started_leading: Callable[[threading.Event], None],

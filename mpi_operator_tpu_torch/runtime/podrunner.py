@@ -50,7 +50,7 @@ import sys
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import TYPE_CHECKING, Optional, Union
 
 from ..api.v2beta1 import constants
 from ..utils import flightrecorder
@@ -60,10 +60,14 @@ from .apiserver import (
     ADDED,
     DELETED,
     MODIFIED,
+    ApiError,
     ConflictError,
     InMemoryAPIServer,
     NotFoundError,
 )
+
+if TYPE_CHECKING:
+    from .kube import KubeAPIServer
 
 MAX_RESTARTS = 3
 
@@ -104,7 +108,7 @@ class RunningPod:
 class LocalPodRunner:
     def __init__(
         self,
-        api: InMemoryAPIServer,
+        api: Union[InMemoryAPIServer, KubeAPIServer],
         *,
         base_env: Optional[dict[str, str]] = None,
         workdir: Optional[str] = None,
@@ -188,25 +192,35 @@ class LocalPodRunner:
 
     def _loop(self) -> None:
         while not self._stop.is_set():
-            progressed = False
-            for event in self._pod_watch.drain():
-                progressed = True
-                key = self._event_key(event.object)
-                if event.type in (ADDED, MODIFIED):
-                    # MODIFIED matters in scheduler mode: the bind that
-                    # stamps spec.nodeName arrives as an update, not a
-                    # create. _maybe_start_pod is idempotent per pod.
-                    self._maybe_start_pod(event.object)
-                elif event.type == DELETED:
-                    self._kill(key)
-            for event in self._job_watch.drain():
-                progressed = True
-                if event.type == ADDED:
-                    self._maybe_start_job_pod(event.object)
-            if self._reap():
-                progressed = True
+            try:
+                progressed = self._step()
+            except ApiError as exc:
+                # Over REST a call can still fail once its retries are
+                # spent; a kubelet keeps serving its node all the same.
+                self.log.warning("pod runner step failed: %s", exc)
+                progressed = False
             if not progressed:
                 time.sleep(0.02)
+
+    def _step(self) -> bool:
+        progressed = False
+        for event in self._pod_watch.drain():
+            progressed = True
+            key = self._event_key(event.object)
+            if event.type in (ADDED, MODIFIED):
+                # MODIFIED matters in scheduler mode: the bind that
+                # stamps spec.nodeName arrives as an update, not a
+                # create. _maybe_start_pod is idempotent per pod.
+                self._maybe_start_pod(event.object)
+            elif event.type == DELETED:
+                self._kill(key)
+        for event in self._job_watch.drain():
+            progressed = True
+            if event.type == ADDED:
+                self._maybe_start_job_pod(event.object)
+        if self._reap():
+            progressed = True
+        return progressed
 
     @staticmethod
     def _event_key(obj: dict) -> tuple[str, str]:
@@ -560,33 +574,47 @@ class LocalPodRunner:
         message: str = "",
         exit_code: Optional[int] = None,
     ) -> None:
-        try:
+        built: dict = {}
+
+        def flip() -> None:
             pod = self.api.get("pods", key[0], key[1])
+            # Merge, don't replace: the scheduler's PodScheduled condition
+            # must survive the phase flip.
+            status = dict(pod.get("status") or {})
+            status["phase"] = phase
+            if reason:
+                status["reason"] = reason
+            if message:
+                status["message"] = message
+            if exit_code is not None:
+                # Surface the container exit code the way a kubelet would,
+                # so podFailurePolicy onExitCodes rules have something to
+                # match.
+                container = (pod["spec"].get("containers") or [{}])[0]
+                status["containerStatuses"] = [
+                    {
+                        "name": container.get("name", "main"),
+                        "state": {"terminated": {"exitCode": exit_code}},
+                    }
+                ]
+            pod["status"] = status
+            built["pod"] = pod
+            self.api.update_status("pods", pod)
+
+        # The log-tail thread's annotation patches race this write (and,
+        # over REST, every round trip widens the window): a lost flip to
+        # Succeeded or Failed would leave the job waiting forever, so a
+        # conflict re-reads the pod and writes again.
+        try:
+            retry.retry_on_conflict(flip)
         except NotFoundError:
             return
-        # Merge, don't replace: the scheduler's PodScheduled condition must
-        # survive the phase flip.
-        status = dict(pod.get("status") or {})
-        status["phase"] = phase
-        if reason:
-            status["reason"] = reason
-        if message:
-            status["message"] = message
-        if exit_code is not None:
-            # Surface the container exit code the way a kubelet would, so
-            # podFailurePolicy onExitCodes rules have something to match.
-            container = (pod["spec"].get("containers") or [{}])[0]
-            status["containerStatuses"] = [
-                {
-                    "name": container.get("name", "main"),
-                    "state": {"terminated": {"exitCode": exit_code}},
-                }
-            ]
-        pod["status"] = status
-        try:
-            self.api.update_status("pods", pod)
-        except Exception:
-            pass
+        except ApiError as exc:
+            self.log.warning("pod %s/%s: phase %s not written: %s",
+                             key[0], key[1], phase, exc)
+        pod = built.get("pod")
+        if pod is None:
+            return
         if reason:
             self.log.debug("pod %s/%s -> %s", key[0], key[1], phase,
                            reason=reason)

@@ -57,6 +57,9 @@ CONTROL_PLANE = (
     "mpi_operator_tpu_torch.chaos.engine",
     "mpi_operator_tpu_torch.chaos.podchaos",
     "mpi_operator_tpu_torch.utils.devstats",
+    "mpi_operator_tpu_torch.runtime.kube",
+    "mpi_operator_tpu_torch.runtime.httpserver",
+    "mpi_operator_tpu_torch.cmd.gen_manifests",
 )
 
 
