@@ -140,7 +140,23 @@ Phases, in order:
    step_ms, peak GB a rank (allocated and reserved) and the bytes the
    first step hands gloo a rank (by c10d op, from a dispatch mode) are
    printed beside the one-process run's;
-10. ``operator``: the port's job path, from create to a terminal
+10. ``pp``: pipeline parallelism on the one card (GPipe over ``--mesh
+   pp``), each arm through ``cmd.train.main`` on a gang over gloo, 3
+   steps, against the one-process run of the same call (curve at rtol
+   2e-3): llama3-8b at full width, 2 layers, B=4, S=2048 on ``pp=2``
+   (4 microbatches of 1, a layer a stage); mixtral-8x7b at full width,
+   2 layers, B=2, lr 3e-5 on ``pp=2`` (2 microbatches; the router loss
+   through the pipeline); llama3-8b on ``pp=2,tp=2`` over four processes
+   when its state a rank fits the four-rank share. Each rank's flat
+   launches are held to steps x microbatches x layers a stage (2
+   forward under remat, 1 dq, 1 dk/dv) at its q/kv heads and its hop
+   bytes to 2 (M + P - 1) mb S D 2 B a step; step_ms and peak GB a rank
+   (allocated and reserved) beside the one-process run's. Then a
+   llama-tiny ``pp=2`` checkpoint (the card's f32 kernels) read by
+   ``cmd.eval`` (its loss against a one-process checkpoint of the same
+   training) and resumed on one process to step 6 (the continued
+   losses against the one-process run's);
+11. ``operator``: the port's job path, from create to a terminal
    condition, through its own control plane in this process
    (``InMemoryAPIServer``, ``TPUJobController``, ``LocalPodRunner``
    auto-binding, told the card count), every worker pod a process on the
@@ -157,7 +173,7 @@ Phases, in order:
    ``python -m mpi_operator_tpu_torch.cmd.operator --backend memory
    --apply mpi_operator_tpu_torch/examples/pi.yaml --exit-on-completion``
    as a process (exit 0, its wall time);
-11. ``observe``: the operator under faults, in this process's control
+12. ``observe``: the operator under faults, in this process's control
    plane with the step-skew and memory matrices and a monitoring
    server: llama3-8b / 2 layers on ``h100-1`` as a pod with
    ``--heartbeat-every 2`` and ``TPU_JAX_TRACE=1`` (its heartbeat and
@@ -179,7 +195,7 @@ Phases, in order:
    this process with ``--profile-dir`` (the trace must name the three
    flash kernels) and ``torch.cuda``'s sync debug mode, whose syncs the
    tracer must count;
-12. ``kube``: the port's operator on a cluster's terms: ``python -m
+13. ``kube``: the port's operator on a cluster's terms: ``python -m
    mpi_operator_tpu_torch.cmd.operator --backend kube --kubeconfig
    <file>`` as a process against ``APIServerFrontend`` (the envtest
    analog: real HTTP, a random bearer token, watch streams) over a fresh
@@ -194,9 +210,9 @@ Phases, in order:
    down (it resumes with a 410 and relists); a malformed command
    (Failed, naming the pod); ``--apply`` of the shipped pi.yaml over REST
    as a process (exit 0); ``--backend kube --enable-scheduler`` refused;
-13. ``profile`` (opt-in, ``--phases profile``): where one training step's
+14. ``profile`` (opt-in, ``--phases profile``): where one training step's
    time goes, for each arm (device kernel time by kind, idle share);
-14. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
+15. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
    step, as a same-call A/B: the Llama and the BERT-base train runs
    synthetic and on a token file in turns (S D D S, four times), 10 steps
    each, with every run's step_ms and each side's median.
@@ -2955,8 +2971,11 @@ def _world_job(job: dict) -> dict:
     curve, buf, works = [], io.StringIO(), []
     counter = _collective_counter() if job.get("count_bytes") else None
     torch.cuda.reset_peak_memory_stats()
-    for route in sharding.SEQUENCE_BYTES:
-        sharding.SEQUENCE_BYTES[route] = 0
+    from mpi_operator_tpu_torch.parallel import pipeline
+
+    for ledger in (sharding.SEQUENCE_BYTES, pipeline.PIPELINE_BYTES):
+        for route in ledger:
+            ledger[route] = 0
     _reset_all_launch_counts()
     with _recorded(train, curve, job.get("sigterm_after", 0), counter), \
             _kept(train, works), contextlib.redirect_stdout(buf):
@@ -2979,7 +2998,8 @@ def _world_job(job: dict) -> dict:
             "experts": experts[0] if experts else [], "peak_gb": peak_gb,
             "peak_reserved_gb": peak_reserved_gb,
             "backend": dist.get_backend() if dist.is_initialized() else None,
-            "sequence_bytes": dict(sharding.SEQUENCE_BYTES)}
+            "sequence_bytes": dict(sharding.SEQUENCE_BYTES),
+            "pipeline_bytes": dict(pipeline.PIPELINE_BYTES)}
 
 
 # One-process reference runs by argv, made once a run: the tp phase holds
@@ -3633,6 +3653,196 @@ def run_tp(tmp: Path) -> dict:
     return {f"tp {name}": got[name][0]["launches"] for name in TP_RUNS}
 
 
+# -- pp: pipeline parallelism (GPipe over --mesh pp) -----------------------
+
+# Each arm: (the one-process call, the flags that put it on its mesh, the
+# processes, the microbatches M and stages P, the q/kv heads a rank's
+# kernels see). llama3-8b / 2 layers at full width on pp=2: B=4, so the
+# default derivation gives M = 2 P = 4 microbatches of one sequence, a
+# layer a stage; mixtral-8x7b / 2 layers at the moe phase's B=2 (M = 2,
+# the router loss through the pipeline) at the tp phase's 3e-5 (at 3e-4
+# the shallow model overshoots and magnifies the bf16 rounding that
+# another GEMM row count moves); llama3-8b on pp=2,tp=2 over four
+# processes, 16/4 heads a rank.
+PP_STEPS = 3
+PP_LLAMA_ARGS = _with_flag(_with_steps(_with_flag(TRAIN_ARGS,
+                                                  "--global-batch", "4"),
+                                       PP_STEPS), "--warmup", "1")
+PP_MOE_ARGS = _with_flag(_with_flag(_with_steps(MOE_TRAIN_ARGS, PP_STEPS),
+                                    "--warmup", "1"), "--lr", "3e-5")
+PP_RUNS = {
+    "llama3-8b/2 pp=2": (PP_LLAMA_ARGS, ["--mesh", "pp=2"], 2, (4, 2),
+                         (32, 8)),
+    "mixtral-8x7b/2 pp=2": (PP_MOE_ARGS, ["--mesh", "pp=2"], 2, (2, 2),
+                            (32, 8)),
+    "llama3-8b/2 pp=2,tp=2": (PP_LLAMA_ARGS, ["--mesh", "pp=2,tp=2"], 4,
+                              (4, 2), (16, 4)),
+}
+# The llama-tiny pipelined checkpoint that cmd.eval reads and one process
+# resumes: f32 on the card's f32 kernels (a llama3-8b / 2 layers
+# checkpoint is 17.9 GB of f32 parameters and moments a save, two saves
+# a run, and cmd.eval builds a config's full depth).
+PP_TINY_ARGS = ["--model", "llama-tiny", "--global-batch", "8", "--seq-len",
+                "64", "--warmup", "1", "--lr", "1e-2", "--log-every", "1",
+                "--save-every", "3"]
+
+
+def _pp_config(argv: list):
+    from mpi_operator_tpu_torch.cmd import train
+
+    return train.llama_config_from_args(train.build_parser().parse_args(argv),
+                                        1)
+
+
+def _pp_state_gb(argv: list, mesh: dict) -> float:
+    """The f32 parameters, gradients and two AdamW moments (16 B a
+    parameter) of the heaviest rank of ``mesh``: the larger edge stage
+    (the embedding, or the norm and head) with its layers, the layers
+    split over tp, the embedding and head whole on every tp rank."""
+    import torch
+
+    from mpi_operator_tpu_torch.models import llama as lib
+
+    cfg = _pp_config(argv)
+    with torch.device("meta"):
+        model = lib.Llama(cfg)
+    per = cfg.n_layers // mesh["pp"]
+    layer = sum(p.numel() for p in model.layer_0.parameters())
+    edge = max(model.embed.weight.numel(), model.lm_head.weight.numel()
+               + cfg.dim)
+    return 16 * (edge + per * layer / mesh.get("tp", 1)) / 1e9
+
+
+def _check_pp_arm(name: str, run: tuple, results: list, ref: dict,
+                  card: str) -> bool:
+    """One pp arm's ranks against the one-process run: the curve, the
+    flat launches a rank at its heads, the hop bytes a step, logged with
+    step_ms and peak GB a rank."""
+    argv, _, n, (m, stages), heads = run
+    flat = FLASH_NAMES["flat"]
+    layers = int(argv[argv.index("--n-layers") + 1]) // stages
+    counts = (2 * PP_STEPS * m * layers, PP_STEPS * m * layers,
+              PP_STEPS * m * layers)
+    want = _want_launches(dict(zip(flat, counts)))
+    want_heads = {f"{k} {heads[0]}/{heads[1]}": c
+                  for k, c in zip(flat, counts)}
+    seq = int(argv[argv.index("--seq-len") + 1])
+    batch = int(argv[argv.index("--global-batch") + 1])
+    # bf16 activations, one message each way a tick.
+    hop = (2 * (m + stages - 1) * (batch // m) * seq
+           * _pp_config(argv).dim * 2)
+    hops = [r["pipeline_bytes"]["host"] / PP_STEPS for r in results]
+    curve = [sum(c) / n for c in zip(*(r["curve"] for r in results))]
+    lines = [r["line"] for r in results]
+    ok = (_close(curve, ref["curve"], WORLD_LOSS_RTOL)
+          and curve[-1] < curve[0]
+          and all(r["launches"] == want and r["heads"] == want_heads
+                  for r in results)
+          and all(h == hop for h in hops)
+          and all(line["devices"] == n and line["steps"] == PP_STEPS
+                  for line in lines))
+    log(f"pp {name}: curve {[round(x, 6) for x in curve]} vs one "
+        f"process {[round(x, 6) for x in ref['curve']]} (rtol "
+        f"{WORLD_LOSS_RTOL}); flat launches a rank by heads "
+        f"{[r['heads'] for r in results]} (want {want_heads}; every "
+        f"other counter 0: "
+        f"{all(r['launches'] == want for r in results)}); hop bytes a "
+        f"step a rank {hops} (want {hop}); step_ms "
+        f"{[line['step_ms'] for line in lines]} (one process "
+        f"{ref['line']['step_ms']}); peak GB "
+        f"{[round(r['peak_gb'], 2) for r in results]}, reserved "
+        f"{[round(r['peak_reserved_gb'], 2) for r in results]} (one "
+        f"process {ref['peak_gb']:.2f}, reserved "
+        f"{ref['peak_reserved_gb']:.2f}); card {card} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def run_pp(tmp: Path) -> dict:
+    """Phase ``pp``: each of PP_RUNS on its gang of processes on the one
+    card over gloo, against the one-process run of the same call: the
+    curve, each rank's flat kernel launches at its heads, its hop bytes a
+    step, step_ms and peak GB a rank. The four-process arm runs when its
+    reckoned state a rank fits the gang's share. Then the llama-tiny
+    pipelined checkpoint: ``cmd.eval`` on it and a one-process resume to
+    step 6. Returns rank 0's launch counts by arm."""
+    import shutil
+
+    import torch
+
+    card = card_line()
+    runs = dict(PP_RUNS)
+    free, _ = torch.cuda.mem_get_info()
+    share = (free // 4 - RANK_CONTEXT_BYTES) / 1e9
+    four = "llama3-8b/2 pp=2,tp=2"
+    need = _pp_state_gb(PP_LLAMA_ARGS, {"pp": 2, "tp": 2})
+    log(f"pp {four}: {need:.2f} GB of f32 state on its heaviest rank "
+        f"against a four-rank share of {share:.2f} GB -> "
+        f"{'runs' if need < share else 'left to the CPU tests'}")
+    if need >= share:
+        del runs[four]
+    t0 = time.perf_counter()
+    one = {name: _one_process(run[0]) for name, run in runs.items()}
+    one_s = time.perf_counter() - t0
+    free_card("the pp gangs")
+    ckpt = tmp / "pp-tiny"
+    failed, got, gang_s = [], {}, {}
+    for n in sorted({run[2] for run in runs.values()}):
+        names = [name for name, run in runs.items() if run[2] == n]
+        jobs = [{"argv": runs[name][0] + runs[name][1]} for name in names]
+        if n == 2:
+            jobs.append({"argv": [*PP_TINY_ARGS, "--steps", "3", "--mesh",
+                                  "pp=2", "--checkpoint-dir", str(ckpt)]})
+        t0 = time.perf_counter()
+        ranks = _run_gang(jobs, tmp, n)
+        gang_s[n] = time.perf_counter() - t0
+        got.update({name: [r[i] for r in ranks]
+                    for i, name in enumerate(names)})
+        # Each gang's arms as soon as it ends.
+        failed += [name for name in names if not _check_pp_arm(
+            name, runs[name], got[name], one[name], card)]
+
+    # The pipelined llama-tiny checkpoint against one process's.
+    straight = tmp / "one-tiny"
+    _drive_trainer([*PP_TINY_ARGS, "--steps", "3", "--checkpoint-dir",
+                    str(straight)])
+    evals = ["--model", "llama-tiny", "--data", str(_token_file(
+        tmp / "tiny.u32", 16, 64, 256, 0)), "--batch", "4", "--batches", "2",
+             "--seq-len", "64"]
+    e_pp, e_one = (_eval_line([*evals, "--checkpoint-dir", str(d)])
+                   for d in (ckpt, straight))
+    ok = (e_pp["step"] == e_one["step"] == 3
+          and _close([e_pp["loss"]], [e_one["loss"]], WORLD_LOSS_RTOL))
+    log(f"pp cmd.eval on the pp=2 llama-tiny checkpoint: loss "
+        f"{e_pp['loss']} at step {e_pp['step']} vs one process's "
+        f"{e_one['loss']} (rtol {WORLD_LOSS_RTOL}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failed.append("eval")
+    resumed, cont = [], []
+    from mpi_operator_tpu_torch.cmd import train
+
+    for directory, curve in ((ckpt, resumed), (straight, cont)):
+        with _recorded(train, curve):
+            _drive_trainer([*PP_TINY_ARGS, "--steps", "6",
+                            "--checkpoint-dir", str(directory)])
+    resumed, cont = ([float(x) for x in c] for c in (resumed, cont))
+    ok = len(resumed) == 3 and _close(resumed, cont, WORLD_LOSS_RTOL)
+    log(f"pp resume of the pp=2 checkpoint on one process, steps 4-6: "
+        f"{resumed} vs one process's {cont} (rtol {WORLD_LOSS_RTOL}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failed.append("resume")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"pp phase: one-process runs {one_s:.1f} s; gangs on one card over "
+        f"gloo (the step times measure gloo through the host on one card, "
+        f"not a multi-GPU node) {json.dumps({k: round(v, 1) for k, v in gang_s.items()})} s "
+        f"by processes")
+    if failed:
+        raise AssertionError(f"pp checks failed: {failed}")
+    return {f"pp {name}": got[name][0]["launches"] for name in runs}
+
+
 # Phase ``operator``: jobs taken from create to a terminal condition by
 # the port's own control plane in this process (InMemoryAPIServer,
 # TPUJobController, LocalPodRunner auto-binding to its node), every
@@ -4116,23 +4326,30 @@ PROFILE_TRAIN_ARGS = _with_steps(TRAIN_ARGS, PROFILE_STEPS)
 FLASH_TRACE_NAMES = ("flash::fwd_kernel", "flash::bwd_dq_kernel",
                      "flash::bwd_dkv_kernel")
 # The chaos job: 3 replicas (each pod trains its own llama-tiny on the
-# card), 4 heartbeat windows of 32 steps each. A synchronous world would
+# card), 5 heartbeat windows of 128 steps each. A synchronous world would
 # not do: its ranks wait for the slowest at every step's collective, so
 # their step walls come out equal and the step-skew matrix (max / median
 # of the window p50s) reads 1. With 3 replicas a 2x worker reads 2x the
 # median; with 2 it would read 2 / 1.5 = 1.33, under the 1.5 threshold.
-# With 4 windows no window closes without the slowed worker (the
-# matrices close a window 4 behind the newest), so both conditions flip
-# at window 2 and clear at window 3; a slowed window (~0.6 s) separates
-# the flip from the faulty worker's next heartbeat, the time the repair
-# has to end its process in.
+# The slowed worker starts late (its warmup step is stretched too) and
+# falls behind, and the matrices close a window without it once the
+# healthy replicas are 4 windows ahead: at 32 steps a window (~0.3 s
+# healthy) window 0 closed so and the flip came a window later. At 128
+# (~1.1 s healthy, ~2.2 s slowed) none does, so both conditions flip at
+# window 2. The replacement's windows up to the dead worker's last are
+# dropped as stale, so the conditions clear at the first window after
+# it: the repair has two slowed windows (~4 s) after the flip to kill the
+# worker before its last heartbeat (window 4). With 4 windows of 32 steps
+# it had one (~0.6 s), and a run on a loaded host lost that race.
 OBSERVE_REPLICAS = 3
 OBSERVE_WORLD_ENV = ("TPUJOB_COORDINATOR_ADDRESS", "TPUJOB_NUM_PROCESSES",
                      "TPUJOB_PROCESS_ID")
-OBSERVE_WINDOW_STEPS = 32
+OBSERVE_WINDOW_STEPS = 128
+OBSERVE_WINDOWS = 5
 REPLICA_ARGS = [
     "--model", "llama-tiny", "--seq-len", "128", "--global-batch", "8",
-    "--steps", str(1 + 4 * OBSERVE_WINDOW_STEPS), "--warmup", "1",
+    "--steps", str(1 + OBSERVE_WINDOWS * OBSERVE_WINDOW_STEPS),
+    "--warmup", "1",
     "--heartbeat-every", str(OBSERVE_WINDOW_STEPS),
     "--telemetry-every", "0", "--log-every", "0",
 ]
@@ -4324,17 +4541,27 @@ def _condition_changes(recorder, name: str, created: float) -> dict:
     return changes
 
 
+def _heartbeat_window(api, pod: str):
+    """The window of the pod's last step heartbeat annotation, or None."""
+    from mpi_operator_tpu_torch.api.v2beta1 import constants
+
+    notes = api.get("pods", "default", pod)["metadata"].get("annotations")
+    raw = (notes or {}).get(constants.STEP_HEARTBEAT_ANNOTATION)
+    return json.loads(raw).get("window") if raw else None
+
+
 def _observe_chaos(api, runner, controller, recorder, tmp: Path,
                    check) -> None:
     """The seeded chaos job: 3 replicas on h100-3, all killed at their
     start and replaced (an Ignore rule on the preemption code 137), worker
     0 slowed 2x and leaking 16 GiB a window. Straggling and
     MemoryPressure must flip; then the host is repaired
-    (``heal_worker``) and the worker killed before its next heartbeat,
-    and both conditions must recover: the memory matrix drops the dead
-    worker, the step matrix waits for its clean replacement (whose
-    windows up to the old one's last it drops as stale). The replicas
-    stay up after their steps until released; the job must succeed."""
+    (``heal_worker``) and the worker killed, and both conditions must
+    recover at a window after the dead worker's last: the memory matrix
+    drops the dead worker, the step matrix waits for its clean
+    replacement (whose windows up to the old one's last it drops as
+    stale). The replicas stay up after their steps until released; the
+    job must succeed."""
     from mpi_operator_tpu_torch import chaos
     from mpi_operator_tpu_torch.api.v2beta1.types import (
         JOB_MEMORY_PRESSURE, JOB_STRAGGLING)
@@ -4396,11 +4623,13 @@ def _observe_chaos(api, runner, controller, recorder, tmp: Path,
         healed = killed = False
         if flipped:
             # The host is repaired: the faults end with the process.
+            last = _heartbeat_window(api, "replicas-worker-0")
             healed = runner.heal_worker("default", "replicas-worker-0")
             killed = runner.kill_pod("default", "replicas-worker-0")
             log(f"observe chaos repair: heal_worker {healed}, kill_pod "
                 f"{killed} (pod default/replicas-worker-0) at "
-                f"{time.time() - created:.3f} s")
+                f"{time.time() - created:.3f} s, after its heartbeat of "
+                f"window {last}")
         recovered = flipped and wait_for("False")
     finally:
         release.touch()
@@ -4623,10 +4852,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,model,train,moe,decode,world,sp,"
-                                "tp,operator,observe,kube",
+                                "tp,pp,operator,observe,kube",
                         help="comma-separated subset of kernels,model,train,"
-                             "moe,decode,world,sp,tp,operator,observe,kube "
-                             "and the opt-in profile and data")
+                             "moe,decode,world,sp,tp,pp,operator,observe,"
+                             "kube and the opt-in profile and data")
     parser.add_argument("--world-child", default="", help=argparse.SUPPRESS)
     parser.add_argument("--gloo-probe", default="", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
@@ -4770,6 +4999,17 @@ def main(argv=None) -> int:
                 records[name].setdefault("launches_by_path", {}).update(
                     {k: c[name] for k, c in by_path.items()})
         log(f"card: {card}; tp phase done in "
+            f"{time.perf_counter() - t0:.1f} s")
+    if "pp" in phases:
+        free_card("the pp phase")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_pp_") as tmp:
+            by_path = run_pp(Path(tmp))
+        for name in FLASH_NAMES["flat"]:
+            if name in records:
+                records[name].setdefault("launches_by_path", {}).update(
+                    {k: c[name] for k, c in by_path.items()})
+        log(f"card: {card}; pp phase done in "
             f"{time.perf_counter() - t0:.1f} s")
     direct = None
     if "operator" in phases:

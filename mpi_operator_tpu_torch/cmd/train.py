@@ -31,7 +31,9 @@ replicated over it, FSDP2 on fsdp, HSDP on dp x fsdp, MoE experts
 sharded on ep and their hidden dim on tp, gradient averaging on dp alone
 and on sp; on sp each rank keeps its positions of its rows and the
 attention runs as a ring or Ulysses over the sp group of its tp
-coordinate, on its local heads) + optimizer
+coordinate, on its local heads; on pp a Llama rank builds its stage of
+the layers and the step runs the GPipe schedule, ``models/llama_pp.py``)
++ optimizer
 (ResNet:
 SGD nesterov momentum 0.9; Llama, BERT, ViT and seq2seq: AdamW) ->
 resume from ``--checkpoint-dir``
@@ -129,7 +131,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="axis spec over the world's processes, e.g. dp=-1, "
                         "dp=2,fsdp=2, tp=2, dp=2,ep=2 or ep=2,tp=2 (MoE), "
                         "dp=2,sp=2 or sp=2,tp=2 (llama, bert: the sequence "
-                        "split over sp); pp is not ported yet")
+                        "split over sp), pp=2 or dp=2,pp=2 (llama: the "
+                        "blocks pipelined by GPipe; see --pp-microbatch)")
     p.add_argument("--steps", type=int, default=100,
                    help="ABSOLUTE target step")
     p.add_argument("--warmup", type=int, default=3)
@@ -178,7 +181,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--grad-accum", type=int, default=1,
                    help="accumulate gradients over N sequential "
                         "microbatches per optimizer step")
-    p.add_argument("--pp-microbatch", type=int, default=0)
+    p.add_argument("--pp-microbatch", type=int, default=0,
+                   help="pipeline microbatch size (pp meshes; 0 = the "
+                        "largest multiple of dp*fsdp dividing the global "
+                        "batch into at least 2*pp microbatches, else pp)")
     p.add_argument("--mlm-layout", choices=["mask", "positions"],
                    default="mask",
                    help="bert batch: mask = [B, S] mask and targets, full "
@@ -252,7 +258,8 @@ def check_sp_mesh(args) -> None:
             f"--mesh sp={sp} shards the sequence of the token models "
             f"(llama, bert); --model {args.model} has none")
     cfg = lib.CONFIGS[args.model]() if args.model in lib.CONFIGS else None
-    if cfg is not None and cfg.is_moe:
+    # A pipelined MoE model is refused by the pp workload, in its words.
+    if cfg is not None and cfg.is_moe and sizes.get("pp", 1) == 1:
         raise SystemExit(
             f"--mesh sp={sp} with an MoE model (--model {args.model}): MoE "
             f"composes with dp/tp/ep; sp (routing capacity is per sequence) "
@@ -452,7 +459,7 @@ def _sequence_batch(tokens, positions) -> tuple:
 
 
 def _token_batch_fn(args, vocab: int, global_batch: int, mesh,
-                    positions=None):
+                    positions=None, accum_steps: int = 0):
     """``batch_fn(step)`` for ``--data`` (the JAX trainer's
     ``_token_stream`` and BERT ``batch_fn``): this process's Feistel-
     shuffled rows of the global batch, ``ds.rows(step, B, lo, hi) %
@@ -461,7 +468,8 @@ def _token_batch_fn(args, vocab: int, global_batch: int, mesh,
     + step)`` for the global batch and sliced to the same rows. Returns
     host tensors, pinned on the card: the consuming thread copies them to
     the device on its own stream. With ``positions`` (an sp rank's) the
-    columns are sliced as the synthetic batch's are."""
+    columns are sliced as the synthetic batch's are; ``accum_steps``
+    (default --grad-accum) is the microbatch count the rows follow."""
     import numpy as np
 
     from ..data import TokenDataset
@@ -470,7 +478,7 @@ def _token_batch_fn(args, vocab: int, global_batch: int, mesh,
     ds = TokenDataset(args.data, args.seq_len, seed=args.seed)
     is_bert = args.model.startswith("bert")
     pin = mesh.device.type == "cuda"
-    ranges = local_rows(global_batch, mesh, args.grad_accum)
+    ranges = local_rows(global_batch, mesh, accum_steps or args.grad_accum)
 
     def batch_fn(step: int) -> tuple:
         rows = np.concatenate([ds.rows(step, global_batch, lo, hi)
@@ -556,6 +564,8 @@ def _lm_workload(args, mesh, n_devices: int) -> Workload:
 
         model, make_step, batch = _bert_model(args, mesh.device, rng,
                                               global_batch, group)
+    elif sizes.get("pp", 1) > 1:
+        return _llama_pp_workload(args, mesh, global_batch, rng)
     else:
         plan_lib = lib
         cfg = llama_config_from_args(args, sp)
@@ -596,14 +606,132 @@ def _lm_workload(args, mesh, n_devices: int) -> Workload:
     return work
 
 
+def _pp_microbatches(args, sizes: dict, global_batch: int) -> int:
+    """The pipeline's microbatch count: --pp-microbatch rows each, or by
+    default the largest multiple of dp*fsdp that divides the global batch
+    into at least 2*pp microbatches (pp as a fallback), as the JAX
+    trainer derives it; SystemExit with its messages otherwise."""
+    pp = sizes["pp"]
+    shards = sizes.get("dp", 1) * sizes.get("fsdp", 1)
+    mb = args.pp_microbatch
+    if not mb:
+        divisors = [d for d in range(1, global_batch + 1)
+                    if global_batch % d == 0 and d % shards == 0]
+        for want in (2 * pp, pp):
+            fitting = [d for d in divisors if global_batch // d >= want]
+            if fitting:
+                mb = max(fitting)
+                break
+        if not mb:
+            raise SystemExit(
+                f"--global-batch {global_batch} cannot form {pp} pipeline "
+                f"microbatches of a multiple of dp*fsdp={shards}; raise it")
+    if global_batch % mb:
+        raise SystemExit(f"--global-batch {global_batch} not divisible by "
+                         f"pipeline microbatch {mb}")
+    m = global_batch // mb
+    if m < pp:
+        raise SystemExit(
+            f"{m} pipeline microbatches cannot fill {pp} stages; lower "
+            f"--pp-microbatch or raise --global-batch")
+    if mb % shards:
+        raise SystemExit(
+            f"pipeline microbatch {mb} not divisible by dp*fsdp={shards} "
+            f"(microbatch rows shard over both)")
+    return m
+
+
+def _llama_pp_workload(args, mesh, global_batch: int, rng) -> Workload:
+    """Llama, dense or MoE, with its blocks pipelined over pp
+    (``models/llama_pp.py``): the JAX trainer's ``_llama_pp_workload``,
+    its refusals in its words. This rank builds its stage (drawn as its
+    part of the one-process init), lays it out on the stage's groups as
+    the plain model is laid out (the embedding, norm and head left whole
+    on fsdp ranks) and keeps its rows of each of the M microbatches."""
+    import torch
+
+    from ..models import llama as lib
+    from ..models import llama_pp as pp_lib
+    from ..parallel.sharding import local_positions, shard_params
+
+    sizes = mesh.sizes
+    pp, fsdp = sizes["pp"], sizes.get("fsdp", 1)
+    tp, sp = sizes.get("tp", 1), sizes.get("sp", 1)
+    unsupported = [a for a, n in sizes.items()
+                   if a not in ("dp", "fsdp", "pp", "tp", "sp", "ep")
+                   and n > 1]
+    if unsupported:
+        raise SystemExit(
+            f"pp meshes compose with dp, fsdp, tp, sp (ring or ulysses), "
+            f"and ep (MoE); {unsupported} would silently replicate "
+            f"work/params")
+    # main's check_moe_mesh and check_sp_mesh refused the rest of the JAX
+    # workload's reasons (ep against the model, the sequence against sp).
+    cfg = llama_config_from_args(args, sp)
+    if cfg.is_moe and (fsdp > 1 or sp > 1):
+        raise SystemExit(
+            "pipelined MoE composes with dp/tp/ep; fsdp (ZeRO-3 gathers "
+            "assume dense kernels) and sp (routing capacity is per "
+            "sequence) do not apply")
+    if args.grad_accum > 1:
+        raise SystemExit(
+            "--grad-accum with a pp mesh is redundant: raise the "
+            "microbatch count instead (lower --pp-microbatch)")
+    if cfg.n_layers % pp:
+        raise SystemExit(
+            f"model has {cfg.n_layers} layers, not divisible by pp={pp}")
+    if fsdp > 1 and (cfg.dim % fsdp or cfg.ffn_dim % fsdp):
+        raise SystemExit(
+            f"model dims (dim={cfg.dim}, ffn_dim={cfg.ffn_dim}) must both "
+            f"divide by fsdp={fsdp}")
+    if tp > 1 and (cfg.n_heads % tp or cfg.n_kv_heads % tp
+                   or cfg.ffn_dim % tp or cfg.dim % tp):
+        raise SystemExit(
+            f"heads ({cfg.n_heads} q / {cfg.n_kv_heads} kv), ffn_dim "
+            f"({cfg.ffn_dim}), and dim ({cfg.dim}) must all divide by "
+            f"tp={tp}")
+    m = _pp_microbatches(args, sizes, global_batch)
+
+    group = mesh.submesh("sp").get_group() if sp > 1 else None
+    stage = pp_lib.LlamaStage(cfg, mesh.coordinate("pp"), pp,
+                              device=mesh.device, sp_group=group)
+    pp_lib.init_stage_params(
+        stage, torch.Generator(device=mesh.device).manual_seed(args.seed))
+    shard_params(stage, mesh,
+                 tp_plan=lambda: lib.tensor_parallel_plan(stage, tp),
+                 whole=stage.edge_params())
+    batch = (rng.randint(0, cfg.vocab_size, (global_batch, args.seq_len)),)
+    kw, positions = {}, None
+    if sp > 1:
+        positions = local_positions(args.seq_len, mesh, cfg.zigzag_ring)
+        batch = _sequence_batch(batch[0], positions)
+        shards = sizes.get("dp", 1) * fsdp
+        kw = dict(positions=torch.as_tensor(positions, device=mesh.device),
+                  scale=shards * sp / (global_batch * (args.seq_len - 1)))
+
+    def make_step(model, optimizer, accum_steps, lr_schedule):
+        return pp_lib.make_pp_train_step(model, optimizer, mesh, m,
+                                         lr_schedule=lr_schedule, **kw)
+
+    work = _adamw_workload(args, mesh, stage, make_step, batch, global_batch,
+                           tokens_per_step=global_batch * args.seq_len,
+                           microbatches=m)
+    if args.data:
+        work.batch_fn = _token_batch_fn(args, cfg.vocab_size, global_batch,
+                                        mesh, positions, accum_steps=m)
+    return work
+
+
 def _adamw_workload(args, mesh, model, make_step, batch: tuple,
-                    global_batch: int, tokens_per_step: int = 0) -> Workload:
+                    global_batch: int, tokens_per_step: int = 0,
+                    microbatches: int = 0) -> Workload:
     """The Workload of a model (already placed on ``mesh``) trained with
     ``optax.adamw`` in the JAX trainer: its defaults b1 0.9, b2 0.999,
     eps 1e-8, weight decay 1e-4 (torch's own default decay is 0.01), --lr
     or --lr-schedule, and ``make_step(model, optimizer, accum_steps,
     lr_schedule)``'s step with --grad-accum microbatches, on this
-    process's rows of the global ``batch`` (numpy arrays)."""
+    process's rows of the global ``batch`` (numpy arrays): its share of
+    each of ``microbatches`` (default --grad-accum)."""
     import torch
     from torch.distributed.tensor import DTensor
 
@@ -628,7 +756,7 @@ def _adamw_workload(args, mesh, model, make_step, batch: tuple,
         model=model,
         optimizer=optimizer,
         step_fn=step_fn,
-        batch=_local_tensors(batch, mesh, args.grad_accum),
+        batch=_local_tensors(batch, mesh, microbatches or args.grad_accum),
         examples_per_step=global_batch,
         tokens_per_step=tokens_per_step,
     )
@@ -745,14 +873,19 @@ def restore_train_state(ckpt, work: Workload) -> int:
 
     # AdamW and SGD keep per-parameter state only for parameters that got
     # a gradient (BERT's type_embed gets none).
-    step, state = ckpt.restore_latest(train_state(work),
-                                      optional=("opt_state", "state"))
+    like = train_state(work)
+    step, state = ckpt.restore_latest(like, optional=("opt_state", "state"))
     if step is None:
         # get_state_dict made the optimizer's state with one zero-lr step
         # (AdamW's step count 1); a cold start begins with none, as a
         # fresh optimizer does.
         work.optimizer.state.clear()
         return 0
+    # The param groups name their parameters, which on a pipeline stage
+    # are the stage's own and in the checkpoint one writer's.
+    for got, own in zip(state["opt_state"]["param_groups"],
+                        like["opt_state"]["param_groups"]):
+        got["params"] = own["params"]
     # Not strict: the read above already required every parameter; only
     # the optimizer state of a parameter that never got a gradient may be
     # absent, as it is from the optimizer that saved it.
@@ -843,8 +976,14 @@ def main(argv=None) -> int:
     try:
         check_moe_mesh(args)
         check_sp_mesh(args)
+        pp = parse_mesh_spec(args.mesh).get("pp", 1)
     except ValueError as e:
         raise SystemExit(f"--mesh {args.mesh!r}: {e}") from None
+    if pp != 1 and not args.model.startswith(("llama", "mixtral")):
+        # Only the Llama-family workload consumes pp (models/llama_pp.py).
+        raise SystemExit(
+            "--mesh pp is wired for dense llama and MoE models only; use "
+            "the parallel.pipeline API for custom stages, or drop pp")
 
     import torch
 

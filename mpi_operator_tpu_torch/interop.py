@@ -8,6 +8,10 @@ arrays (the caller does ``np.asarray`` on the JAX side). The Flax leaf
 embedding module's ``weight`` as it is; norm ``scale`` and ``bias`` and
 Dense ``bias`` keep their names. Values are copied bit for bit.
 
+The JAX pipelined Llama stacks its blocks ``[P, L/P, ...]`` under
+``blocks``; the port's stages hold them under their global layer names
+(:func:`llama_pp_params_from_jax`).
+
 Llama MoE: ``layer_i/moe/{router,expert_wg,expert_wu,expert_wd}`` keep
 their names and the Flax layout (router [D, E], experts [E, D, F] and
 [E, F, D]) in the port's ``layer_i.moe``.
@@ -86,6 +90,25 @@ def llama_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     """Flax Llama param tree (numpy leaves, dense or MoE) -> the port's
     ``state_dict``."""
     return _from_flax(tree, _LLAMA_PLAIN)
+
+
+def llama_pp_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX pipelined Llama's params (``{embed, blocks, final_norm,
+    lm_head}``, each block leaf stage-stacked [P, L/P, ...]) -> the plain
+    port model's ``state_dict``, the blocks under their global layer
+    names; a pipeline stage loads its part of it
+    (``models/llama_pp.py``)."""
+    plain = {k: v for k, v in tree.items() if k != "blocks"}
+
+    def layer(node: Mapping, k: int) -> dict:
+        return {name: (layer(v, k) if isinstance(v, Mapping) else
+                       np.asarray(v).reshape((-1,) + np.shape(v)[2:])[k])
+                for name, v in node.items()}
+
+    first = np.asarray(next(leaf for _, leaf in _flatten(tree["blocks"])))
+    for k in range(first.shape[0] * first.shape[1]):
+        plain[f"layer_{k}"] = layer(tree["blocks"], k)
+    return llama_params_from_jax(plain)
 
 
 def llama_params_to_jax(state: Mapping[str, torch.Tensor]) -> dict:

@@ -325,14 +325,7 @@ class Llama(nn.Module):
             positions = torch.arange(tokens.shape[1], device=tokens.device)
         positions = positions.to(tokens.device).expand(tokens.shape)
         h = self.embed(tokens).to(cfg.dtype)
-        remat = cfg.remat and torch.is_grad_enabled()
-        aux = 0.0
-        for block in self.blocks():
-            if remat:
-                h, a = checkpoint(block, h, positions, use_reentrant=False)
-            else:
-                h, a = block(h, positions)
-            aux = aux + a
+        h, aux = run_blocks(self.blocks(), h, positions, cfg.remat)
         h = self.final_norm(h)
         if return_hidden:
             return (h, aux) if cfg.is_moe else h
@@ -347,6 +340,21 @@ class Llama(nn.Module):
         return (logits, aux) if cfg.is_moe else logits
 
 
+def run_blocks(blocks, h, positions, remat: bool):
+    """``h`` through ``blocks`` in turn, each under activation
+    checkpointing with ``remat`` when gradients are on. Returns ``(h,
+    aux)``: aux the blocks' summed router loss (0.0 for dense blocks)."""
+    remat = remat and torch.is_grad_enabled()
+    aux = 0.0
+    for block in blocks:
+        if remat:
+            h, a = checkpoint(block, h, positions, use_reentrant=False)
+        else:
+            h, a = block(h, positions)
+        aux = aux + a
+    return h, aux
+
+
 @torch.no_grad()
 def init_params(model: Llama, generator: torch.Generator) -> Llama:
     """Initialize ``model`` in place from Flax's default distributions:
@@ -355,19 +363,26 @@ def init_params(model: Llama, generator: torch.Generator) -> Llama:
     for RMSNorm. ``generator`` (seeded from --seed, on the parameters'
     device) makes it reproducible; its numbers differ from jax.random's."""
     for name, p in model.named_parameters():
-        if name.endswith("scale"):
-            p.fill_(1.0)
-        elif name == "embed.weight":
-            p.normal_(0.0, p.shape[1] ** -0.5, generator=generator)
-        else:
-            # [out, in] kernels: fan_in = in; MoE, in the Flax layout:
-            # router [in, E], experts [E, in, out] (batch axis 0).
-            fan_in = p.shape[0] if name.endswith("router") else p.shape[1]
-            # 0.8796...: the std of a unit normal truncated to [-2, 2].
-            std = fan_in ** -0.5 / 0.87962566103423978
-            nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
-                                  generator=generator)
+        init_param(name, p, generator)
     return model
+
+
+def init_param(name: str, p: torch.Tensor, generator: torch.Generator
+               ) -> None:
+    """Draw the Llama parameter ``name`` into ``p`` (:func:`init_params`'s
+    rule for it), in place."""
+    if name.endswith("scale"):
+        p.fill_(1.0)
+    elif name == "embed.weight":
+        p.normal_(0.0, p.shape[1] ** -0.5, generator=generator)
+    else:
+        # [out, in] kernels: fan_in = in; MoE, in the Flax layout:
+        # router [in, E], experts [E, in, out] (batch axis 0).
+        fan_in = p.shape[0] if name.endswith("router") else p.shape[1]
+        # 0.8796...: the std of a unit normal truncated to [-2, 2].
+        std = fan_in ** -0.5 / 0.87962566103423978
+        nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
 
 
 def loss_fn(model: Llama, tokens, include_aux: bool = True):
@@ -464,8 +479,10 @@ def tensor_parallel_plan(model: Llama, tp: int) -> dict:
         columns += ("mlp.w_gate", "mlp.w_up")
         rows += ("mlp.w_down",)
     plan = {}
-    for i in range(cfg.n_layers):
-        plan.update({f"layer_{i}.{name}": ColwiseParallel()
-                     for name in columns})
-        plan.update({f"layer_{i}.{name}": RowwiseParallel() for name in rows})
+    # The layers the module holds: all of them, or a pipeline stage's.
+    for layer, _ in model.named_children():
+        if not layer.startswith("layer_"):
+            continue
+        plan.update({f"{layer}.{name}": ColwiseParallel() for name in columns})
+        plan.update({f"{layer}.{name}": RowwiseParallel() for name in rows})
     return plan

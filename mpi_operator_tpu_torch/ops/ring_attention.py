@@ -28,9 +28,10 @@ kernels). Ulysses is ``ops/ulysses.py``.
 The dispatch (:func:`sp_attention_bshd`, :func:`sp_attention`): one
 device runs ``flash`` (projection-layout kernels), ``flash-bhsd`` (the
 layout A/B) or ``dense`` (the plain oracle); ``ring`` and ``ulysses`` need
-the sp group. The pipeline's in-stage variants are a later slice of the
-port; asking for one raises ``NotImplementedError`` naming its ROADMAP.md
-item instead of quietly training something else.
+the sp group. The JAX pipeline's in-stage names ``ring-shard`` and
+``ulysses-shard`` (the per-shard kernels inside its manual region) are
+the same ring and Ulysses here: the port's models already hold their
+local shard and run over the caller's sp group.
 """
 
 from __future__ import annotations
@@ -56,17 +57,8 @@ from .attention import (
     flash_bwd_dq,
 )
 
-# impl -> the ROADMAP.md port-queue item that brings it.
-_LATER = {
-    "ring-shard": "queue (a) item 16: pipeline-shard attention",
-    "ulysses-shard": "queue (a) item 16: pipeline-shard attention",
-}
-
-
-def _not_ported(impl: str):
-    return NotImplementedError(
-        f"attention_impl={impl!r} is not ported yet (ROADMAP.md {_LATER[impl]})"
-    )
+# The JAX pipeline's in-stage names for the sequence-parallel impls.
+_SHARD_IMPLS = {"ring-shard": "ring", "ulysses-shard": "ulysses"}
 
 
 # ---------------------------------------------------------------------------
@@ -329,6 +321,7 @@ def sp_attention_bshd(q, k, v, impl: str, *, causal: bool, group=None,
     layout). Returns ``None`` for the impls that live on the [B, H, S, D]
     path ('flash-bhsd', 'dense'): the caller then transposes and falls
     through to :func:`sp_attention`, which raises on unknown names."""
+    impl = _SHARD_IMPLS.get(impl, impl)
     if impl == "flash":
         return flash_attention_bshd(q, k, v, causal=causal)
     if impl in ("ring", "ulysses"):
@@ -339,8 +332,6 @@ def sp_attention_bshd(q, k, v, impl: str, *, causal: bool, group=None,
             return ulysses_attention_bshd(q, k, v, group, causal=causal)
         return ring_attention_bshd(q, k, v, group, causal=causal,
                                    zigzag=zigzag)
-    if impl in _LATER:
-        raise _not_ported(impl)
     return None
 
 
@@ -354,6 +345,7 @@ def sp_attention(q, k, v, impl: str, *, causal: bool, group=None,
     ``group``, honouring ``zigzag``) or 'ulysses' (the all-to-all
     strategy). Unknown names raise: a typo must not silently train the
     dense path."""
+    impl = _SHARD_IMPLS.get(impl, impl)
     if impl in ("flash", "flash-bhsd"):
         return flash_attention(q, k, v, causal=causal)
     if impl == "dense":
@@ -369,8 +361,6 @@ def sp_attention(q, k, v, impl: str, *, causal: bool, group=None,
 
             return ulysses_attention(q, k, v, group, causal=causal)
         return ring_attention(q, k, v, group, causal=causal, zigzag=zigzag)
-    if impl in _LATER:
-        raise _not_ported(impl)
     raise ValueError(
         f"unknown attention impl {impl!r}; want "
         f"flash|flash-bhsd|dense|ring|ulysses"

@@ -13,8 +13,10 @@ import torch
 SCHEDULE_COUNT = "schedule_count"
 
 
-def make_update_step(loss_of_batch: Callable, optimizer, accum_steps: int = 1,
-                     lr_schedule: Optional[Callable[[int], float]] = None):
+def make_update_step(loss_of_batch: Optional[Callable], optimizer,
+                     accum_steps: int = 1,
+                     lr_schedule: Optional[Callable[[int], float]] = None,
+                     forward_backward: Optional[Callable] = None):
     """``loss_of_batch(*batch) -> scalar`` becomes ``step(*batch) -> loss``:
     zero the gradients, backpropagate, one ``optimizer.step()``.
 
@@ -31,6 +33,10 @@ def make_update_step(loss_of_batch: Callable, optimizer, accum_steps: int = 1,
     SGD alike; SGD keeps no step of its own), so it is saved and restored
     with the optimizer and a resumed run carries on from the step it
     stopped at.
+
+    ``forward_backward(*batch) -> loss``, in place of ``loss_of_batch``,
+    runs the backward itself (a pipeline's explicit schedule); the
+    gradients are then its, from one batch.
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -39,7 +45,9 @@ def make_update_step(loss_of_batch: Callable, optimizer, accum_steps: int = 1,
 
     def train_step(*batch):
         optimizer.zero_grad(set_to_none=True)
-        if accum_steps == 1:
+        if forward_backward is not None:
+            loss = forward_backward(*batch)
+        elif accum_steps == 1:
             loss = loss_of_batch(*batch)
             loss.backward()
         else:

@@ -8,12 +8,15 @@ Any subset may be used; sizes multiply to the world size (one process
 per device). A size of ``-1`` means "whatever is left" (at most one
 axis). A world of one keeps a one-device :class:`Mesh`; a larger world
 gets a ``torch.distributed`` ``DeviceMesh`` with the same axis names in
-the same order. ``pp`` above 1 refuses, naming the ROADMAP.md item
-that brings it. ``ep`` shards the MoE experts; the batch splits over dp
-and fsdp only, so an ep rank holds its dp row's batch. ``sp`` shards the
-sequence: its ranks hold the same rows, each its own positions
-(``parallel/sharding.py:local_positions``), and its process group
-(``Mesh.submesh("sp")``) carries the ring and the all-to-alls.
+the same order. ``pp`` holds the layer stages of a pipelined Llama
+(``parallel/pipeline.py``): its process group (``Mesh.submesh("pp")``)
+carries the activations from stage to stage, and the ranks of one stage
+keep their dp/fsdp/ep/tp/sp groups. ``ep`` shards the MoE experts; the
+batch splits over dp and fsdp only, so an ep rank holds its dp row's
+batch. ``sp`` shards the sequence: its ranks hold the same rows, each
+its own positions (``parallel/sharding.py:local_positions``), and its
+process group (``Mesh.submesh("sp")``) carries the ring and the
+all-to-alls.
 """
 
 from __future__ import annotations
@@ -33,12 +36,6 @@ SP = "sp"
 
 STANDARD_AXES = (DP, PP, FSDP, EP, TP, SP)
 BATCH_AXES = (DP, FSDP)  # the batch dim shards over these
-
-# Axes whose machinery is a later slice of the port.
-UNPORTED_AXES = {
-    PP: "pipeline parallelism, ROADMAP.md queue (a) item 16",
-}
-
 
 @dataclass(frozen=True)
 class MeshConfig:
@@ -133,13 +130,9 @@ def create_mesh(device="cuda", config: Optional[MeshConfig] = None,
     """Build the Mesh over this job's world: ``create_mesh(dp=-1)``,
     ``create_mesh(dp=2, fsdp=2)``... Defaults to pure data parallelism
     over every process. Raises ValueError when the axes do not multiply
-    to the world size, or for an axis whose parallelism is not ported."""
+    to the world size."""
     if config is None:
         config = MeshConfig.of(**sizes) if sizes else MeshConfig.of(dp=-1)
-    for axis, size in config.axes:
-        if axis in UNPORTED_AXES and size > 1:
-            raise ValueError(f"axis {axis}={size} ({UNPORTED_AXES[axis]}) "
-                             f"is not ported yet")
     n = world_size()
     config = config.canonical().resolve(n)
     device = torch.device(device)
@@ -159,8 +152,8 @@ def batch_shards(mesh: Mesh) -> int:
 
 def local_batch_size(global_batch: int, mesh: Mesh) -> int:
     """The rows of the global batch this process holds: the batch dim
-    shards over dp x fsdp and is whole on every tp, ep and sp rank. Raises
-    when the global batch does not split evenly."""
+    shards over dp x fsdp and is whole on every pp, tp, ep and sp rank.
+    Raises when the global batch does not split evenly."""
     n = batch_shards(mesh)
     if global_batch % n:
         raise ValueError(

@@ -33,7 +33,11 @@ collectives are explicit:
   (:func:`ring_pass`; over gloo, whose point-to-point ops take CPU
   tensors only, a CUDA tensor crosses through pinned host memory) or
   re-shards heads against the sequence (:func:`all_to_all`, which NCCL
-  and gloo both take on CUDA tensors).
+  and gloo both take on CUDA tensors);
+- the pipeline: on ``pp`` each rank holds a stage of the layers
+  (``models/llama_pp.py``), laid out on its stage's groups as above,
+  and the activations hop between stages by :func:`ring_pass` over the
+  pp group (``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -115,7 +119,8 @@ def active_mesh_axis(mesh: Optional[Mesh], name: str) -> Optional[str]:
 
 
 def shard_params(model: torch.nn.Module, mesh: Mesh, *,
-                 tp_plan: Optional[Callable[[], dict]] = None
+                 tp_plan: Optional[Callable[[], dict]] = None,
+                 whole: Sequence[torch.nn.Parameter] = ()
                  ) -> torch.nn.Module:
     """Lay ``model``'s parameters out on ``mesh``, in place: the MoE
     experts on ep x tp (:func:`shard_experts`), the tensor-parallel plan
@@ -127,7 +132,10 @@ def shard_params(model: torch.nn.Module, mesh: Mesh, *,
     replicated layout (ResNet, which JAX leaves to GSPMD with no rule):
     every tp rank computes its dp x fsdp coordinate's whole batch and no
     sum runs across tp. A world of one, or dp alone, leaves the
-    parameters whole. Build the optimizer after this: it must hold the
+    parameters whole. ``whole``: parameters the root leaves unsharded on
+    every fsdp rank (a pipeline stage's embedding, norm and head, which
+    it reads outside its forward; :func:`average_gradients` averages
+    their gradients). Build the optimizer after this: it must hold the
     sharded parameters."""
     shard_experts(model, mesh)
     if mesh.axis_size(TP) > 1:
@@ -154,7 +162,8 @@ def shard_params(model: torch.nn.Module, mesh: Mesh, *,
         for name, block in model.named_children():
             if _BLOCK_NAME.match(name):
                 fully_shard(block, mesh=shard_mesh)
-        fully_shard(model, mesh=shard_mesh)
+        fully_shard(model, mesh=shard_mesh,
+                    ignored_params=set(whole) or None)
     return model
 
 
@@ -200,39 +209,48 @@ def shard_experts(model: torch.nn.Module, mesh: Mesh) -> None:
 def average_gradients(optimizer, mesh: Mesh) -> None:
     """Average ``optimizer``'s gradients just before each of its steps
     over the axes whose ranks hold the same parameters and other data:
-    dp (without fsdp: FSDP2 averages over its own mesh, dp included) and
-    sp, whose ranks hold other positions of the same rows. Sums over
-    each such group, a bucket of at most ``_BUCKET_BYTES`` of one dtype
-    at a time (a larger gradient alone, in place), so the flat copies
-    stay small beside the gradients; the gradient of an FSDP2 shard is
-    averaged the same way over sp. A group holds the ranks that share
-    every other coordinate, tp's among them, so a tensor-parallel
-    gradient's local shard meets only the same shard on its peers."""
+    dp and fsdp (for a parameter FSDP2 shards, neither: it averages over
+    its own mesh, dp included) and sp, whose ranks hold other positions of
+    the same rows. A parameter left whole on an fsdp mesh (a pipeline
+    stage's embedding and head, as the JAX package replicates them) is
+    averaged over dp x fsdp here. Sums over each such group, a bucket of
+    at most ``_BUCKET_BYTES`` of one dtype at a time (a larger gradient
+    alone, in place), so the flat copies stay small beside the gradients;
+    the gradient of an FSDP2 shard is averaged the same way over sp. A
+    group holds the ranks that share every other coordinate, tp's and
+    pp's among them, so a tensor-parallel gradient's local shard meets
+    only the same shard on its peers."""
     import torch.distributed as dist
     from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
-    axes = [a for a in ((DP,) if mesh.axis_size(FSDP) == 1 else ()) + (SP,)
-            if mesh.axis_size(a) > 1]
-    if not axes:
-        return
-    groups = [mesh.submesh(a).get_group() for a in axes]
-    n = prod(mesh.axis_size(a) for a in axes)
+    def axes_of(p) -> tuple:
+        mesh_of = getattr(p, "device_mesh", None)
+        fsdp = FSDP in ((mesh_of.mesh_dim_names or ()) if mesh_of else ())
+        return tuple(a for a in ((SP,) if fsdp else (DP, FSDP, SP))
+                     if mesh.axis_size(a) > 1)
+
     params = [p for g in optimizer.param_groups for p in g["params"]]
+    if not any(axes_of(p) for p in params):
+        return
+    groups = {a: mesh.submesh(a).get_group() for a in (DP, FSDP, SP)
+              if mesh.axis_size(a) > 1}
 
     def sync(*_) -> None:
         grads: dict = {}
         for p in params:
-            if p.grad is None:
+            axes = axes_of(p)
+            if p.grad is None or not axes:
                 continue  # as on every rank: the same parameters get none
             g = p.grad
             g = g.to_local() if hasattr(g, "to_local") else g
-            grads.setdefault(g.dtype, []).append(g)
-        for same in grads.values():
+            grads.setdefault((axes, g.dtype), []).append(g)
+        for (axes, _), same in grads.items():
+            n = prod(mesh.axis_size(a) for a in axes)
             for bucket in _buckets(same):
                 whole = len(bucket) == 1 and bucket[0].is_contiguous()
                 flat = bucket[0] if whole else _flatten_dense_tensors(bucket)
-                for group in groups:
-                    dist.all_reduce(flat, group=group)
+                for axis in axes:
+                    dist.all_reduce(flat, group=groups[axis])
                 flat.div_(n)
                 if not whole:
                     for g, synced in zip(
@@ -347,14 +365,18 @@ def sum_grads(x: torch.Tensor, group) -> torch.Tensor:
 SEQUENCE_BYTES = {"host": 0, "direct": 0}
 
 
-def _count(host: bool, t: torch.Tensor) -> None:
-    SEQUENCE_BYTES["host" if host else "direct"] += t.numel() * t.element_size()
+def _count(host: bool, t: torch.Tensor, ledger: dict = SEQUENCE_BYTES
+           ) -> None:
+    ledger["host" if host else "direct"] += t.numel() * t.element_size()
 
 
-def ring_pass(tensors: Sequence[torch.Tensor], group) -> list:
-    """Send ``tensors`` to the next rank of ``group`` (``(rank + 1) %
-    n``) and return what the previous rank sent, of the same shapes and
-    dtypes: one message a hop, the tensors' bytes packed together."""
+def ring_pass(tensors: Sequence[torch.Tensor], group, shift: int = 1,
+              ledger: dict = SEQUENCE_BYTES) -> list:
+    """Send ``tensors`` to the rank ``shift`` ahead in ``group`` (``(rank
+    + shift) % n``: the next rank, or with ``shift=-1`` the previous one)
+    and return what the rank ``shift`` behind sent, of the same shapes and
+    dtypes: one message a hop, the tensors' bytes packed together and
+    counted into ``ledger``."""
     import torch.distributed as dist
 
     n, rank = dist.get_world_size(group), dist.get_rank(group)
@@ -362,12 +384,12 @@ def ring_pass(tensors: Sequence[torch.Tensor], group) -> list:
         return list(tensors)
     flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
                       for t in tensors])
-    dst = dist.get_global_rank(group, (rank + 1) % n)
-    src = dist.get_global_rank(group, (rank - 1) % n)
+    dst = dist.get_global_rank(group, (rank + shift) % n)
+    src = dist.get_global_rank(group, (rank - shift) % n)
     # gloo's send and recv read the tensor's pointer from the host: a
     # CUDA tensor fails there ("Bad address"), so it is staged.
     host = flat.is_cuda and dist.get_backend(group) == "gloo"
-    _count(host, flat)
+    _count(host, flat, ledger)
     if host:
         send = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
         send.copy_(flat)

@@ -620,8 +620,10 @@ def drain_final_save(
 def read_llama_params(checkpoint_dir: str, model_name: str):
     """cmd.eval's checkpoint loader: the newest step's ``params`` as host
     tensors keyed by the port's module names; DCP reads no other entry.
-    Raises ``SystemExit`` with operator-facing messages (this serves a
-    CLI). Returns ``(step, params)``."""
+    A pipelined run's checkpoint carries the same names (each stage wrote
+    its layers under their global names), so it reads as it is. Raises
+    ``SystemExit`` with operator-facing messages (this serves a CLI).
+    Returns ``(step, params)``."""
     ckpt = CheckpointManager(checkpoint_dir)
     step = ckpt.latest_step()
     if step is None:
@@ -632,11 +634,4 @@ def read_llama_params(checkpoint_dir: str, model_name: str):
             f"checkpoint at step {step} has no 'params' entry -- was it "
             f"written by cmd.train?"
         )
-    params = {k[len("params."):]: v for k, v in flat.items()}
-    if any(k.startswith("blocks.") for k in params):
-        raise SystemExit(
-            f"checkpoint at step {step} holds a stage-stacked 'blocks' "
-            f"layout (a pipelined run); reading it for {model_name} is not "
-            f"ported yet (ROADMAP.md queue (a) item 16)"
-        )
-    return step, params
+    return step, {k[len("params."):]: v for k, v in flat.items()}

@@ -162,14 +162,9 @@ def test_dispatch_routes_and_refuses():
     ).transpose(1, 2)
     np.testing.assert_allclose(flash.numpy(), dense.numpy(), atol=OUT_ATOL,
                                rtol=0)
-    # The pipeline's in-stage variants are a later slice; the
-    # sequence-parallel impls need the sp process group.
-    for impl in ("ring-shard", "ulysses-shard"):
-        for dispatch in (tring.sp_attention_bshd, tring.sp_attention):
-            with pytest.raises(NotImplementedError,
-                               match=r"ROADMAP.md queue \(a\) item 16"):
-                dispatch(qt, kt, vt, impl, causal=True)
-    for impl in ("ring", "ulysses"):
+    # The sequence-parallel impls need the sp process group; the JAX
+    # pipeline's in-stage names are the same ring and Ulysses.
+    for impl in ("ring", "ulysses", "ring-shard", "ulysses-shard"):
         for dispatch in (tring.sp_attention_bshd, tring.sp_attention):
             with pytest.raises(ValueError, match="needs a mesh with an sp"):
                 dispatch(qt, kt, vt, impl, causal=True)

@@ -240,16 +240,11 @@ def test_remat_full_changes_nothing_and_dots_is_refused():
 
 
 def test_unported_attention_impls_raise():
-    """The pipeline's in-stage impls are a later slice (item 16); the
-    sequence-parallel ones need an sp group, which a model built without
-    one has not."""
+    """The sequence-parallel impls need an sp group, which a model built
+    without one has not; the JAX pipeline's in-stage names
+    (``ring-shard``, ``ulysses-shard``) are the same ring and Ulysses."""
     tokens = torch.zeros(1, 8, dtype=torch.long)
-    for impl in ("ring-shard", "ulysses-shard"):
-        model = tbert.Bert(tbert.tiny(attention_impl=impl), device="cpu")
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP.md queue \(a\) item 16"):
-            model(tokens)
-    for impl in ("ring", "ulysses"):
+    for impl in ("ring", "ulysses", "ring-shard", "ulysses-shard"):
         model = tbert.Bert(tbert.tiny(attention_impl=impl), device="cpu")
         with pytest.raises(ValueError, match="needs a mesh with an sp axis"):
             model(tokens)

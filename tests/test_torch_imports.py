@@ -38,6 +38,19 @@ def test_port_has_modules():
     assert len(FILES) > 10
     assert "mpi_operator_tpu_torch/ops/attention.py" in FILES
     assert "mpi_operator_tpu_torch/ops/ulysses.py" in FILES
+    assert "mpi_operator_tpu_torch/parallel/pipeline.py" in FILES
+    assert "mpi_operator_tpu_torch/models/llama_pp.py" in FILES
+
+
+def test_the_pipeline_modules_import_and_nothing_waits_for_item_16():
+    """The pipeline is ported: its modules import, and no refusal of the
+    port names the ROADMAP.md item that brought it."""
+    from mpi_operator_tpu_torch.models import llama_pp
+    from mpi_operator_tpu_torch.parallel import pipeline
+
+    assert callable(pipeline.pipeline) and callable(llama_pp.forward_backward)
+    for rel in FILES:
+        assert "item 16" not in (ROOT / rel).read_text(), rel
 
 
 @pytest.mark.parametrize("rel", FILES)

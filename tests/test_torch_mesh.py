@@ -51,13 +51,12 @@ def test_mesh_config_resolves_as_the_jax_packages(name):
 
 
 def test_create_mesh_refuses_the_unported_axes_by_item():
-    for axis, item in (("pp", 16),):
-        with pytest.raises(ValueError, match=f"queue \\(a\\) item {item}"):
-            tmesh.create_mesh(device="cpu", dp=1, **{axis: 2})
-    # ep and sp are ported: only the world size stands in their way here.
-    for axis in ("ep", "sp"):
+    # Every axis is ported (pp last): only the world size stands in
+    # their way here.
+    for axis in ("ep", "sp", "pp"):
         with pytest.raises(ValueError, match="require 2 devices, have 1"):
             tmesh.create_mesh(device="cpu", dp=1, **{axis: 2})
+    assert not hasattr(tmesh, "UNPORTED_AXES")
 
 
 class _Coordinates:

@@ -65,17 +65,20 @@ REFUSED = {
     # sp trains since ring and Ulysses came, with tp too; BERT's gathered
     # positions on it refuse.
     "mesh-sp-positions": (["--model", "bert-tiny", "--mlm-layout",
-                           "positions", "--mesh", "sp=2"], "item 15"),
-    "mesh-pp": (["--mesh", "dp=1,pp=2"], "item 16"),
-    "remat": (["--remat-policy", "dots"], "item 4"),
+                           "positions", "--mesh", "sp=2"],
+                          "ROADMAP.md queue \\(a\\) item 15"),
+    # pp is ported: past the checks, one process stops only at the
+    # mesh's device count.
+    "mesh-pp": (["--mesh", "dp=1,pp=2"], "require 2 devices, have 1"),
+    "remat": (["--remat-policy", "dots"], "ROADMAP.md queue \\(a\\) item 4"),
 }
 
 
 @pytest.mark.parametrize("flag", sorted(REFUSED))
 def test_unported_flags_refuse_loudly(flag):
-    extra, item = REFUSED[flag]
+    extra, match = REFUSED[flag]
     argv = ["--device", "cpu", "--model", "llama-tiny", "--steps", "1", *extra]
-    with pytest.raises(SystemExit, match=f"ROADMAP.md queue \\(a\\) {item}"):
+    with pytest.raises(SystemExit, match=match):
         train.main(argv)
 
 
@@ -420,16 +423,12 @@ def test_adopted_trace_id_reaches_log_lines(capsys):
 
 def test_mesh_is_one_device():
     """A world of one process keeps the one-device mesh; a wider axis
-    needs that many processes (ep and sp too, now ported), and pp refuses
-    naming its ROADMAP item (``tests/test_torch_mesh.py`` holds the
-    rest)."""
+    needs that many processes (ep, sp and pp too, now ported;
+    ``tests/test_torch_mesh.py`` holds the rest)."""
     mesh = create_mesh(device="cpu", dp=-1, tp=1)
     assert mesh.sizes == {"dp": 1, "tp": 1} and mesh.device_mesh is None
-    for axis in ("fsdp", "ep", "sp"):
+    for axis in ("fsdp", "ep", "sp", "pp"):
         with pytest.raises(ValueError, match="require 2 devices, have 1"):
-            create_mesh(device="cpu", **{axis: 2})
-    for axis, item in (("pp", 16),):
-        with pytest.raises(ValueError, match=f"queue \\(a\\) item {item}"):
             create_mesh(device="cpu", **{axis: 2})
 
 

@@ -108,24 +108,35 @@ def _init_from(weights: str):
     JAX init): after the model's own init, so that a parameter the JAX
     tree lacks (BERT's type_embed, which gets no gradient) is seeded as
     usual."""
-    from mpi_operator_tpu_torch.models import bert, llama, resnet, seq2seq, vit
+    from mpi_operator_tpu_torch.models import (
+        bert,
+        llama,
+        llama_pp,
+        resnet,
+        seq2seq,
+        vit,
+    )
 
     state = torch.load(weights)
-    own = {lib: lib.init_params for lib in (bert, llama, resnet, seq2seq,
-                                            vit)}
-    for lib, real in own.items():
-        def init(model, generator, _real=real):
+    own = {(lib, "init_params"): lib.init_params
+           for lib in (bert, llama, resnet, seq2seq, vit)}
+    # A pipeline stage loads its part of the whole model's state.
+    own[llama_pp, "init_stage_params"] = llama_pp.init_stage_params
+    for (lib, name), real in own.items():
+        def init(model, generator, _real=real, _stage=lib is llama_pp):
             _real(model, generator)
-            missing, unexpected = model.load_state_dict(state, strict=False)
+            mine = {k: v for k, v in state.items()
+                    if not _stage or k in model.state_dict()}
+            missing, unexpected = model.load_state_dict(mine, strict=False)
             assert not unexpected and set(missing) <= {"type_embed.weight"}
             return model
 
-        lib.init_params = init
+        setattr(lib, name, init)
     try:
         yield
     finally:
-        for lib, real in own.items():
-            lib.init_params = real
+        for (lib, name), real in own.items():
+            setattr(lib, name, real)
 
 
 def _preempt_after(rank: int, n_steps: int) -> None:
@@ -217,7 +228,10 @@ def jax_reference(argv: list, mesh_spec: str, steps: int = 3):
     from mpi_operator_tpu_torch import interop
 
     args = jtrain.build_parser().parse_args(argv)
-    mesh = jax_mesh(**jtrain.parse_mesh_spec(mesh_spec))
+    sizes = jtrain.parse_mesh_spec(mesh_spec)
+    # A spec without -1 takes as many devices as it names.
+    n = np.prod(list(sizes.values())) if -1 not in sizes.values() else None
+    mesh = jax_mesh(devices=jax.devices()[:n] if n else None, **sizes)
     with pytest.MonkeyPatch.context() as mp:
         # The reference's _flat_pack reads os.environ, but its module
         # never imports os (tests/test_torch_llama.py): supply the global.
@@ -227,8 +241,11 @@ def jax_reference(argv: list, mesh_spec: str, steps: int = 3):
         host = jax.tree_util.tree_map(np.asarray, work.state)
         losses, state = [], work.state
         with mesh:
-            for _ in range(steps):
-                state, loss = work.step_fn(state, work.batch)
+            for step in range(steps):
+                # --data: the step's batch of the token stream.
+                batch = (work.batch_fn(step) if work.batch_fn is not None
+                         else work.batch)
+                state, loss = work.step_fn(state, batch)
                 losses.append(float(loss))
     if args.model.startswith("resnet"):
         init = interop.resnet_params_from_jax(host["params"],
@@ -239,6 +256,8 @@ def jax_reference(argv: list, mesh_spec: str, steps: int = 3):
         init = interop.vit_params_from_jax(host["params"])
     elif args.model.startswith("seq2seq"):
         init = interop.seq2seq_params_from_jax(host["params"])
+    elif "blocks" in host["params"]:
+        init = interop.llama_pp_params_from_jax(host["params"])
     else:
         init = interop.llama_params_from_jax(host["params"])
     return losses, init
