@@ -54,7 +54,10 @@ Phases, in order:
    route through the kernels' plain versions;
 4. ``train``: the trainer's own entry point
    (``mpi_operator_tpu_torch.cmd.train.main``) on each main path: Llama
-   (full width, 2 layers, S=2048, 6 AdamW steps), ResNet-101 with
+   (full width, 2 layers, S=2048, 6 AdamW steps; then with
+   ``--remat-policy dots``, whose flash forward runs once a layer a step,
+   12/12/12 launches against full's 24/12/12, its curve within the
+   spread of that run and one more ``full`` run), ResNet-101 with
    ``--bn-kernel pallas`` (B=64, 224x224, 6 SGD steps) and BERT-base
    (B=64, S=512, ``--mlm-layout positions``, 6 AdamW steps), then 3 steps
    of the BERT train step on the ``flash-bhsd`` route, then ViT-B/16
@@ -94,7 +97,22 @@ Phases, in order:
    new); then ``python -m mpi_operator_tpu_torch.cmd.generate`` on
    llama-tiny and llama-moe-tiny checkpoints the trainer writes here, its
    tokens against the same command on the CPU;
-7. ``world``: the port across processes. A one-process NCCL world formed
+7. ``decode_world``: sharded decoding on two processes over gloo (the
+   world phase's gang), each rank drawing the seeded parameters one
+   tensor at a time and keeping only its slices: llama3-8b at full width
+   and depth on ``tp=2`` and mixtral-8x7b at full width, 2 layers, on
+   ``ep=2`` and ``tp=2`` (B=4, a 32-token prompt, 32 new, greedy),
+   against one process decoding the same parameters: teacher-forced
+   logits at DECODE_LOGITS_TOL, greedy tokens equal up to the first
+   position whose one-process top-2 logit gap is under DECODE_NEAR_TIE,
+   ms a step, new tokens/s, peak memory a rank beside one process's and
+   the bytes one step all-reduces (exactly an f32 [B, dim] partial per
+   row-parallel product); then ``cmd.generate`` as a two-process gang on
+   llama-tiny (``--mesh dp=2``, ``tp=2``, ``fsdp=2``) and llama-moe-tiny
+   (those and ``ep=2``) checkpoints of seeded parameters, its lines
+   equal to the one-process command's (f32) and printed by process 0
+   alone. No arm launches a kernel;
+8. ``world``: the port across processes. A one-process NCCL world formed
    by the launcher's own ``form_world``, with the healthcheck's collective
    probe and its JSON line. Then one gang of two processes on the one
    card (``python3 chip_smoke.py --world-child``, the rendezvous env, the
@@ -114,21 +132,21 @@ Phases, in order:
    ``--mesh ep=2`` (3 steps, each rank holding 4 of the 8 experts) against
    the one-process run. Its step times measure gloo staging every
    collective through the host, not the port on a multi-GPU node;
-8. ``sp``: sequence parallelism on the one card. First which gloo ops
+9. ``sp``: sequence parallelism on the one card. First which gloo ops
    take CUDA tensors (send/recv, all_to_all_single, all_reduce,
    all_gather, broadcast, each in a pair of processes of its own); then
-   llama3-8b at full width, 2 layers, B=1, S=8192, 3 AdamW steps,
+   llama3-8b at full width, 1 layer, B=1, S=8192, 3 AdamW steps,
    through ``cmd.train.main`` on two processes over gloo (the world
    phase's gang: ``--world-child``) with ``--mesh sp=2`` as the zigzag
    ring, the contiguous ring and Ulysses, each loss curve held against
    the one-process run of the same call (rtol 2e-3) and each rank's
-   flash launches against the hop count (ring: forward 24, dq and dk/dv
-   12; Ulysses: the one-process 12/6/6), with each rank's step_ms, peak
+   flash launches against the hop count (ring: forward 12, dq and dk/dv
+   6; Ulysses: the one-process 6/3/3), with each rank's step_ms, peak
    memory and transport bytes beside the one-process run's; gloo
    through the host on one card, not a multi-GPU node;
-9. ``tp``: tensor parallelism and FSDP on the one card, each run
+10. ``tp``: tensor parallelism and FSDP on the one card, each run
    through ``cmd.train.main`` on a gang over gloo (the world phase's
-   ``--world-child``), 3 steps, against the one-process run of the same
+   ``--world-child``), 2 steps, against the one-process run of the same
    call (curve at rtol 2e-3): mixtral-8x7b at full width, 1 layer, B=2,
    S=2048, lr 3e-5 on ``--mesh fsdp=2`` and on ``--mesh tp=2`` (16 q / 4
    kv heads and half of every expert's hidden dim a rank); vit-base, seq2seq-small
@@ -140,7 +158,7 @@ Phases, in order:
    step_ms, peak GB a rank (allocated and reserved) and the bytes the
    first step hands gloo a rank (by c10d op, from a dispatch mode) are
    printed beside the one-process run's;
-10. ``pp``: pipeline parallelism on the one card (GPipe over ``--mesh
+11. ``pp``: pipeline parallelism on the one card (GPipe over ``--mesh
    pp``), each arm through ``cmd.train.main`` on a gang over gloo, 3
    steps, against the one-process run of the same call (curve at rtol
    2e-3): llama3-8b at full width, 2 layers, B=4, S=2048 on ``pp=2``
@@ -156,7 +174,7 @@ Phases, in order:
    ``cmd.eval`` (its loss against a one-process checkpoint of the same
    training) and resumed on one process to step 6 (the continued
    losses against the one-process run's);
-11. ``operator``: the port's job path, from create to a terminal
+12. ``operator``: the port's job path, from create to a terminal
    condition, through its own control plane in this process
    (``InMemoryAPIServer``, ``TPUJobController``, ``LocalPodRunner``
    auto-binding, told the card count), every worker pod a process on the
@@ -173,7 +191,7 @@ Phases, in order:
    ``python -m mpi_operator_tpu_torch.cmd.operator --backend memory
    --apply mpi_operator_tpu_torch/examples/pi.yaml --exit-on-completion``
    as a process (exit 0, its wall time);
-12. ``observe``: the operator under faults, in this process's control
+13. ``observe``: the operator under faults, in this process's control
    plane with the step-skew and memory matrices and a monitoring
    server: llama3-8b / 2 layers on ``h100-1`` as a pod with
    ``--heartbeat-every 2`` and ``TPU_JAX_TRACE=1`` (its heartbeat and
@@ -195,7 +213,7 @@ Phases, in order:
    this process with ``--profile-dir`` (the trace must name the three
    flash kernels) and ``torch.cuda``'s sync debug mode, whose syncs the
    tracer must count;
-13. ``kube``: the port's operator on a cluster's terms: ``python -m
+14. ``kube``: the port's operator on a cluster's terms: ``python -m
    mpi_operator_tpu_torch.cmd.operator --backend kube --kubeconfig
    <file>`` as a process against ``APIServerFrontend`` (the envtest
    analog: real HTTP, a random bearer token, watch streams) over a fresh
@@ -210,9 +228,9 @@ Phases, in order:
    down (it resumes with a 410 and relists); a malformed command
    (Failed, naming the pod); ``--apply`` of the shipped pi.yaml over REST
    as a process (exit 0); ``--backend kube --enable-scheduler`` refused;
-14. ``profile`` (opt-in, ``--phases profile``): where one training step's
+15. ``profile`` (opt-in, ``--phases profile``): where one training step's
    time goes, for each arm (device kernel time by kind, idle share);
-15. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
+16. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
    step, as a same-call A/B: the Llama and the BERT-base train runs
    synthetic and on a token file in turns (S D D S, four times), 10 steps
    each, with every run's step_ms and each side's median.
@@ -1574,9 +1592,15 @@ def run_resnet_train() -> tuple[dict, dict]:
     return summary, launches
 
 
-def run_train() -> tuple[dict, dict]:
-    """The trainer's own entry point; returns (summary, launch counts)."""
-    summary, launches = _drive_trainer(TRAIN_ARGS)
+def run_train(argv=TRAIN_ARGS) -> tuple[dict, dict]:
+    """The trainer's own entry point; returns (summary with each step's
+    loss under ``curve``, launch counts)."""
+    from mpi_operator_tpu_torch.cmd import train
+
+    curve = []
+    with _recorded(train, curve):
+        summary, launches = _drive_trainer(argv)
+    summary["curve"] = [float(x) for x in curve]
     # MFU, PaLM-appendix accounting with 2 x MAC FLOPs: 6 x the matmul
     # parameters (2 layers + the LM head) + 6 L d S for causal attention,
     # per token, against the bf16 dense peak.
@@ -1592,7 +1616,10 @@ def run_train() -> tuple[dict, dict]:
         summary["tokens_per_sec"] * flops_per_token / PEAK_FLOPS["bf16"])
     log("train summary: " + json.dumps(summary))
     layers, steps = 2, summary["steps"]
-    want = _want_launches({"flash_fwd": 2 * layers * steps,
+    # Under remat 'full' each layer's forward runs again in the backward;
+    # 'dots' keeps the flash forward's (out, lse).
+    forwards = 1 if "dots" in argv else 2
+    want = _want_launches({"flash_fwd": forwards * layers * steps,
                            "flash_bwd_dq": layers * steps,
                            "flash_bwd_dkv": layers * steps})
     ok = (steps == 6 and math.isfinite(summary["loss"])
@@ -1603,6 +1630,42 @@ def run_train() -> tuple[dict, dict]:
     if not ok:
         raise AssertionError("training run failed its checks")
     return summary, launches
+
+
+DOTS_TRAIN_ARGS = TRAIN_ARGS + ["--remat-policy", "dots"]
+
+
+def run_train_dots(full: dict) -> dict:
+    """The Llama arm with ``--remat-policy dots`` (launches 12/12/12: the
+    flash forward once a layer a step), then ``full`` again: the dots
+    curve must lie within the two full runs' spread (their largest
+    difference over the steps, floored at 1e-6 of the loss: the
+    policies compute the same numbers, so only the backward's atomics
+    move them). Prints step_ms and peak memory beside full's. Returns
+    the dots run's launch counts."""
+    import torch
+
+    dots, launches = run_train(DOTS_TRAIN_ARGS)
+    torch.cuda.empty_cache()
+    again, _ = run_train()
+    torch.cuda.empty_cache()
+    pairs = list(zip(full["curve"], again["curve"]))
+    spread = max(abs(a - b) for a, b in pairs)
+    gaps = [min(abs(d - a), abs(d - b))
+            for d, (a, b) in zip(dots["curve"], pairs)]
+    ok = (len(dots["curve"]) == len(pairs) == 6
+          and all(g <= spread + 1e-6 * abs(a)
+                  for g, (a, _) in zip(gaps, pairs)))
+    log(f"train llama3-8b --remat-policy dots: curve {dots['curve']} "
+        f"against full {full['curve']} and {again['curve']} (spread "
+        f"{spread:.3e}, dots off the nearer by at most {max(gaps):.3e}); "
+        f"step_ms {dots['step_ms']} against full {full['step_ms']} and "
+        f"{again['step_ms']}; peak {dots['peak_mem_gb']:.2f} GB against "
+        f"{full['peak_mem_gb']:.2f} and {again['peak_mem_gb']:.2f}; "
+        f"launches {launches} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the dots arm left the full runs' spread")
+    return launches
 
 
 def _bert_mfu(sequences_per_s: float, seq_len: int = 512) -> float:
@@ -2445,6 +2508,262 @@ def run_decode(tmp: Path, moe_model=None) -> dict:
     return paths
 
 
+# Phase decode_world: sharded decoding on two processes over gloo (the
+# world phase's gang), each rank holding only its slices of seeded
+# parameters drawn one tensor at a time (models/generate.py), against
+# one process decoding the same parameters. B=4, a 32-token prompt, 32
+# new tokens, greedy.
+DECODE_WORLD_BATCH, DECODE_WORLD_PROMPT, DECODE_WORLD_NEW = 4, 32, 32
+# A greedy token may flip between the ranks and one process only where
+# the one-process top-2 logits lie closer than this: the f32 tp and ep
+# sums add the partial products in another order than one process's
+# GEMM (bf16 operands, f32 sums, one bf16 rounding of the output either
+# way), a few units of 2^-9 of a logit of order 10 apart at worst.
+DECODE_NEAR_TIE = 0.05
+# arm -> (model, config overrides, mesh); each arm's bytes all-reduced a
+# token a rank, exactly: an f32 [B, dim] partial a row-parallel product
+# (attention's wo when tp splits the heads, the MLP's down or the
+# experts' combine).
+DECODE_WORLD_ARMS = {
+    "llama3-8b tp=2": ("llama3-8b", {}, "tp=2"),
+    "mixtral-8x7b ep=2": ("mixtral-8x7b", {"n_layers": MOE_LAYERS}, "ep=2"),
+    "mixtral-8x7b tp=2": ("mixtral-8x7b", {"n_layers": MOE_LAYERS}, "tp=2"),
+}
+DECODE_WORLD_SUMS = {"llama3-8b tp=2": 2, "mixtral-8x7b ep=2": 1,
+                     "mixtral-8x7b tp=2": 2}  # all-reduces a layer
+# cmd.generate's gangs: model -> meshes.
+DECODE_CLI_MESHES = {"llama-tiny": ("dp=2", "tp=2", "fsdp=2"),
+                     "llama-moe-tiny": ("dp=2", "tp=2", "fsdp=2", "ep=2")}
+
+
+def _world_prompt(vocab: int):
+    import numpy as np
+    import torch
+
+    return torch.as_tensor(np.random.RandomState(9).randint(
+        0, vocab, (DECODE_WORLD_BATCH, DECODE_WORLD_PROMPT)))
+
+
+def _decode_reference(model: str, overrides: dict, path: Path) -> dict:
+    """One process decoding ``model`` from the seeded parameters, drawn
+    and cast a tensor at a time as a rank draws them: greedy tokens, ms a
+    step, the teacher-forced logits of those tokens (the logits the
+    greedy run picked from) and their top-2 gaps, saved at ``path`` for
+    the ranks; returns the record."""
+    import gc
+
+    import torch
+
+    from mpi_operator_tpu_torch.models import generate as gen
+    from mpi_operator_tpu_torch.models import llama as lib
+
+    cfg = lib.config_for(model, **overrides)
+    torch.cuda.reset_peak_memory_stats()
+    weights = gen.shard_decode_weights(
+        cfg, gen.seeded_params(cfg, torch.Generator(
+            device="cuda").manual_seed(0)), gen.DecodeShards(), "cuda")
+    prompt = _world_prompt(cfg.vocab_size).cuda()
+    gen.generate(cfg, prompt[:, :2], max_new=2, weights=weights)  # warm
+    torch.cuda.synchronize()
+    _reset_all_launch_counts()
+    t0 = time.perf_counter()
+    out = gen.generate(cfg, prompt, max_new=DECODE_WORLD_NEW,
+                       weights=weights)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _all_launch_counts()
+    logits = gen.decode_logits_teacher_forced(cfg, out, weights)
+    top2 = logits.topk(2, dim=-1).values
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.save({"tokens": out.cpu(), "logits": logits.cpu(),
+                "gap": (top2[..., 0] - top2[..., 1]).cpu()}, path)
+    del weights, logits, top2
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = DECODE_WORLD_PROMPT + DECODE_WORLD_NEW - 1
+    rec = {"ms_per_step": wall * 1e3 / steps, "peak_gb": peak,
+           "launches": launches}
+    log(f"decode_world one process {model}: {json.dumps(rec)}")
+    return rec
+
+
+def _greedy_agreement(got, want, gap) -> tuple[bool, list]:
+    """Each row's tokens against the one-process tokens: equal up to its
+    first generated position whose one-process top-2 gap is below
+    DECODE_NEAR_TIE (past it a flip may lead anywhere). Returns (ok,
+    each row's first such position, None for "all equal" rows that need
+    none, or the first differing one)."""
+    s0 = DECODE_WORLD_PROMPT
+    ok, where = True, []
+    for g, w, gp in zip(got.tolist(), want.tolist(), gap.tolist()):
+        # The token at position t + 1 is the argmax of the logits at t.
+        ties = [t + 1 for t in range(s0 - 1, len(w) - 1)
+                if gp[t] < DECODE_NEAR_TIE]
+        limit = ties[0] if ties else len(w)
+        ok = ok and g[:limit] == w[:limit]
+        first = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        where.append("all equal" if first is None else
+                     f"first differs at {first}, first near-tie at "
+                     f"{ties[0] if ties else None}")
+    return ok, where
+
+
+def decode_world_rank(model: str, overrides: dict, mesh: str,
+                      reference: str) -> dict:
+    """A rank of the decode-world gang (an op job): its slices of the
+    seeded parameters, its greedy decode against the one-process tokens,
+    the teacher-forced logits of those tokens against one process's, ms a
+    step, the bytes one step all-reduces and its peak memory."""
+    import gc
+
+    import torch
+
+    from mpi_operator_tpu_torch.cmd.train import parse_mesh_spec
+    from mpi_operator_tpu_torch.launcher import bootstrap
+    from mpi_operator_tpu_torch.models import generate as gen
+    from mpi_operator_tpu_torch.models import llama as lib
+    from mpi_operator_tpu_torch.parallel.mesh import create_mesh
+
+    rdzv = bootstrap.initialize(device_type="cuda")
+    device = bootstrap.process_device(rdzv.process_id, "cuda")
+    cfg = lib.config_for(model, **overrides)
+    shards = gen.DecodeShards.of(
+        create_mesh(device=device, **parse_mesh_spec(mesh)), cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    weights = gen.shard_decode_weights(
+        cfg, gen.seeded_params(cfg, torch.Generator(
+            device=device).manual_seed(0)), shards, device)
+    build_s = time.perf_counter() - t0
+    held_gb = sum(t.numel() * t.element_size()
+                  for t in weights.values()) / 1e9
+    ref = torch.load(reference)
+    prompt = ref["tokens"][:, :DECODE_WORLD_PROMPT].to(device)
+    gen.generate(cfg, prompt[:, :2], max_new=2, weights=weights,
+                 shards=shards)  # warm
+    torch.cuda.synchronize()
+    _reset_all_launch_counts()
+    t0 = time.perf_counter()
+    out = gen.generate(cfg, prompt, max_new=DECODE_WORLD_NEW,
+                       weights=weights, shards=shards)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _all_launch_counts()
+    lo, hi = shards.rows(DECODE_WORLD_BATCH)
+    dec = gen.Decoder(cfg, hi - lo, 2, weights, shards)
+    counter = _collective_counter()
+    with counter, torch.no_grad():
+        dec.step(prompt[lo:hi, 0], 0)
+    del dec
+    logits = gen.decode_logits_teacher_forced(
+        cfg, ref["tokens"].to(device), weights, shards).cpu()
+    rel = norm_rel(logits, ref["logits"][lo:hi])
+    ok, where = _greedy_agreement(out.cpu(), ref["tokens"], ref["gap"])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del weights, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = DECODE_WORLD_PROMPT + DECODE_WORLD_NEW - 1
+    return {"line": None, "ms_per_step": wall * 1e3 / steps,
+            "new_tokens_per_s": DECODE_WORLD_BATCH * steps / wall,
+            "build_s": build_s, "held_gb": held_gb, "peak_gb": peak,
+            "step_bytes": counter.bytes, "teacher_forced_norm_rel": rel,
+            "tokens_ok": ok, "where": where, "launches": launches}
+
+
+def _tiny_checkpoints(tmp: Path) -> dict:
+    """llama-tiny and llama-moe-tiny checkpoints of seeded f32 parameters
+    (step 2), as the trainer would save them: name -> directory."""
+    import torch
+
+    from mpi_operator_tpu_torch.models import llama as lib
+    from mpi_operator_tpu_torch.utils.checkpoint import CheckpointManager
+
+    out = {}
+    for name in DECODE_CLI_MESHES:
+        model = lib.Llama(lib.config_for(name), device="cpu")
+        lib.init_params(model, torch.Generator().manual_seed(5))
+        out[name] = str(tmp / f"world-gen-{name}")
+        CheckpointManager(out[name]).save(
+            2, {"params": {k: v.detach() for k, v in
+                           model.state_dict().items()}}, force=True)
+    return out
+
+
+def run_decode_world(tmp: Path) -> dict:
+    """Phase ``decode_world``: each arm of DECODE_WORLD_ARMS on two
+    processes over gloo against one process decoding the same seeded
+    parameters (logits at DECODE_LOGITS_TOL, greedy tokens to the first
+    near-tie), then ``cmd.generate`` gangs on tiny checkpoints against the
+    one-process command (f32, tokens equal, process 0 alone printing).
+    No arm launches a kernel. Returns each path's launch counts."""
+    refs, one = {}, {}
+    for arm, (model, overrides, _) in DECODE_WORLD_ARMS.items():
+        if model not in refs:
+            refs[model] = str(tmp / f"ref-{model}.pt")
+            one[model] = _decode_reference(model, overrides,
+                                           Path(refs[model]))
+    ckpts = _tiny_checkpoints(tmp)
+    base = {name: ["--device", "cuda", "--checkpoint-dir", ck, "--model",
+                   name, "--prompt", "12,7,42", "--prompt", "3,9,27",
+                   "--max-new", "8"] for name, ck in ckpts.items()}
+    _reset_all_launch_counts()
+    cli_one = {name: _generate_lines(argv) for name, argv in base.items()}
+    cli_launches = _all_launch_counts()
+    jobs = [{"cmd": "op", "fn": "decode_world_rank",
+             "args": {"model": model, "overrides": overrides, "mesh": mesh,
+                      "reference": refs[model]}}
+            for model, overrides, mesh in DECODE_WORLD_ARMS.values()]
+    cli = [(name, mesh) for name, meshes in DECODE_CLI_MESHES.items()
+           for mesh in meshes]
+    jobs += [{"cmd": "generate", "argv": [*base[name], "--mesh", mesh]}
+             for name, mesh in cli]
+    free_card("the decode_world phase")
+    ranks = _run_gang(jobs, tmp)
+    none = _want_launches({})
+    ok, paths = cli_launches == none, {}
+    for i, (arm, (model, _, _)) in enumerate(DECODE_WORLD_ARMS.items()):
+        recs = [r[i] for r in ranks]
+        layers = DECODE_WORLD_ARMS[arm][1].get("n_layers", 32)
+        want_bytes = (DECODE_WORLD_SUMS[arm] * layers * DECODE_WORLD_BATCH
+                      * 4096 * 4)
+        arm_ok = all(
+            r["tokens_ok"] and r["launches"] == none
+            and r["teacher_forced_norm_rel"] <= DECODE_LOGITS_TOL
+            and sum(r["step_bytes"].get(k, 0) for k in (
+                "c10d.allreduce_",)) == want_bytes for r in recs)
+        ok = ok and arm_ok
+        paths[f"decode_world {arm}"] = recs[0]["launches"]
+        log(f"decode_world {arm}: " + json.dumps(recs))
+        log(f"decode_world {arm}: ms a step "
+            f"{[round(r['ms_per_step'], 3) for r in recs]} against one "
+            f"process's {one[model]['ms_per_step']:.3f}; new tokens/s "
+            f"{recs[0]['new_tokens_per_s']:.1f}; peak GB a rank "
+            f"{[round(r['peak_gb'], 2) for r in recs]} (held "
+            f"{[round(r['held_gb'], 2) for r in recs]}) against one "
+            f"process's {one[model]['peak_gb']:.2f}; all-reduced "
+            f"{[r['step_bytes'] for r in recs]} a token a rank (want "
+            f"{want_bytes} B); teacher-forced logits norm-rel "
+            f"{[r['teacher_forced_norm_rel'] for r in recs]} (tol "
+            f"{DECODE_LOGITS_TOL:.0e}); greedy tokens {recs[0]['where']} "
+            f"-> {'ok' if arm_ok else 'FAIL'}")
+    for j, (name, mesh) in enumerate(cli, start=len(DECODE_WORLD_ARMS)):
+        lines = [r[j]["lines"] for r in ranks]
+        launches = [r[j]["launches"] for r in ranks]
+        cli_ok = (lines[0] == cli_one[name] and not any(lines[1:])
+                  and all(c == none for c in launches))
+        ok = ok and cli_ok
+        paths[f"decode_world cmd.generate {name} {mesh}"] = launches[0]
+        log(f"decode_world cmd.generate {name} --mesh {mesh}: "
+            f"{json.dumps(lines[0])} (one process: "
+            f"{[line['tokens'] for line in cli_one[name]]}); other ranks "
+            f"printed {sum(len(x) for x in lines[1:])} lines -> "
+            f"{'ok' if cli_ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the decode world failed its checks")
+    return paths
+
+
 def ab_data_step(blocks: int = 4, steps: int = 10) -> None:
     """Opt-in phase ``data``: each of the Llama and BERT-base trainer runs
     without and with ``--data``, in the order S D D S repeated ``blocks``
@@ -2948,18 +3267,23 @@ def _collective_counter():
 
 
 def _world_job(job: dict) -> dict:
-    """One ``cmd.train`` or ``cmd.eval`` call in this process, with every
-    launch counter set to 0 just before it and read just after; returns
-    its last JSON line (None when it printed none), the counts (also by
-    the flat kernels' head counts), the curve of its local losses and the
-    trained model's local expert shapes. With ``count_bytes`` the first
-    step (a warmup step, outside step_ms) runs under
-    :func:`_collective_counter` and its bytes come back by op."""
+    """One ``cmd.train``, ``cmd.eval`` or ``cmd.generate`` call in this
+    process, with every launch counter set to 0 just before it and read
+    just after; returns its last JSON line (None when it printed none),
+    all of them, the counts (also by the flat kernels' head counts), the
+    curve of its local losses and the trained model's local expert
+    shapes. With ``count_bytes`` the first step (a warmup step, outside
+    step_ms) runs under :func:`_collective_counter` and its bytes come
+    back by op. An op job (``"cmd": "op"``) calls this script's function
+    ``fn`` with ``args`` instead and returns what it returns."""
     import gc
 
     import torch
 
+    if job.get("cmd") == "op":
+        return globals()[job["fn"]](**job["args"])
     from mpi_operator_tpu_torch.cmd import eval as eval_cmd
+    from mpi_operator_tpu_torch.cmd import generate as gen_cmd
     from mpi_operator_tpu_torch.cmd import train
     from mpi_operator_tpu_torch.ops import attention as attn
 
@@ -2967,7 +3291,8 @@ def _world_job(job: dict) -> dict:
 
     from mpi_operator_tpu_torch.parallel import sharding
 
-    entry = eval_cmd.main if job.get("cmd") == "eval" else train.main
+    entry = {"eval": eval_cmd.main, "generate": gen_cmd.main}.get(
+        job.get("cmd"), train.main)
     curve, buf, works = [], io.StringIO(), []
     counter = _collective_counter() if job.get("count_bytes") else None
     torch.cuda.reset_peak_memory_stats()
@@ -2992,7 +3317,8 @@ def _world_job(job: dict) -> dict:
     torch.cuda.empty_cache()
     lines = [json.loads(line) for line in buf.getvalue().splitlines()
              if line.startswith("{")]
-    return {"line": lines[-1] if lines else None, "launches": launches,
+    return {"line": lines[-1] if lines else None, "lines": lines,
+            "launches": launches,
             "heads": heads, "curve": [float(x) for x in curve],
             "step_bytes": counter.bytes if counter is not None else None,
             "experts": experts[0] if experts else [], "peak_gb": peak_gb,
@@ -3354,13 +3680,14 @@ def run_world(tmp: Path) -> dict:
 # -- sp: sequence parallelism on the one card -----------------------------
 
 # llama3-8b at full width (dim 4096, 32/8 heads of 128, ffn 14336, vocab
-# 128256), depth 2, B=1, S=8192 (4096 positions a rank on sp=2), three
-# AdamW steps: ~1.49 G parameters, 24 GB of f32 parameters, gradients and
-# AdamW moments a process. On the sp=2 gang each arm's loss curve is held
+# 128256), depth 1 (the whole script's run stays within its time budget
+# so), B=1, S=8192 (4096 positions a rank on sp=2), three AdamW steps:
+# ~1.27 G parameters, 20 GB of f32 parameters, gradients and AdamW
+# moments a process. On the sp=2 gang each arm's loss curve is held
 # at WORLD_LOSS_RTOL against the one-process run of the same call (at
 # sp=1 the trainer runs the flat kernels and --sequence-parallel and
 # --zigzag-ring change nothing, so one run serves the three arms).
-SP_LAYERS, SP_STEPS, SP_HOPS = 2, 3, 2
+SP_LAYERS, SP_STEPS, SP_HOPS = 1, 3, 2
 SP_ARGS = [
     "--model", "llama3-8b", "--n-layers", str(SP_LAYERS), "--seq-len",
     str(SP_HOP_SEQ), "--global-batch", "1", "--xent-chunk", "1024",
@@ -3537,8 +3864,10 @@ def run_sp(tmp: Path) -> dict:
 
 # Each run: (the one-process call, the flags that put it on its mesh, the
 # processes, the flat kernels' launches a rank and the q/kv heads they
-# see). Mixtral at the world phase's ep=2 depth (1 layer, full width,
-# B=2, S=2048, 3 steps) at a tenth of its rate: at 3e-4 the one-layer
+# see). Each runs TP_STEPS steps: two, so that the whole script's run
+# stays within its time budget (Mixtral's fsdp=2 step moves 13 GB a rank
+# through gloo). Mixtral at the world phase's ep=2 depth (1 layer, full
+# width, B=2, S=2048) at a tenth of its rate: at 3e-4 the one-layer
 # model overshoots by step 3 (10.88 -> 5.45 -> 7.68 on one process),
 # which magnifies the bf16 rounding that a layout moves (tp sums its
 # partial products in bf16 across the ranks, fsdp multiplies other row
@@ -3550,18 +3879,19 @@ def run_sp(tmp: Path) -> dict:
 # rank holds 16 q and 4 kv heads and half of every expert's hidden dim.
 # vit-base and seq2seq-small on tp=2 (6/6 and 4/4 heads a rank),
 # resnet101 on tp=2 as the replicated layout (the xla BN route: the
-# pallas kernels refuse any multi-device mesh), 3 steps each; bert-base
+# pallas kernels refuse any multi-device mesh); bert-base
 # S=512 on sp=2,tp=2 over four processes (the mask layout: gathered
 # positions are not ported on sp), the ring on 6/6 heads a rank and
-# Ulysses on 3/3 (sp splits the 6 local heads again), 3 steps each. Each
+# Ulysses on 3/3 (sp splits the 6 local heads again). Each
 # curve (the ranks' mean) is held to the one-process curve of the same
 # call at WORLD_LOSS_RTOL.
-TP_STEPS = 3
+TP_STEPS = 2
 RESNET_TP_ARGS = _with_steps(
     [a if a != "pallas" else "xla" for a in RESNET_TRAIN_ARGS], TP_STEPS)
 BERT_SP_TP_ARGS = _with_steps(
     [a if a != "positions" else "mask" for a in BERT_TRAIN_ARGS], TP_STEPS)
-MOE_TP_ARGS = _with_flag(MOE_WORLD_ARGS, "--lr", "3e-5")
+MOE_TP_ARGS = _with_steps(_with_flag(MOE_WORLD_ARGS, "--lr", "3e-5"),
+                          TP_STEPS)
 _MOE_FLASH = (2 * TP_STEPS, TP_STEPS, TP_STEPS)  # one layer, remat
 _TP2 = ["--mesh", "tp=2"]
 TP_RUNS = {
@@ -4851,11 +5181,13 @@ def run_observe(tmp: Path, direct: dict) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
-                        default="kernels,model,train,moe,decode,world,sp,"
-                                "tp,pp,operator,observe,kube",
+                        default="kernels,model,train,moe,decode,"
+                                "decode_world,world,sp,tp,pp,operator,"
+                                "observe,kube",
                         help="comma-separated subset of kernels,model,train,"
-                             "moe,decode,world,sp,tp,pp,operator,observe,"
-                             "kube and the opt-in profile and data")
+                             "moe,decode,decode_world,world,sp,tp,pp,"
+                             "operator,observe,kube and the opt-in profile "
+                             "and data")
     parser.add_argument("--world-child", default="", help=argparse.SUPPRESS)
     parser.add_argument("--gloo-probe", default="", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
@@ -4909,6 +5241,7 @@ def main(argv=None) -> int:
     if "train" in phases:
         # Each main path's own run gives its kernels' launch counts.
         summary, launches = run_train()
+        dots_launches = run_train_dots(summary)
         r_summary, r_launches = run_resnet_train()
         b_summary, b_launches = run_bert_train()
         bhsd_launches = run_bert_bhsd_steps()
@@ -4930,7 +5263,9 @@ def main(argv=None) -> int:
                 # The other paths through the flat kernels, each counted
                 # in its own run.
                 rec["launches_by_path"] = {
-                    "llama3-8b": launches[name], "bert-base": b_launches[name],
+                    "llama3-8b": launches[name],
+                    "llama3-8b --remat-policy dots": dots_launches[name],
+                    "bert-base": b_launches[name],
                     **{k: c[name] for k, (_, c) in flat_runs.items()},
                     "llama3-8b --data": d_launches[name],
                     "eval": e_launches[name]}
@@ -4969,6 +5304,17 @@ def main(argv=None) -> int:
                     {f"decode {k}": c[name] for k, c in d_paths.items()})
         log(f"card: {card}; decode phase done")
     del moe_model
+    if "decode_world" in phases:
+        free_card("the decode_world phase")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dworld_") as tmp:
+            by_path = run_decode_world(Path(tmp))
+        for name in FLASH_NAMES["flat"]:
+            if name in records:
+                records[name].setdefault("launches_by_path", {}).update(
+                    {k: c[name] for k, c in by_path.items()})
+        log(f"card: {card}; decode_world phase done in "
+            f"{time.perf_counter() - t0:.1f} s")
     if "world" in phases:
         free_card("the world phase")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_world_") as tmp:

@@ -169,8 +169,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernel call on the local heads; sp must divide the "
                         "head count)")
     p.add_argument("--remat-policy", choices=["full", "dots"], default="full",
-                   help="per-layer checkpoint policy (llama); only 'full' "
-                        "is ported")
+                   help="per-layer checkpoint policy (llama): 'full' "
+                        "recomputes each layer in the backward, 'dots' "
+                        "keeps its matmul outputs and the flash forward's "
+                        "(out, lse)")
     p.add_argument("--xent-chunk", type=int, default=0,
                    help="compute the LM head + cross-entropy this many "
                         "sequence positions at a time (0 = full [B,S,V] "
@@ -209,16 +211,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "patches both onto the pod for the operator's "
                         "step-skew and memory matrices")
     return p
-
-
-def refuse_unported(args) -> None:
-    """SystemExit for every flag whose machinery is a later slice of the
-    port, naming the ROADMAP.md item that brings it."""
-    def refuse(what: str, item: str):
-        raise SystemExit(f"{what} is not ported yet (ROADMAP.md {item})")
-
-    if args.remat_policy == "dots":
-        refuse("--remat-policy dots", "queue (a) item 4")
 
 
 def check_moe_mesh(args) -> None:
@@ -972,7 +964,6 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.steps < 1:
         raise SystemExit("--steps must be >= 1")
-    refuse_unported(args)
     try:
         check_moe_mesh(args)
         check_sp_mesh(args)

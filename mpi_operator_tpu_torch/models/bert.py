@@ -21,8 +21,7 @@ Module names follow the Flax tree (``tok_embed``, ``pos_embed``,
 carries weights across leaf by leaf. Flax creates ``type_embed`` only
 when ``token_types`` are passed; here it always exists and, without
 token types, gets no gradient (and AdamW leaves it alone). The TPU tile
-knobs ``flash_block_q/k`` are not carried over; the ``"dots"`` remat
-policy is a later slice of the port.
+knobs ``flash_block_q/k`` are not carried over.
 """
 
 from __future__ import annotations
@@ -33,11 +32,10 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..ops.losses import f32_logits
 from ..ops.ring_attention import sp_attention, sp_attention_bshd
-from .llama import Dense
+from .llama import Dense, checkpointed, remat_policy_for
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +55,8 @@ class BertConfig:
     # Bert(sp_group=...).
     attention_impl: str = "flash"
     # Per-layer activation checkpointing; 'full' recomputes each layer
-    # in the backward pass, 'dots' is not ported yet.
+    # in the backward pass, 'dots' keeps its matmul outputs and flash
+    # residuals (llama.remat_policy_for).
     remat: bool = False
     remat_policy: str = "dots"
 
@@ -144,11 +143,8 @@ class Bert(nn.Module):
 
     def __init__(self, config: BertConfig, device=None, sp_group=None):
         super().__init__()
-        if config.remat and config.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={config.remat_policy!r} is not ported yet "
-                f"(ROADMAP.md queue (a) item 4); use 'full'"
-            )
+        if config.remat:
+            remat_policy_for(config.remat_policy)  # refuses an unknown one
         cfg = self.config = config
         self.tok_embed = nn.Embedding(cfg.vocab_size, cfg.dim, device=device)
         self.pos_embed = nn.Embedding(cfg.max_seq_len, cfg.dim, device=device)
@@ -187,7 +183,8 @@ class Bert(nn.Module):
         h = self.embed_norm(h)
         remat = cfg.remat and torch.is_grad_enabled()
         for layer in self.layers():
-            h = checkpoint(layer, h, use_reentrant=False) if remat else layer(h)
+            h = (checkpointed(layer, h, policy=cfg.remat_policy) if remat
+                 else layer(h))
         if mlm_positions is not None:
             index = mlm_positions.long()[..., None].expand(-1, -1, cfg.dim)
             h = torch.gather(h, 1, index)

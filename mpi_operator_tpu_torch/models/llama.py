@@ -10,8 +10,10 @@
   (``forward(positions=...)``: RoPE reads the global positions, and the
   targets come sliced beside the tokens, so no permutation surrounds the
   model);
-- per-layer activation checkpointing (``remat_policy="full"``) trades
-  FLOPs for memory;
+- per-layer activation checkpointing trades FLOPs for memory:
+  ``remat_policy="full"`` recomputes each block in the backward,
+  ``"dots"`` keeps its products' outputs and the flash forward's
+  (out, lse) and recomputes the rest (:func:`remat_policy_for`);
 - MoE configs (``mixtral-8x7b``, ``llama-moe-tiny``) replace every
   block's MLP by ``models/moe.py:MoEMLP`` (``layer_{i}.moe``); the
   blocks' router aux losses are summed and the train loss adds
@@ -19,13 +21,13 @@
 
 Module names follow the Flax tree (``embed``, ``layer_{i}.attn.wq``,
 ``attn_norm``, ``mlp.w_gate``, ``final_norm``, ``lm_head``), so
-``interop`` carries weights across leaf by leaf. The ``"dots"`` remat
-policy is a later slice of the port.
+``interop`` carries weights across leaf by leaf.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -51,8 +53,8 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16
     remat: bool = True
-    # 'full' recomputes each block in the backward pass; 'dots' (save
-    # the matmul outputs and the flash residuals) is not ported yet.
+    # 'full' recomputes each block in the backward pass; 'dots' saves the
+    # matmul outputs and the flash residuals (remat_policy_for).
     remat_policy: str = "full"
     tie_embeddings: bool = False
     # 'flash' (the CUDA kernels; plain versions on the CPU), 'flash-bhsd'
@@ -279,11 +281,7 @@ class Llama(nn.Module):
 
     def __init__(self, config: LlamaConfig, device=None, sp_group=None):
         super().__init__()
-        if config.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={config.remat_policy!r} is not ported yet "
-                f"(ROADMAP.md queue (a) item 4); use 'full'"
-            )
+        remat_policy_for(config.remat_policy)  # refuses an unknown one
         self.config = config
         self.embed = nn.Embedding(config.vocab_size, config.dim, device=device)
         for i in range(config.n_layers):
@@ -325,7 +323,8 @@ class Llama(nn.Module):
             positions = torch.arange(tokens.shape[1], device=tokens.device)
         positions = positions.to(tokens.device).expand(tokens.shape)
         h = self.embed(tokens).to(cfg.dtype)
-        h, aux = run_blocks(self.blocks(), h, positions, cfg.remat)
+        h, aux = run_blocks(self.blocks(), h, positions, cfg.remat,
+                            cfg.remat_policy)
         h = self.final_norm(h)
         if return_hidden:
             return (h, aux) if cfg.is_moe else h
@@ -340,15 +339,58 @@ class Llama(nn.Module):
         return (logits, aux) if cfg.is_moe else logits
 
 
-def run_blocks(blocks, h, positions, remat: bool):
+def remat_policy_for(policy: str):
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a remat
+    policy (the JAX package's ``remat_policy_for``), shared by the plain
+    model's blocks, the pipeline stages', BERT's and ViT's layers.
+
+    'full' recomputes the whole block in the backward. 'dots' is JAX's
+    ``dots_with_no_batch_dims_saveable`` with the flash kernel's named
+    residuals: it keeps the outputs of the products with no batch dims
+    (``aten.mm`` and ``aten.addmm``, which every ``F.linear`` reaches)
+    and the flash forward's (out, lse) (``ops/attention.py:FORWARD_OPS``,
+    so the forward kernel runs once a layer a step), and recomputes the
+    rest: the elementwise work and the batched products (dense
+    attention's, the experts')."""
+    from torch.utils.checkpoint import (
+        CheckpointPolicy,
+        create_selective_checkpoint_contexts,
+        noop_context_fn,
+    )
+
+    if policy == "full":
+        return noop_context_fn
+    if policy != "dots":
+        raise ValueError(
+            f"remat_policy must be 'full' or 'dots', got {policy!r}")
+    from ..ops.attention import FORWARD_OPS
+
+    keep = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            *FORWARD_OPS}
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in keep
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy_fn)
+
+
+def checkpointed(layer, *args, policy: str = "full"):
+    """``layer(*args)`` under activation checkpointing with ``policy``."""
+    return checkpoint(layer, *args, use_reentrant=False,
+                      context_fn=remat_policy_for(policy))
+
+
+def run_blocks(blocks, h, positions, remat: bool, policy: str = "full"):
     """``h`` through ``blocks`` in turn, each under activation
-    checkpointing with ``remat`` when gradients are on. Returns ``(h,
-    aux)``: aux the blocks' summed router loss (0.0 for dense blocks)."""
+    checkpointing with ``remat`` when gradients are on, by the remat
+    ``policy`` (:func:`remat_policy_for`). Returns ``(h, aux)``: aux the
+    blocks' summed router loss (0.0 for dense blocks)."""
     remat = remat and torch.is_grad_enabled()
     aux = 0.0
     for block in blocks:
         if remat:
-            h, a = checkpoint(block, h, positions, use_reentrant=False)
+            h, a = checkpointed(block, h, positions, policy=policy)
         else:
             h, a = block(h, positions)
         aux = aux + a

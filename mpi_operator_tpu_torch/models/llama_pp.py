@@ -141,11 +141,7 @@ class LlamaStage(nn.Module):
     def __init__(self, config: lib.LlamaConfig, stage: int, n_stages: int,
                  device=None, sp_group=None):
         super().__init__()
-        if config.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={config.remat_policy!r} is not ported yet "
-                f"(ROADMAP.md queue (a) item 4); use 'full'"
-            )
+        lib.remat_policy_for(config.remat_policy)  # refuses an unknown one
         if config.n_layers % n_stages:
             raise ValueError(f"n_layers {config.n_layers} not divisible by "
                              f"pp stages {n_stages}")
@@ -173,7 +169,8 @@ class LlamaStage(nn.Module):
                 if not name.startswith("layer_")]
 
     def forward(self, h, positions):
-        return lib.run_blocks(self.blocks(), h, positions, self.config.remat)
+        return lib.run_blocks(self.blocks(), h, positions, self.config.remat,
+                              self.config.remat_policy)
 
     def head_kernel(self) -> torch.Tensor:
         if self.config.tie_embeddings:

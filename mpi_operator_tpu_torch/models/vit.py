@@ -20,8 +20,7 @@ transformer stack, bfloat16 compute with float32 parameters.
 Module and parameter names follow the Flax tree (``embed``, ``cls``,
 ``pos_embed``, ``layer_{i}.attn_norm``, ``wq``, ..., ``mlp_norm``,
 ``final_norm``, ``head``), so ``interop`` carries weights across leaf by
-leaf. The TPU tile knobs ``flash_block_q/k`` are not carried over; the
-``"dots"`` remat policy is a later slice of the port.
+leaf. The TPU tile knobs ``flash_block_q/k`` are not carried over.
 """
 
 from __future__ import annotations
@@ -32,7 +31,6 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention_reference, flash_attention_bshd
 from ..ops.losses import f32_logits
@@ -40,7 +38,7 @@ from ..ops.losses import f32_logits
 # (models/vit.py:219) split the same encoder layers, named alike
 # (``layer_{i}.wq`` ...), and the embed, cls, pos_embed and head stay whole.
 from .bert import LayerNorm, flax_default_init, tensor_parallel_plan  # noqa: F401
-from .llama import Dense
+from .llama import Dense, checkpointed, remat_policy_for
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +56,8 @@ class ViTConfig:
     # 'dense' (the oracle).
     attention_impl: str = "flash"
     # Per-layer activation checkpointing; 'full' recomputes each layer
-    # in the backward pass, 'dots' is not ported yet.
+    # in the backward pass, 'dots' keeps its matmul outputs and flash
+    # residuals (llama.remat_policy_for).
     remat: bool = False
     remat_policy: str = "dots"
 
@@ -133,11 +132,8 @@ class EncoderBlock(nn.Module):
 class ViT(nn.Module):
     def __init__(self, config: ViTConfig, device=None):
         super().__init__()
-        if config.remat and config.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={config.remat_policy!r} is not ported yet "
-                f"(ROADMAP.md queue (a) item 4); use 'full'"
-            )
+        if config.remat:
+            remat_policy_for(config.remat_policy)  # refuses an unknown one
         cfg = self.config = config
         p = cfg.patch_size
         self.embed = Dense(p * p * 3, cfg.dim, dtype=cfg.dtype, bias=True,
@@ -175,7 +171,8 @@ class ViT(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(cfg.dtype)
         remat = cfg.remat and torch.is_grad_enabled()
         for layer in self.layers():
-            x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
+            x = (checkpointed(layer, x, policy=cfg.remat_policy) if remat
+                 else layer(x))
         x = self.final_norm(x)
         # Classification from the CLS token, f32 logits.
         return f32_logits(x[:, 0], self.head)

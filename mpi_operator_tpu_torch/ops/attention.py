@@ -348,11 +348,19 @@ def _launch(name: str, device, *args, heads=None) -> None:
         LAUNCH_HEADS[key] = LAUNCH_HEADS.get(key, 0) + 1
 
 
-def flash_fwd(qf, kf, vf, h: int, sm_scale: float, causal: bool,
-              row_ids=None, col_ids=None):
-    """Forward kernel: (out [B, Sq, H*D] like q, lse f32 [B, Sq, H]); with
-    ids a pair is visible iff ``col_ids[col] <= row_ids[row]``."""
-    device = _check_flat(qf, kf, vf, h, row_ids, col_ids)
+# The two forward kernels are operators of their own (``torch.library``),
+# so that a selective activation checkpoint can keep their (out, lse)
+# and replay them in its recompute instead of launching the kernel again
+# (``models/llama.py:remat_policy_for``, the "dots" policy: JAX names
+# these residuals for its checkpoint policy, ``ATTN_OUT_NAME`` and
+# ``ATTN_LSE_NAME``). Each launches, and counts, as its wrapper did.
+@torch.library.custom_op(
+    "mpi_operator_tpu_torch::flash_fwd", mutates_args=(),
+    schema="(Tensor qf, Tensor kf, Tensor vf, Tensor? row_ids, "
+           "Tensor? col_ids, int h, float sm_scale, bool causal) "
+           "-> (Tensor, Tensor)")
+def _flash_fwd_op(qf, kf, vf, row_ids, col_ids, h, sm_scale, causal):
+    device = qf.device  # checked by flash_fwd
     if device.type == "cpu":
         return flash_fwd_plain(qf, kf, vf, h, sm_scale, causal, row_ids,
                                col_ids)
@@ -368,6 +376,21 @@ def flash_fwd(qf, kf, vf, h: int, sm_scale: float, causal: bool,
         heads=(h, h_kv),
     )
     return out, lse
+
+
+@_flash_fwd_op.register_fake
+def _(qf, kf, vf, row_ids, col_ids, h, sm_scale, causal):
+    return (torch.empty_like(qf),
+            qf.new_empty((qf.shape[0], qf.shape[1], h), dtype=torch.float32))
+
+
+def flash_fwd(qf, kf, vf, h: int, sm_scale: float, causal: bool,
+              row_ids=None, col_ids=None):
+    """Forward kernel: (out [B, Sq, H*D] like q, lse f32 [B, Sq, H]); with
+    ids a pair is visible iff ``col_ids[col] <= row_ids[row]``."""
+    _check_flat(qf, kf, vf, h, row_ids, col_ids)
+    return _flash_fwd_op(qf, kf, vf, row_ids, col_ids, int(h),
+                         float(sm_scale), bool(causal))
 
 
 def _bwd_operands(qf, kf, vf, do, lse, delta):
@@ -428,12 +451,13 @@ def _id_pointers(row_ids, col_ids):
     return tuple(t.data_ptr() for t in ids), ids
 
 
-def flash_bhsd_fwd(q, k, v, sm_scale: float, causal: bool, row_ids=None,
-                   col_ids=None):
-    """[B*H, S, D] forward kernel: (out like q, lse f32 [B*H, Sq]). q row
-    r reads kv row r // (B*H / B*Hkv); with ids a pair is visible iff
-    ``col_ids[col] <= row_ids[row]``."""
-    device = _check_bhsd(q, k, v, row_ids, col_ids)
+@torch.library.custom_op(
+    "mpi_operator_tpu_torch::flash_bhsd_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? row_ids, "
+           "Tensor? col_ids, float sm_scale, bool causal) "
+           "-> (Tensor, Tensor)")
+def _flash_bhsd_fwd_op(q, k, v, row_ids, col_ids, sm_scale, causal):
+    device = q.device  # checked by flash_bhsd_fwd
     if device.type == "cpu":
         return flash_bhsd_fwd_plain(q, k, v, sm_scale, causal, row_ids,
                                     col_ids)
@@ -448,6 +472,27 @@ def flash_bhsd_fwd(q, k, v, sm_scale: float, causal: bool, row_ids=None,
         int(q.dtype == torch.bfloat16),
     )
     return out, lse
+
+
+@_flash_bhsd_fwd_op.register_fake
+def _(q, k, v, row_ids, col_ids, sm_scale, causal):
+    return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)
+
+
+def flash_bhsd_fwd(q, k, v, sm_scale: float, causal: bool, row_ids=None,
+                   col_ids=None):
+    """[B*H, S, D] forward kernel: (out like q, lse f32 [B*H, Sq]). q row
+    r reads kv row r // (B*H / B*Hkv); with ids a pair is visible iff
+    ``col_ids[col] <= row_ids[row]``."""
+    _check_bhsd(q, k, v, row_ids, col_ids)
+    return _flash_bhsd_fwd_op(q, k, v, row_ids, col_ids, float(sm_scale),
+                              bool(causal))
+
+
+# The forward kernels' operators, whose outputs the "dots" remat policy
+# keeps.
+FORWARD_OPS = (torch.ops.mpi_operator_tpu_torch.flash_fwd.default,
+               torch.ops.mpi_operator_tpu_torch.flash_bhsd_fwd.default)
 
 
 def flash_bhsd_bwd_dq(q, k, v, do, lse, delta, sm_scale: float,

@@ -193,8 +193,8 @@ REFUSALS = {
     "max-new": (["--prompt", "1,2", "--max-new", "0"], "max-new"),
     "context": (["--prompt", "1,2", "--max-new", "128"],
                 "exceeds the model context"),
-    "mesh": (["--prompt", "1", "--mesh", "tp=2"],
-             r"ROADMAP.md queue \(a\) item 14"),
+    "mesh-size": (["--prompt", "1", "--mesh", "tp=2"],
+                  "require 2 devices, have 1"),
     "model": (["--prompt", "1", "--model", "llama-9b"], "unknown --model"),
     "missing": (["--prompt", "1,2", "--checkpoint-dir", "/nonexistent/ck"],
                 "no checkpoint"),
@@ -211,9 +211,3 @@ def test_cli_refusals(checkpoints, case):
     with pytest.raises(SystemExit, match=match):
         gen_cmd.main(argv)
 
-
-def test_cli_refuses_a_multi_process_world(monkeypatch, checkpoints):
-    monkeypatch.setenv("TPUJOB_NUM_PROCESSES", "2")
-    with pytest.raises(SystemExit, match=r"queue \(a\) item 14"):
-        gen_cmd.main(["--device", "cpu", "--checkpoint-dir",
-                      checkpoints["llama-tiny"], "--prompt", "1"])

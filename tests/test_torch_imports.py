@@ -53,6 +53,22 @@ def test_the_pipeline_modules_import_and_nothing_waits_for_item_16():
         assert "item 16" not in (ROOT / rel).read_text(), rel
 
 
+@pytest.mark.parametrize("item", ["4", "14"])
+def test_nothing_waits_for_sharded_decoding_or_dots(item):
+    """Sharded decoding (item 14) and ``--remat-policy dots`` (item 4) are
+    ported: no refusal of the port names either item."""
+    import re
+
+    from mpi_operator_tpu_torch.models import generate
+    from mpi_operator_tpu_torch.models import llama
+
+    assert callable(generate.DecodeShards.of)
+    assert callable(llama.remat_policy_for("dots"))
+    for rel in FILES:
+        text = (ROOT / rel).read_text()
+        assert not re.search(rf"item {item}\b", text), rel
+
+
 @pytest.mark.parametrize("rel", FILES)
 def test_no_jax_imports(rel):
     tree = ast.parse((ROOT / rel).read_text(), filename=rel)

@@ -160,8 +160,19 @@ def test_unported_configs_raise():
         for w in ("wq", "wk", "wv", "wo"))
     with pytest.raises(SystemExit, match="must divide n_kv_heads=2"):
         tllama.tensor_parallel_plan(moe, 4)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tllama.Llama(tllama.tiny(remat_policy="dots"), device="cpu")
+    # remat_policy="dots" is ported (tests/test_torch_remat_dots.py): the
+    # model builds, and its checkpointed step equals the plain one.
+    dots = tllama.init_params(
+        tllama.Llama(tllama.tiny(remat=True, remat_policy="dots"),
+                     device="cpu"), torch.Generator().manual_seed(0))
+    plain = tllama.Llama(tllama.tiny(), device="cpu")
+    plain.load_state_dict(dots.state_dict())
+    tokens = torch.tensor(_tokens())
+    for model in (dots, plain):
+        tllama.loss_fn(model, tokens).backward()
+    for (name, a), b in zip(dots.named_parameters(), plain.parameters()):
+        torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=1e-7,
+                                   msg=name)
     with pytest.raises(KeyError, match="unknown llama model"):
         tllama.config_for("mixtral-8x22b")
 

@@ -70,7 +70,6 @@ REFUSED = {
     # pp is ported: past the checks, one process stops only at the
     # mesh's device count.
     "mesh-pp": (["--mesh", "dp=1,pp=2"], "require 2 devices, have 1"),
-    "remat": (["--remat-policy", "dots"], "ROADMAP.md queue \\(a\\) item 4"),
 }
 
 
@@ -167,7 +166,8 @@ def test_default_model_is_resnet101_and_ported():
     args = train.build_parser().parse_args([])
     assert args.model == "resnet101" and args.bn_kernel == "xla"
     assert args.device == "cuda" and args.image_size == 224
-    train.refuse_unported(args)  # no SystemExit
+    train.check_moe_mesh(args)  # no SystemExit
+    train.check_sp_mesh(args)
 
 
 def test_resnet_workload_is_the_jax_trainers():

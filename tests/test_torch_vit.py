@@ -184,8 +184,14 @@ def test_remat_full_changes_nothing_and_dots_is_refused():
     assert runs[0][0] == runs[1][0]
     for g0, g1 in zip(runs[0][1], runs[1][1]):
         torch.testing.assert_close(g0, g1, rtol=0, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tvit.ViT(tvit.tiny(remat=True), device="cpu")
+    # 'dots' (the config's default policy) is ported: the model builds
+    # and its checkpointed step equals the plain one.
+    model = _port_model(params, remat=True, remat_policy="dots")
+    loss = tvit.loss_fn(model, images, labels)
+    loss.backward()
+    assert float(loss.detach()) == runs[0][0]
+    for g0, g1 in zip(runs[0][1], [p.grad for p in model.parameters()]):
+        torch.testing.assert_close(g0, g1, rtol=0, atol=1e-7)
 
 
 def test_init_params_follows_the_flax_initializers_and_seed():

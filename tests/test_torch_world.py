@@ -14,9 +14,9 @@ This file also holds the spawn helper the other ``test_torch_world_*``
 files use: ``run_gang`` starts ``n`` processes of one world (a free port
 pair, ``torch.set_num_threads(1)``, a timeout of its own so that a hung
 rank fails the test and never stalls the run) and runs a list of jobs,
-each a ``cmd.train`` or ``cmd.eval`` call (or an op job: a function of
-a test module called in the world, ``_run_op``), in every process in
-turn.
+each a ``cmd.train``, ``cmd.eval`` or ``cmd.generate`` call (or an op
+job: a function of a test module called in the world, ``_run_op``), in
+every process in turn.
 """
 
 import contextlib
@@ -54,9 +54,10 @@ def run_gang(n: int, jobs: list, *, timeout: float = 180.0,
              env: dict = None) -> list:
     """Run ``jobs`` in each of ``n`` processes of one gloo world on the
     CPU; returns, per rank, each job's record: ``{"line": the last JSON
-    line the command printed (or None), "exit": the SystemExit message
-    (or absent)}``. A rank that exits non-zero or outlives ``timeout``
-    fails the test, naming the rank; every process is gone on return."""
+    line the command printed (or None), "lines": all of them, "exit": the
+    SystemExit message (or absent)}``. A rank that exits non-zero or
+    outlives ``timeout`` fails the test, naming the rank; every process
+    is gone on return."""
     from mpi_operator_tpu_torch.utils.net import free_port_pair
 
     port = free_port_pair()
@@ -191,7 +192,10 @@ def _run_job(job: dict) -> dict:
     real_build = train.build_workload
     if job.get("sigterm"):
         _preempt_after(*job["sigterm"])
-    entry = eval_cmd.main if job.get("cmd") == "eval" else train.main
+    from mpi_operator_tpu_torch.cmd import generate as gen_cmd
+
+    entry = {"eval": eval_cmd.main, "generate": gen_cmd.main}.get(
+        job.get("cmd"), train.main)
     init = (_init_from(job["weights"]) if job.get("weights")
             else contextlib.nullcontext())
     buf, record = io.StringIO(), {}
@@ -205,6 +209,7 @@ def _run_job(job: dict) -> dict:
     lines = [json.loads(line) for line in buf.getvalue().splitlines()
              if line.startswith("{")]
     record["line"] = lines[-1] if lines else None
+    record["lines"] = lines
     return record
 
 
