@@ -66,6 +66,25 @@ image:
 	    echo "no container runtime in this image (docs/round4-notes.md)"; \
 	fi
 
+# The PyTorch/CUDA port's images (mpi_operator_tpu_torch/build/): the
+# operator, the worker (its kernels built for sm_90a during the build)
+# and pi on the worker, from the repo root; then the operator image's
+# import of its control plane.
+TORCH_IMAGES := operator:tpu-job-operator/gpu-operator:latest \
+    worker:tpu-job-operator/gpu-worker:latest \
+    pi:tpu-job-operator/examples:pi-torch
+image-torch:
+	@runtime=$$(command -v docker || command -v podman); \
+	if [ -z "$$runtime" ]; then \
+	    echo "no container runtime in this image"; exit 0; fi; \
+	for spec in $(TORCH_IMAGES); do \
+	    dir=$${spec%%:*}; tag=$${spec#*:}; \
+	    $$runtime build -t $$tag \
+	        -f mpi_operator_tpu_torch/build/$$dir/Dockerfile . || exit 1; \
+	done; \
+	$$runtime run --rm --entrypoint python tpu-job-operator/gpu-operator:latest \
+	    -c "import mpi_operator_tpu_torch.cmd.operator; print('image import OK')"
+
 # Test tiers (SURVEY.md §4): unit, integration (in-memory apiserver +
 # envtest-style HTTP kube backend), e2e (real subprocess workers doing
 # jax.distributed over localhost). conftest.py pins the 8-device virtual

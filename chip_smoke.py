@@ -135,13 +135,13 @@ Phases, in order:
 9. ``sp``: sequence parallelism on the one card. First which gloo ops
    take CUDA tensors (send/recv, all_to_all_single, all_reduce,
    all_gather, broadcast, each in a pair of processes of its own); then
-   llama3-8b at full width, 1 layer, B=1, S=8192, 3 AdamW steps,
+   llama3-8b at full width, 1 layer, B=1, S=8192, 2 AdamW steps,
    through ``cmd.train.main`` on two processes over gloo (the world
    phase's gang: ``--world-child``) with ``--mesh sp=2`` as the zigzag
    ring, the contiguous ring and Ulysses, each loss curve held against
    the one-process run of the same call (rtol 2e-3) and each rank's
-   flash launches against the hop count (ring: forward 12, dq and dk/dv
-   6; Ulysses: the one-process 6/3/3), with each rank's step_ms, peak
+   flash launches against the hop count (ring: forward 8, dq and dk/dv
+   4; Ulysses: the one-process 4/2/2), with each rank's step_ms, peak
    memory and transport bytes beside the one-process run's; gloo
    through the host on one card, not a multi-GPU node;
 10. ``tp``: tensor parallelism and FSDP on the one card, each run
@@ -228,9 +228,24 @@ Phases, in order:
    down (it resumes with a 410 and relists); a malformed command
    (Failed, naming the pod); ``--apply`` of the shipped pi.yaml over REST
    as a process (exit 0); ``--backend kube --enable-scheduler`` refused;
-15. ``profile`` (opt-in, ``--phases profile``): where one training step's
+15. ``examples``: the port's deployable jobs. The worker image's kernel
+   build: the kernel-build line of ``mpi_operator_tpu_torch/build/worker/
+   Dockerfile``, read out of the file, run on a copy of the port as the
+   image's build runs it (all eight libraries must appear in the copy's
+   ``_build/``), then the copy's flat flash forward, loaded without a
+   build, against its plain version (bf16). Then the shipped
+   ``examples/seq2seq/seq2seq.yaml`` (``h100-8``: eight pods on
+   ``dp=8``, seq2seq-small at full width) through the port's operator in
+   this process, its pods on the one card over gloo, running the shipped
+   argv but for two rewrites (``--steps`` to 3 and ``--checkpoint-dir``
+   to a temporary directory, both printed): Succeeded within the 200 s
+   startup bound, each rank's loss finite and falling, each rank's flat
+   launches 18 a step, step_ms and peak GB a rank (from a
+   ``sitecustomize`` on the pods' ``PYTHONPATH`` that reports at exit)
+   beside the one-process step, and step 3 committed;
+16. ``profile`` (opt-in, ``--phases profile``): where one training step's
    time goes, for each arm (device kernel time by kind, idle share);
-16. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
+17. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
    step, as a same-call A/B: the Llama and the BERT-base train runs
    synthetic and on a token file in turns (S D D S, four times), 10 steps
    each, with every run's step_ms and each side's median.
@@ -3681,13 +3696,14 @@ def run_world(tmp: Path) -> dict:
 
 # llama3-8b at full width (dim 4096, 32/8 heads of 128, ffn 14336, vocab
 # 128256), depth 1 (the whole script's run stays within its time budget
-# so), B=1, S=8192 (4096 positions a rank on sp=2), three AdamW steps:
+# so), B=1, S=8192 (4096 positions a rank on sp=2), two AdamW steps
+# (three until the examples phase joined the run):
 # ~1.27 G parameters, 20 GB of f32 parameters, gradients and AdamW
 # moments a process. On the sp=2 gang each arm's loss curve is held
 # at WORLD_LOSS_RTOL against the one-process run of the same call (at
 # sp=1 the trainer runs the flat kernels and --sequence-parallel and
 # --zigzag-ring change nothing, so one run serves the three arms).
-SP_LAYERS, SP_STEPS, SP_HOPS = 1, 3, 2
+SP_LAYERS, SP_STEPS, SP_HOPS = 1, 2, 2
 SP_ARGS = [
     "--model", "llama3-8b", "--n-layers", str(SP_LAYERS), "--seq-len",
     str(SP_HOP_SEQ), "--global-batch", "1", "--xent-chunk", "1024",
@@ -4186,9 +4202,10 @@ PI_YAML = "mpi_operator_tpu_torch/examples/pi.yaml"
 OPERATOR_PI: dict = {}
 
 
-def _operator_cluster():
+def _operator_cluster(base_env=None):
     """(api, runner, stop) of an in-process operator: the controller on
-    its own threads, the runner told how many CUDA devices there are."""
+    its own threads, the runner told how many CUDA devices there are
+    (and given ``base_env`` for every pod)."""
     import threading
 
     import torch
@@ -4201,7 +4218,8 @@ def _operator_cluster():
     api = InMemoryAPIServer()
     controller = TPUJobController(api)
     runner = LocalPodRunner(api, workdir=str(Path(__file__).resolve().parent),
-                            cuda_devices=torch.cuda.device_count())
+                            cuda_devices=torch.cuda.device_count(),
+                            base_env=base_env)
     stop = threading.Event()
     threading.Thread(target=lambda: controller.run(threadiness=2, stop=stop),
                      daemon=True).start()
@@ -5178,17 +5196,254 @@ def run_observe(tmp: Path, direct: dict) -> dict:
     return launches
 
 
+# -- examples: the worker image's kernel build and a shipped example job --
+
+WORKER_DOCKERFILE = "mpi_operator_tpu_torch/build/worker/Dockerfile"
+EXAMPLE_YAML = "mpi_operator_tpu_torch/examples/seq2seq/seq2seq.yaml"
+# The two rewrites of the shipped job's argv: a short run, and its
+# checkpoints in this run's temporary directory.
+EXAMPLE_STEPS = 3
+EXAMPLE_FLAGS = ("--steps=", "--checkpoint-dir=")
+# One process of seq2seq-small B=16 on the card (PR 6's train phase).
+S2S_ONE_PROCESS_MS = "47.93-65"
+# Put first on the example pods' PYTHONPATH: at the trainer's exit, one
+# line with the process's kernel launches and peak device memory, so the
+# pods run the shipped argv and still report what the phase checks.
+POD_PROBE = '''"""chip_smoke.py's examples phase: report at exit."""
+import atexit
+import json
+import sys
+
+
+def _report():
+    if "mpi_operator_tpu_torch.ops.attention" not in sys.modules:
+        return
+    import torch
+
+    from mpi_operator_tpu_torch.ops import attention, bn
+
+    line = {"launches": {**attention.LAUNCHES, **bn.LAUNCHES}}
+    if torch.cuda.is_initialized():
+        line["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        line["reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
+    print(json.dumps({"pod_probe": line}), flush=True)
+
+
+atexit.register(_report)
+'''
+
+
+def dockerfile_build_command() -> list:
+    """The worker image's kernel-build line (``RUN [...]`` in exec form),
+    read out of its Dockerfile."""
+    path = Path(__file__).resolve().parent / WORKER_DOCKERFILE
+    for line in path.read_text().splitlines():
+        if line.startswith("RUN [") and "_build.build()" in line:
+            return json.loads(line.removeprefix("RUN "))
+    raise AssertionError(f"no kernel-build RUN line in {WORKER_DOCKERFILE}")
+
+
+def image_check_child(root: str) -> int:
+    """In a copy of the port built as the worker image builds it: every
+    kernel library is there, and the flat flash forward loads from it
+    without a build and agrees with its plain version."""
+    sys.path.insert(0, root)
+    import torch
+
+    from mpi_operator_tpu_torch.ops import _build, attention
+
+    builds = []
+    _build.load_hook = lambda kind, name, _s: (
+        builds.append(name) if kind == "build" else None)
+    libraries = {n: _build.library_path(n).exists() for n in _build.KERNELS}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, s, h, d = 2, 256, 8, 64
+    q, k, v = (torch.randn(b, s, h * d, device="cuda", generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    out, lse = attention.flash_fwd(q, k, v, h, d ** -0.5, True)
+    ref_out, ref_lse = attention.flash_fwd_plain(q, k, v, h, d ** -0.5, True)
+    torch.cuda.synchronize()
+    print(json.dumps({"image_check": {
+        "module": _build.__file__, "libraries": libraries, "built": builds,
+        "launches": attention.LAUNCHES["flash_fwd"],
+        "out_norm_rel": norm_rel(out, ref_out),
+        "lse_max_abs": max_abs(lse, ref_lse)}}), flush=True)
+    return 0
+
+
+def check_image_build(tmp: Path, check) -> float:
+    """The worker image's kernel build on a copy of the port, by the
+    Dockerfile's own command in the image's working directory; then the
+    copy's libraries and its flash forward (``--image-check``). Returns
+    the build's seconds."""
+    import os
+    import shutil
+
+    root = Path(__file__).resolve().parent
+    image = tmp / "image"
+    shutil.copytree(root / "mpi_operator_tpu_torch",
+                    image / "mpi_operator_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    argv = dockerfile_build_command()
+    run = [sys.executable if argv[0] in ("python", "python3") else argv[0],
+           *argv[1:]]
+    # The Dockerfile runs it in WORKDIR before any PYTHONPATH is set.
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t0 = time.perf_counter()
+    out = subprocess.run(run, cwd=image, env=env, capture_output=True,
+                         text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    built = sorted(p.name.split("-")[0] for p in
+                   (image / "mpi_operator_tpu_torch" / "_build").glob("*.so"))
+    from mpi_operator_tpu_torch.ops import _build
+
+    check("worker image kernel build",
+          out.returncode == 0 and built == sorted(_build.KERNELS),
+          f"{WORKER_DOCKERFILE}'s {argv} (python = {run[0]}) in a copy of "
+          f"the port: exit {out.returncode} in {seconds:.1f} s, "
+          f"{len(built)} libraries {built}")
+    if out.returncode:
+        log(out.stdout[-4000:] + out.stderr[-4000:])
+        return seconds
+    probe = subprocess.run(
+        [sys.executable, str(root / "chip_smoke.py"), "--image-check",
+         str(image)], cwd=image, env=env, capture_output=True, text=True,
+        timeout=300)
+    lines = [json.loads(line)["image_check"] for line in
+             probe.stdout.splitlines() if line.startswith('{"image_check"')]
+    got = lines[0] if lines else {}
+    check("worker image flash forward",
+          probe.returncode == 0 and bool(got)
+          and got["module"].startswith(str(image))
+          and all(got["libraries"].values()) and not got["built"]
+          and got["launches"] == 1
+          and got["out_norm_rel"] <= NORM_REL_TOL["bf16"]
+          and got["lse_max_abs"] <= LSE_ABS_TOL["bf16"],
+          f"the copy's flash_fwd (bf16 [2, 256, 8*64], causal) without a "
+          f"build: {got} (tol {NORM_REL_TOL['bf16']:.0e} norm-rel, lse "
+          f"{LSE_ABS_TOL['bf16']:.0e})")
+    if not got:
+        log(probe.stdout[-4000:] + probe.stderr[-4000:])
+    return seconds
+
+
+def run_example_job(tmp: Path, check, one_process_ms=None) -> dict:
+    """The shipped seq2seq example (``h100-8``: 8 pods on ``dp=8``,
+    seq2seq-small at full width) through the port's operator in this
+    process, its pods on the one card over gloo, the argv as shipped but
+    for EXAMPLE_FLAGS. Returns rank 0's launch counts."""
+    import os
+
+    import yaml
+
+    from mpi_operator_tpu_torch.utils.checkpoint import committed_steps
+    from mpi_operator_tpu_torch.utils.net import free_port_pair
+
+    root = Path(__file__).resolve().parent
+    doc = yaml.safe_load((root / EXAMPLE_YAML).read_text())
+    name, accel = doc["metadata"]["name"], doc["spec"]["tpu"]["acceleratorType"]
+    n = doc["spec"]["tpuReplicaSpecs"]["Worker"]["replicas"]
+    doc["metadata"]["namespace"] = "default"
+    port = free_port_pair()
+    doc["spec"]["jaxDistribution"] = {"coordinatorPort": port}
+    main = doc["spec"]["tpuReplicaSpecs"]["Worker"]["template"]["spec"][
+        "containers"][0]
+    ckpt = tmp / "ckpt"
+    shipped = list(main["command"])
+    rewrite = {EXAMPLE_FLAGS[0]: f"--steps={EXAMPLE_STEPS}",
+               EXAMPLE_FLAGS[1]: f"--checkpoint-dir={ckpt}"}
+    main["command"] = [next((new for flag, new in rewrite.items()
+                             if arg.startswith(flag)), arg)
+                       for arg in shipped]
+    changed = [(a, b) for a, b in zip(shipped, main["command"]) if a != b]
+    log(f"examples {EXAMPLE_YAML}: {n} pods on {accel}, argv rewrites "
+        f"{changed} (coordinator port {port}); pods run {main['command']}")
+    if len(changed) != 2:
+        raise AssertionError(f"want the two rewrites {EXAMPLE_FLAGS}, got "
+                             f"{changed}")
+    probe = tmp / "pod_probe"
+    probe.mkdir()
+    (probe / "sitecustomize.py").write_text(POD_PROBE)
+    path = os.pathsep.join(filter(None, (str(probe), str(root),
+                                         os.environ.get("PYTHONPATH"))))
+    api, runner, stop = _operator_cluster(base_env={"PYTHONPATH": path})
+    try:
+        api.create("tpujobs", doc)
+        job = _await_job(api, name, n)
+        logs = [runner.pod_log("default", f"{name}-worker-{i}")
+                for i in range(n)]
+    finally:
+        stop.set()
+        runner.stop()
+    lines = []
+    for text in logs:
+        parsed = [json.loads(line) for line in text.splitlines()
+                  if line.startswith("{")]
+        summary = next((p for p in parsed if "model" in p), None)
+        pod = next((p["pod_probe"] for p in parsed if "pod_probe" in p), None)
+        lines.append((summary, pod))
+    if job["condition"]["type"] != "Succeeded" or not all(
+            s and p for s, p in lines):
+        for i, text in enumerate(logs):
+            log(f"{name}-worker-{i}: {text.strip()[-3000:]}")
+    check(f"{name} {accel} Succeeded",
+          job["condition"]["type"] == "Succeeded"
+          and job["done_s"] < OPERATOR_STARTUP_BOUND_S,
+          f"create -> {n} pods Running {job['running_s']:.3f} s, -> "
+          f"{job['condition']['type']} {job['done_s']:.3f} s (startup bound "
+          f"{OPERATOR_STARTUP_BOUND_S} s)")
+    want = _want_launches({k: S2S_ATTENTION_CALLS * EXAMPLE_STEPS
+                           for k in FLASH_NAMES["flat"]})
+    for rank, (summary, pod) in enumerate(lines):
+        ok = bool(summary and pod) and summary["steps"] == EXAMPLE_STEPS and (
+            math.isfinite(summary["loss"])
+            and summary["loss"] < summary["first_loss"]
+            and pod["launches"] == want)
+        check(f"{name} rank {rank}", ok,
+              "no summary or probe line" if not (summary and pod) else
+              f"loss {summary['first_loss']:.4f} -> {summary['loss']:.4f}; "
+              f"launches {pod['launches']} (want {want}); step_ms "
+              f"{summary['step_ms']} (one process: {one_process_ms} ms this "
+              f"run, {S2S_ONE_PROCESS_MS} in PR 6); peak "
+              f"{pod.get('peak_gb', 0):.2f} GB allocated, "
+              f"{pod.get('reserved_gb', 0):.2f} GB reserved")
+    steps = committed_steps(str(ckpt))
+    check(f"{name} checkpoint", bool(steps) and max(steps) == EXAMPLE_STEPS,
+          f"committed steps {sorted(steps or [])} in {ckpt}")
+    return (lines[0][1] or {}).get("launches", {})
+
+
+def run_examples(tmp: Path, one_process_ms=None) -> dict:
+    """Phase ``examples``: the worker image's kernel build (its
+    Dockerfile's line on a copy of the port), then the shipped seq2seq
+    example through the port's operator. Returns rank 0's launches."""
+    failed = []
+
+    def check(label: str, ok: bool, detail: str) -> None:
+        log(f"examples {label}: {detail} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(label)
+
+    seconds = check_image_build(tmp, check)
+    log(f"examples: worker image kernel build {seconds:.1f} s")
+    launches = run_example_job(tmp, check, one_process_ms)
+    if failed:
+        raise AssertionError(f"examples checks failed: {failed}")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,model,train,moe,decode,"
                                 "decode_world,world,sp,tp,pp,operator,"
-                                "observe,kube",
+                                "observe,kube,examples",
                         help="comma-separated subset of kernels,model,train,"
                              "moe,decode,decode_world,world,sp,tp,pp,"
-                             "operator,observe,kube and the opt-in profile "
-                             "and data")
+                             "operator,observe,kube,examples and the opt-in "
+                             "profile and data")
     parser.add_argument("--world-child", default="", help=argparse.SUPPRESS)
+    parser.add_argument("--image-check", default="", help=argparse.SUPPRESS)
     parser.add_argument("--gloo-probe", default="", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -5202,6 +5457,8 @@ def main(argv=None) -> int:
         return world_child(args.world_child)
     if args.gloo_probe:  # a rank of one of the sp phase's gloo probes
         return gloo_probe_child(args.gloo_probe)
+    if args.image_check:  # the examples phase's look at an image's build
+        return image_check_child(args.image_check)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -5218,6 +5475,7 @@ def main(argv=None) -> int:
     check_build()
 
     records = {}
+    s2s_step_ms = None  # the train phase's one-process seq2seq-small step
     if "kernels" in phases:
         records = {**check_kernels(), **check_bn_kernels()}
         check_lse_cotangent()
@@ -5248,6 +5506,7 @@ def main(argv=None) -> int:
         flat_runs = run_vit_seq2seq_train()
         v_summary, s_summary = (flat_runs[k][0]
                                 for k in ("vit-base", "seq2seq-small"))
+        s2s_step_ms = s_summary["step_ms"]
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             d_summary, d_launches = run_llama_data_train(Path(tmp), summary)
             costs = run_bert_resume(Path(tmp))
@@ -5398,6 +5657,18 @@ def main(argv=None) -> int:
                 records[name].setdefault("launches_by_path", {})[
                     "kube llama3-8b"] = k_launches[name]
         log(f"card: {card}; kube phase done in "
+            f"{time.perf_counter() - t0:.1f} s")
+    if "examples" in phases:
+        torch.cuda.empty_cache()
+        free_card("the examples phase")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+            x_launches = run_examples(Path(tmp), s2s_step_ms)
+        for name in FLASH_NAMES["flat"]:
+            if name in records:
+                records[name].setdefault("launches_by_path", {})[
+                    "examples seq2seq dp=8 rank 0"] = x_launches[name]
+        log(f"card: {card}; examples phase done in "
             f"{time.perf_counter() - t0:.1f} s")
     if records:
         log(json.dumps({"kernels": list(records.values())}))

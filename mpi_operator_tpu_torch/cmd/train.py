@@ -633,20 +633,12 @@ def _pp_microbatches(args, sizes: dict, global_batch: int) -> int:
     return m
 
 
-def _llama_pp_workload(args, mesh, global_batch: int, rng) -> Workload:
-    """Llama, dense or MoE, with its blocks pipelined over pp
-    (``models/llama_pp.py``): the JAX trainer's ``_llama_pp_workload``,
-    its refusals in its words. This rank builds its stage (drawn as its
-    part of the one-process init), lays it out on the stage's groups as
-    the plain model is laid out (the embedding, norm and head left whole
-    on fsdp ranks) and keeps its rows of each of the M microbatches."""
-    import torch
-
-    from ..models import llama as lib
-    from ..models import llama_pp as pp_lib
-    from ..parallel.sharding import local_positions, shard_params
-
-    sizes = mesh.sizes
+def check_pp_mesh(args, sizes: dict, global_batch: int) -> tuple:
+    """The pp mesh against the rest of the call, the JAX trainer's
+    ``_llama_pp_workload`` refusals in its words: the axes pp composes
+    with, a pipelined MoE model off fsdp and sp, no --grad-accum, the
+    layers over pp and the dims over fsdp and tp, then the microbatch
+    count. Returns (the LlamaConfig, the microbatch count)."""
     pp, fsdp = sizes["pp"], sizes.get("fsdp", 1)
     tp, sp = sizes.get("tp", 1), sizes.get("sp", 1)
     unsupported = [a for a, n in sizes.items()
@@ -682,7 +674,26 @@ def _llama_pp_workload(args, mesh, global_batch: int, rng) -> Workload:
             f"heads ({cfg.n_heads} q / {cfg.n_kv_heads} kv), ffn_dim "
             f"({cfg.ffn_dim}), and dim ({cfg.dim}) must all divide by "
             f"tp={tp}")
-    m = _pp_microbatches(args, sizes, global_batch)
+    return cfg, _pp_microbatches(args, sizes, global_batch)
+
+
+def _llama_pp_workload(args, mesh, global_batch: int, rng) -> Workload:
+    """Llama, dense or MoE, with its blocks pipelined over pp
+    (``models/llama_pp.py``): the JAX trainer's ``_llama_pp_workload``,
+    its refusals in its words. This rank builds its stage (drawn as its
+    part of the one-process init), lays it out on the stage's groups as
+    the plain model is laid out (the embedding, norm and head left whole
+    on fsdp ranks) and keeps its rows of each of the M microbatches."""
+    import torch
+
+    from ..models import llama as lib
+    from ..models import llama_pp as pp_lib
+    from ..parallel.sharding import local_positions, shard_params
+
+    sizes = mesh.sizes
+    pp, fsdp = sizes["pp"], sizes.get("fsdp", 1)
+    tp, sp = sizes.get("tp", 1), sizes.get("sp", 1)
+    cfg, m = check_pp_mesh(args, sizes, global_batch)
 
     group = mesh.submesh("sp").get_group() if sp > 1 else None
     stage = pp_lib.LlamaStage(cfg, mesh.coordinate("pp"), pp,

@@ -9,10 +9,19 @@ the installer's ClusterRole grants every resource and verb the port's
 operator calls, recorded from the controller scenarios of
 ``tests/test_torch_controller.py``, the leader elector and the CLI's
 ``--apply`` path.
+
+The Helm chart (``deploy/helm/gpu-operator/``, generated too) holds the
+CRD file in ``crds/`` and renders the installer's objects; the images'
+Dockerfiles (``mpi_operator_tpu_torch/build/``) are held as text, as
+``tests/test_manifests.py`` holds the JAX package's: the operator image
+without torch or CUDA, the worker image with both and its kernels built,
+the pi image on the worker image.
 """
 
 from __future__ import annotations
 
+import copy
+import json
 import pathlib
 import re
 import subprocess
@@ -216,3 +225,201 @@ def test_jax_cluster_role_lacks_the_event_aggregation_verbs(monkeypatch):
     missing = sorted(c for c in calls if not _allowed(jax_role["rules"], *c))
     assert missing == [("events", "get"), ("events", "update")]
 
+
+
+# -- the Helm chart (deploy/helm/gpu-operator/, generated) and the images
+
+CHART = DEPLOY / "helm" / gen_manifests.NAME
+BUILD = ROOT / "mpi_operator_tpu_torch" / "build"
+TEMPLATE_EXPR = re.compile(
+    r"(?P<lead>\s*)\{\{(?P<l>-?)\s*(?P<e>.*?)\s*(?P<r>-?)\}\}(?P<trail>\s*)",
+    re.S)
+
+
+def chart_values() -> dict:
+    return yaml.safe_load((CHART / "values.yaml").read_text())
+
+
+def render_chart(values: dict, release: str = "rel",
+                 release_ns: str = "ns") -> list[dict]:
+    """The chart's templates rendered as Helm renders them, for the few
+    expressions the generator writes (any other fails): the helpers'
+    name, namespace and labels, ``.Values`` lookups and ``toYaml``,
+    each with its ``nindent`` and ``{{-``/``-}}`` trimming."""
+    (chart,) = load_all(CHART / "Chart.yaml")
+    name = chart["name"]
+    helpers = {
+        "name": name,
+        "namespace": values["namespace"] or release_ns,
+        "labels": {"app": name, "app.kubernetes.io/name": name,
+                   "app.kubernetes.io/instance": release,
+                   "app.kubernetes.io/managed-by": "Helm"},
+    }
+
+    def lookup(path: str):
+        obj = values
+        for key in path.removeprefix(".Values.").split("."):
+            obj = obj[key]
+        return obj
+
+    def value(expr: str) -> str:
+        expr, _, indent = expr.partition(" | nindent ")
+        include = re.fullmatch(rf'include "{name}\.(\w+)" \.', expr)
+        if include:
+            got = helpers[include[1]]
+        elif expr.startswith("toYaml "):
+            got = lookup(expr.removeprefix("toYaml "))
+        else:
+            assert re.fullmatch(r"\.Values(\.\w+)+", expr), expr
+            got = lookup(expr)
+        if not indent:
+            assert not isinstance(got, (dict, list)), expr
+            return str(got)
+        pad = " " * int(indent)
+        text = yaml.safe_dump(got, sort_keys=False).rstrip("\n")
+        return "".join("\n" + pad + line for line in text.splitlines())
+
+    def sub(m) -> str:
+        return ("" if m["l"] else m["lead"]) + value(m["e"]) + (
+            "" if m["r"] else m["trail"])
+
+    docs = []
+    for path in sorted((CHART / "templates").glob("*.yaml")):
+        docs.extend(load_text(TEMPLATE_EXPR.sub(sub, path.read_text())))
+    return docs
+
+
+def load_text(text: str) -> list[dict]:
+    return [d for d in yaml.safe_load_all(text) if d]
+
+
+def test_chart_structure_and_crd():
+    (meta,) = load_all(CHART / "Chart.yaml")
+    assert meta["name"] == gen_manifests.NAME and meta["apiVersion"] == "v2"
+    # crds/ holds deploy/crd.yaml byte for byte; no template is a CRD
+    # (a templated copy would make helm conflict with its own crds/).
+    assert (CHART / "crds" / "kubeflow.org_tpujobs.yaml").read_bytes() == (
+        DEPLOY / "crd.yaml").read_bytes()
+    assert [p.name for p in (CHART / "crds").iterdir()] == [
+        "kubeflow.org_tpujobs.yaml"]
+    templates = {p.name for p in (CHART / "templates").iterdir()}
+    assert templates == {
+        "_helpers.tpl", "deployment.yaml", "serviceaccount.yaml",
+        "clusterrole.yaml", "clusterrolebinding.yaml", "configmap.yaml"}
+    for name in templates - {"_helpers.tpl"}:
+        assert "CustomResourceDefinition" not in (
+            CHART / "templates" / name).read_text()
+
+
+def test_chart_cluster_role_rules_are_the_installers():
+    text = (CHART / "templates" / "clusterrole.yaml").read_text()
+    head, _, rules = text.partition("\nrules:\n")
+    assert "{{" not in rules, "the rules block must stay plain YAML"
+    assert yaml.safe_load("rules:\n" + rules)["rules"] == gen_manifests.RULES
+    installer = load_all(DEPLOY / "gpu-operator.yaml")
+    (role,) = [d for d in installer if d["kind"] == "ClusterRole"]
+    assert role["rules"] == gen_manifests.RULES
+
+
+def test_chart_values_image_is_the_installers():
+    values = chart_values()
+    docs = load_all(DEPLOY / "gpu-operator.yaml")
+    (dep,) = [d for d in docs if d["kind"] == "Deployment"]
+    (container,) = dep["spec"]["template"]["spec"]["containers"]
+    image = f"{values['image']['repository']}:{values['image']['tag']}"
+    assert image == container["image"] == gen_manifests.IMAGE
+    assert values["namespace"] == gen_manifests.NAMESPACE
+    assert values["args"] == container["args"]
+    assert "--backend=kube" in values["args"]
+
+
+def _unlabelled(doc: dict) -> dict:
+    doc = copy.deepcopy(doc)
+    doc["metadata"].pop("labels", None)
+    doc.get("spec", {}).get("template", {}).get("metadata", {}).pop(
+        "labels", None)
+    return doc
+
+
+@pytest.mark.parametrize("release_ns", ["gpu-operator", "other"])
+def test_chart_renders_the_installers_objects(release_ns):
+    """With its default values the chart renders the installer's objects
+    but the Namespace and the CRD (Helm takes those from the release and
+    crds/), whatever the release's namespace: values' namespace wins.
+    Every object carries the chart's labels, whose app label is the
+    installer's selector."""
+    installer = {d["kind"]: d for d in load_all(DEPLOY / "gpu-operator.yaml")
+                 if d["kind"] not in ("Namespace", "CustomResourceDefinition")}
+    rendered = {d["kind"]: d
+                for d in render_chart(chart_values(), release_ns=release_ns)}
+    assert rendered.keys() == installer.keys()
+    for kind, want in installer.items():
+        assert _unlabelled(rendered[kind]) == _unlabelled(want), kind
+        assert rendered[kind]["metadata"]["labels"]["app"] == (
+            gen_manifests.NAME)
+    dep = rendered["Deployment"]["spec"]
+    assert dep["selector"]["matchLabels"].items() <= dep["template"][
+        "metadata"]["labels"].items()
+
+
+def test_chart_namespace_defaults_to_the_release():
+    values = chart_values()
+    values["namespace"] = ""
+    rendered = {d["kind"]: d for d in render_chart(values, release_ns="ns")}
+    assert rendered["Deployment"]["metadata"]["namespace"] == "ns"
+    assert rendered["ConfigMap"]["data"]["lock-namespace"] == "ns"
+    (subject,) = rendered["ClusterRoleBinding"]["subjects"]
+    assert subject["namespace"] == "ns"
+
+
+def instructions(path: pathlib.Path) -> list[str]:
+    """A Dockerfile's lines that are not comments, continuations joined."""
+    text = re.sub(r"\\\n", " ", path.read_text())
+    return [line.strip() for line in text.splitlines()
+            if line.strip() and not line.strip().startswith("#")]
+
+
+def words(lines: list[str]) -> set[str]:
+    return {w.lower() for line in lines for w in re.findall(r"\b\w+\b", line)}
+
+
+def test_operator_image_is_the_control_plane_alone():
+    lines = instructions(BUILD / "operator" / "Dockerfile")
+    # Word match: the package's own name mpi_operator_tpu_torch is one word.
+    assert not words(lines) & {"torch", "cuda", "nvidia", "jax", "libtpu"}
+    assert lines[0].startswith("FROM python:3.12")
+    assert "COPY mpi_operator_tpu_torch ./mpi_operator_tpu_torch" in lines
+    assert any(line.startswith("USER ") and not line.startswith("USER 0")
+               for line in lines)
+    entry = [line for line in lines if line.startswith(("ENTRYPOINT", "CMD"))]
+    assert entry == ['ENTRYPOINT ["python", "-m", '
+                     '"mpi_operator_tpu_torch.cmd.operator"]']
+
+
+def test_worker_image_builds_the_kernels_and_runs_the_healthcheck():
+    lines = instructions(BUILD / "worker" / "Dockerfile")
+    assert re.fullmatch(r"FROM nvidia/cuda:12\.[\d.]+-devel-ubuntu24\.04",
+                        lines[0]), lines[0]
+    found = words(lines)
+    assert "torch" in found and "numpy" in found
+    assert not found & {"jax", "libtpu", "openssh", "sshd", "mpirun",
+                        "openmpi"}
+    assert "COPY mpi_operator_tpu_torch ./mpi_operator_tpu_torch" in lines
+    assert "COPY native ./native" in lines
+    assert any(line.startswith("RUN make -C native") for line in lines)
+    # The kernels are built at image build time, by the port's own build.
+    assert 'RUN ["python", "-c", "from mpi_operator_tpu_torch.ops import ' \
+           '_build; _build.build()"]' in lines
+    assert lines[-1] == ('CMD ["python", "-m", '
+                         '"mpi_operator_tpu_torch.launcher.healthcheck"]')
+
+
+def test_pi_image_builds_from_the_worker_image():
+    lines = instructions(BUILD / "pi" / "Dockerfile")
+    assert lines[0] == "FROM tpu-job-operator/gpu-worker:latest"
+    assert lines[-1] == ('CMD ["python", "-m", '
+                         '"mpi_operator_tpu_torch.examples.pi"]')
+    (doc,) = load_all(ROOT / "mpi_operator_tpu_torch" / "examples" / "pi.yaml")
+    (container,) = doc["spec"]["tpuReplicaSpecs"]["Worker"]["template"][
+        "spec"]["containers"]
+    assert container["command"] == json.loads(lines[-1].removeprefix("CMD "))
