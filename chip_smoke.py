@@ -42,14 +42,31 @@ Phases, in order:
      ([1000, 130]);
    - the bf16 head product (cuBLAS bf16 GEMMs with f32 logits) at one
      Llama head chunk against its plain version;
+   each record's ``launches`` is its main path's count in the train
+   phase; the flat kernels' ``launches_by_path`` add every other path's,
+   and the BN kernels' the model phase's ResNet options (a pass and a
+   run of steps each);
 3. ``model``: llama3-8b at full width, 2 layers: loss and every gradient
    through the flat kernels and through the [B*H, S, D] kernels
    (``flash-bhsd``) against the dense oracle; ResNet-101 at full width
    and depth, B=8: loss, every gradient and the running statistics
-   through the BN kernels against the plain-op BN route; BERT-base at
-   full depth and width, B=8, S=512: loss and every gradient through
-   both flash routes against the dense oracle, in f32 and bf16; ViT-B/16
-   (B=8) and t5-small seq2seq (B=4, src 512, dec 256) through the flat
+   through the BN kernels against the plain-op BN route; ResNet-101's
+   two TPU-shaped options through the BN kernels against the plain
+   model: with ``space_to_depth`` (its stem mapped from the plain 7x7
+   kernel by ``s2d_stem_weight``) and with ``scan_stages`` (the plain
+   weights stacked by ``stack_stages``), B=8, f32, one train-mode pass
+   each: logits, loss and running statistics (stacked, for the scanned
+   model) within twice the plain model's own kernel-vs-plain BN route
+   difference (plus 1e-4) and within SCANNED_TOL, 104/104 BN launches a
+   pass; then B=64 bf16, 6 SGD steps (the trainer's nesterov SGD at 0.1)
+   each of the plain, s2d and scanned models in turn, five rounds: loss
+   finite and falling, 104/104 launches a step, each model's median
+   step_ms beside the plain model's; and the stem alone (the 7x7
+   stride-2 conv against the regroup and the 4x4 stride-1 conv, forward
+   and weight backward, CUDA events); BERT-base at full depth and width,
+   B=8, S=512: loss and every gradient through both flash routes
+   against the dense oracle, in f32 and bf16; ViT-B/16 (B=8) and
+   t5-small seq2seq (B=4, src 512, dec 256) through the flat
    kernels against the dense oracle in f32, and in bf16 against the flat
    route through the kernels' plain versions;
 4. ``train``: the trainer's own entry point
@@ -151,13 +168,17 @@ Phases, in order:
    S=2048, lr 3e-5 on ``--mesh fsdp=2`` and on ``--mesh tp=2`` (16 q / 4
    kv heads and half of every expert's hidden dim a rank); vit-base, seq2seq-small
    and resnet101 (``--bn-kernel xla``, the replicated layout) on
-   ``tp=2``; bert-base S=512 (the mask layout) on ``--mesh sp=2,tp=2``,
-   four processes, as the ring and as Ulysses. Each rank's flat kernel
-   launches are held to the run's count at the local head counts (the
-   wrappers count them by q/kv heads, ``ops/attention.py:LAUNCH_HEADS``);
-   step_ms, peak GB a rank (allocated and reserved) and the bytes the
-   first step hands gloo a rank (by c10d op, from a dispatch mode) are
-   printed beside the one-process run's;
+   ``tp=2``; bert-base with the train phase's arguments (B=64, S=512,
+   ``--mlm-layout positions``: each rank gathers the prediction slots
+   in its columns) on ``--mesh sp=2`` as the ring (12/12 heads, 2 hops
+   a layer) and as Ulysses (6/6); bert-base S=512 (the mask layout) on
+   ``--mesh sp=2,tp=2``, four processes, as the ring and as Ulysses.
+   Each rank's flat kernel launches are held to the run's count at the
+   local head counts (the wrappers count them by q/kv heads,
+   ``ops/attention.py:LAUNCH_HEADS``); step_ms, peak GB a rank
+   (allocated and reserved) and the bytes the first step hands gloo a
+   rank (by c10d op, from a dispatch mode) are printed beside the
+   one-process run's;
 11. ``pp``: pipeline parallelism on the one card (GPipe over ``--mesh
    pp``), each arm through ``cmd.train.main`` on a gang over gloo, 3
    steps, against the one-process run of the same call (curve at rtol
@@ -1533,6 +1554,245 @@ def check_resnet_model() -> None:
         raise AssertionError("BN kernel route disagrees with the plain route")
     del runs, state, images
     torch.cuda.empty_cache()
+
+
+# ResNet-101's TPU-shaped options against the plain model (model phase).
+# space_to_depth: the s2d stem mapped from the plain 7x7 kernel
+# (models/resnet.py:s2d_stem_weight) sums the same 147 nonzero products
+# a stem output as the 7x7 conv (and 45 exact zeros), in another order:
+# each stem output moves by a few f32 ulps (~1e-7 relative). Every BN
+# layer's sums move as much between the kernel and the plain BN route,
+# so the plain model on those two routes, on the same weights and
+# images, measures how far such f32 reorderings carry to the logits, the
+# loss and the running statistics of this network; the s2d model may lie
+# at most RESNET_ERROR_RATIO times that from the plain model, plus
+# RESNET_FLOOR["float32"]. scan_stages: the same operations on the same
+# operands in the same order (each stacked kernel's slice keeps the
+# plain kernel's channels_last layout), so the logits, loss and stacked
+# running statistics are held at SCANNED_TOL, room only for a kernel
+# whose order of sums varies run to run.
+SCANNED_TOL = 1e-6
+# The bf16 step A/B: RESNET_TRAIN_ARGS' model, batch and SGD (B=64,
+# 224x224, nesterov momentum 0.9 at 0.1), OPTION_STEPS steps a run, the
+# plain, s2d and scanned models in turn OPTION_ROUNDS times; a run's
+# step_ms is the mean of its steps after the first, each model's the
+# median of its runs.
+OPTION_STEPS, OPTION_ROUNDS, OPTION_BATCH = 6, 5, 64
+
+
+def _option_pass(model, state, images, labels) -> tuple:
+    """One train-mode forward and backward of ``model`` from ``state``,
+    with the launch counters set to 0 just before and read just after:
+    (logits, loss, running statistics by name, BN launches)."""
+    import torch
+
+    from mpi_operator_tpu_torch.ops import bn
+
+    model.load_state_dict(state)
+    model.train()
+    _reset_all_launch_counts()
+    logits = model(images)
+    loss = torch.nn.functional.cross_entropy(logits, labels)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = dict(bn.LAUNCHES)
+    return (logits.detach(), float(loss.detach()),
+            {n: b.clone() for n, b in model.named_buffers()}, launches)
+
+
+def _stats_error(got: dict, want: dict) -> float:
+    """The running statistics' error: each mean against its channel's
+    running standard deviation, each variance relative (as
+    ``_resnet_errors``)."""
+    worst = 0.0
+    for name, var in want.items():
+        if name.endswith(".var"):
+            mean = name[:-len("var")] + "mean"
+            scale = var.double().sqrt()
+            worst = max(worst, float(
+                ((got[mean] - want[mean]).double().abs() / scale).max()),
+                float(((got[name] - var).double().abs()
+                       / var.double()).max()))
+    return worst
+
+
+def _option_steps(model, images, labels, steps: int) -> dict:
+    """``steps`` SGD steps of ``model`` as the trainer builds them, with
+    the launch counters set to 0 just before and read just after:
+    losses, the mean step_ms after the first step, launches."""
+    import torch
+
+    from mpi_operator_tpu_torch.models import resnet as lib
+
+    optimizer = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9,
+                                nesterov=True, dampening=0, weight_decay=0)
+    step = lib.make_train_step(model, optimizer)
+    losses, times = [], []
+    _reset_all_launch_counts()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = step(images, labels)
+        losses.append(float(loss))  # a host sync a step
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"losses": losses, "step_ms": sum(times[1:]) / (steps - 1),
+            "launches": _all_launch_counts()}
+
+
+def _stem_ms(images) -> dict:
+    """The stem alone, forward and the kernel's backward (the images take
+    no gradient), bf16, by CUDA events: the plain 7x7 stride-2 conv on 3
+    channels, and the regroup, its (2, 1) pad and the 4x4 stride-1 conv
+    on 12."""
+    import torch
+    import torch.nn.functional as F
+
+    from mpi_operator_tpu_torch.models import resnet as lib
+
+    out = {}
+    x = images.to(torch.bfloat16)
+    for name, k, cin, stride, pad in (("plain 7x7/2", 7, 3, 2, 3),
+                                      ("s2d 4x4/1", 4, 12, 1, 0)):
+        conv = lib.Conv(cin, 64, k, stride, padding=pad, device="cuda")
+        torch.nn.init.normal_(conv.weight, std=0.05)
+        s2d = name.startswith("s2d")
+
+        def fwd_bwd(conv=conv, s2d=s2d):
+            y = F.pad(lib.space_to_depth(x), (2, 1, 2, 1)) if s2d else x
+            conv(y).float().sum().backward()
+            conv.weight.grad = None
+
+        out[name] = time_ms(fwd_bwd, 3, 20)
+    return out
+
+
+def check_resnet_options() -> dict:
+    """ResNet-101 with ``space_to_depth`` and with ``scan_stages`` against
+    the plain model, through the BN kernels: (1, 2) B=8, 224x224, f32,
+    one train-mode pass each from the plain model's weights (the s2d stem
+    mapped by ``s2d_stem_weight``, the scanned stages stacked by
+    ``stack_stages``): logits, loss and running statistics (stacked, for
+    the scanned model) held to the plain pass, 104/104 BN launches a
+    pass; (3) B=64 bf16, OPTION_STEPS SGD steps each of plain, s2d and
+    scanned in turn, OPTION_ROUNDS rounds: loss finite and falling,
+    104/104 launches a step, step_ms beside the plain model's; (4) the
+    stem alone. Returns the BN launch counts by path."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from mpi_operator_tpu_torch.models import resnet as lib
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    rng = np.random.RandomState(1)
+    images = torch.as_tensor(
+        rng.standard_normal((8, 224, 224, 3)).astype(np.float32),
+        device="cuda").permute(0, 3, 1, 2)
+    labels = torch.as_tensor(rng.randint(0, 1000, (8,)), device="cuda")
+    make = lambda **kw: lib.resnet(101, dtype=torch.float32,
+                                   bn_impl="pallas", device="cuda", **kw)
+    plain = make()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lib.init_params(plain, gen)
+    with torch.no_grad():
+        for mod in lib.bn_layers(plain):
+            mod.scale.uniform_(0.5, 1.5, generator=gen)
+    state = {k: v.detach().clone() for k, v in plain.state_dict().items()}
+    want = _option_pass(plain, state, images, labels)
+    del plain
+
+    def errors(got, stats_want) -> dict:
+        return {"logits": norm_rel(got[0], want[0]),
+                "loss": abs(got[1] - want[1]) / abs(want[1]),
+                "stats": _stats_error(got[2], stats_want)}
+
+    route = errors(_option_pass(lib.resnet(101, dtype=torch.float32,
+                                           device="cuda"),
+                                state, images, labels), want[2])
+    s2d_state = dict(state)
+    s2d_state["conv_init.weight"] = lib.s2d_stem_weight(
+        state["conv_init.weight"])
+    per_pass = {"bn_stats": RESNET_BN_LAYERS, "bn_grads": RESNET_BN_LAYERS}
+    arms = {"s2d": (dict(space_to_depth=True), s2d_state,
+                    {k: RESNET_ERROR_RATIO * v + RESNET_FLOOR["float32"]
+                     for k, v in route.items()}),
+            "scanned": (dict(scan_stages=True), lib.stack_stages(state),
+                        dict.fromkeys(route, SCANNED_TOL))}
+    log(f"model resnet101 B=8 224x224 f32, the plain model's kernel BN route "
+        f"vs its plain BN route (the scale of an f32 reordering): "
+        f"{json.dumps({k: f'{v:.3e}' for k, v in route.items()})}")
+    launches, failed = {}, []
+    for arm, (kw, arm_state, tol) in arms.items():
+        got = _option_pass(make(**kw), arm_state, images, labels)
+        stats_want = (lib.stack_stages(want[2]) if arm == "scanned"
+                      else want[2])
+        err = errors(got, stats_want)
+        ok = (all(err[k] <= tol[k] for k in err)
+              and sorted(got[2]) == sorted(stats_want)
+              and got[3] == per_pass == want[3])
+        launches[f"resnet101 {arm} pass"] = got[3]
+        log(f"model resnet101 {arm} B=8 224x224 f32 vs the plain model on "
+            f"the same weights: logits {err['logits']:.3e} (norm-rel), loss "
+            f"{err['loss']:.3e}, running stats {err['stats']:.3e} (tol "
+            f"{json.dumps({k: f'{v:.3e}' for k, v in tol.items()})}); BN "
+            f"launches a pass {got[3]} (plain {want[3]}, want {per_pass}) "
+            f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(arm)
+        torch.cuda.empty_cache()
+    del want
+
+    rng = np.random.RandomState(0)
+    images = torch.as_tensor(rng.standard_normal(
+        (OPTION_BATCH, 224, 224, 3)).astype(np.float32),
+        device="cuda").permute(0, 3, 1, 2)
+    labels = torch.as_tensor(rng.randint(0, 1000, (OPTION_BATCH,)),
+                             device="cuda")
+    models = {}
+    for arm, kw in (("plain", {}), ("s2d", dict(space_to_depth=True)),
+                    ("scanned", dict(scan_stages=True))):
+        model = lib.resnet(101, bn_impl="pallas", device="cuda", **kw)
+        lib.init_params(model, torch.Generator(device="cuda").manual_seed(0))
+        models[arm] = model
+    runs = {arm: [] for arm in models}
+    for _ in range(OPTION_ROUNDS):
+        for arm, model in models.items():
+            runs[arm].append(_option_steps(model, images, labels,
+                                           OPTION_STEPS))
+    step_want = _want_launches({k: RESNET_BN_LAYERS * OPTION_STEPS
+                                for k in ("bn_stats", "bn_grads")})
+    step_ms = {arm: statistics.median(r["step_ms"] for r in rs)
+               for arm, rs in runs.items()}
+    for arm, rs in runs.items():
+        first = rs[0]["losses"]
+        ok = (all(math.isfinite(x) for r in rs for x in r["losses"])
+              and first[-1] < first[0]
+              and all(r["launches"] == step_want for r in rs))
+        launches[f"resnet101 {arm} {OPTION_STEPS} steps"] = rs[0]["launches"]
+        log(f"model resnet101 {arm} bf16 B={OPTION_BATCH} SGD: losses "
+            f"{[round(x, 4) for x in first]} (first run); launches a run "
+            f"{[r['launches'] for r in rs]} (want {step_want}); step_ms by "
+            f"run {[round(r['step_ms'], 2) for r in rs]}, median "
+            f"{step_ms[arm]:.2f} against the plain model's "
+            f"{step_ms['plain']:.2f} ({step_ms[arm] / step_ms['plain']:.3f}x)"
+            f"; card {card} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"{arm} steps")
+    del models
+    torch.cuda.empty_cache()
+    stem = _stem_ms(images)
+    log(f"model resnet101 stem alone, B={OPTION_BATCH} 224x224 bf16, forward "
+        f"+ weight backward by CUDA events: "
+        f"{json.dumps({k: round(v, 4) for k, v in stem.items()})} ms; card "
+        f"{card}")
+    log(f"model resnet101 options done in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise AssertionError(f"ResNet option checks failed: {failed}")
+    del images
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _reset_all_launch_counts() -> None:
@@ -3895,15 +4155,19 @@ def run_sp(tmp: Path) -> dict:
 # rank holds 16 q and 4 kv heads and half of every expert's hidden dim.
 # vit-base and seq2seq-small on tp=2 (6/6 and 4/4 heads a rank),
 # resnet101 on tp=2 as the replicated layout (the xla BN route: the
-# pallas kernels refuse any multi-device mesh); bert-base
-# S=512 on sp=2,tp=2 over four processes (the mask layout: gathered
-# positions are not ported on sp), the ring on 6/6 heads a rank and
-# Ulysses on 3/3 (sp splits the 6 local heads again). Each
-# curve (the ranks' mean) is held to the one-process curve of the same
-# call at WORLD_LOSS_RTOL.
+# pallas kernels refuse any multi-device mesh); bert-base S=512 with the
+# train phase's gathered positions on sp=2 (each rank gathers the
+# prediction slots in its columns), the ring on 12/12 heads a rank and
+# Ulysses on 6/6; bert-base S=512 on sp=2,tp=2 over four processes in
+# the mask layout (so that both layouts run on sp), the ring on 6/6
+# heads a rank and Ulysses on 3/3 (sp splits the 6 local heads again).
+# Each curve (the ranks' mean) is held to the one-process curve of the
+# same call at WORLD_LOSS_RTOL.
 TP_STEPS = 2
 RESNET_TP_ARGS = _with_steps(
     [a if a != "pallas" else "xla" for a in RESNET_TRAIN_ARGS], TP_STEPS)
+BERT_SP_ARGS = _with_steps(BERT_TRAIN_ARGS, TP_STEPS)
+# The mask layout: the positions layout runs on sp=2 above.
 BERT_SP_TP_ARGS = _with_steps(
     [a if a != "positions" else "mask" for a in BERT_TRAIN_ARGS], TP_STEPS)
 MOE_TP_ARGS = _with_steps(_with_flag(MOE_WORLD_ARGS, "--lr", "3e-5"),
@@ -3919,6 +4183,12 @@ TP_RUNS = {
     "seq2seq-small tp=2": (_with_steps(S2S_TRAIN_ARGS, TP_STEPS), _TP2, 2,
                            (S2S_ATTENTION_CALLS * TP_STEPS,) * 3, (4, 4)),
     "resnet101 tp=2": (RESNET_TP_ARGS, _TP2, 2, (0, 0, 0), None),
+    "bert-base sp=2 ring positions": (
+        BERT_SP_ARGS, ["--mesh", "sp=2", "--sequence-parallel", "ring"], 2,
+        (SP_HOPS * BERT_LAYERS * TP_STEPS,) * 3, (12, 12)),
+    "bert-base sp=2 ulysses positions": (
+        BERT_SP_ARGS, ["--mesh", "sp=2", "--sequence-parallel", "ulysses"],
+        2, (BERT_LAYERS * TP_STEPS,) * 3, (6, 6)),
     "bert-base sp=2,tp=2 ring": (
         BERT_SP_TP_ARGS, ["--mesh", "sp=2,tp=2", "--sequence-parallel",
                           "ring"], 4,
@@ -5477,14 +5747,22 @@ def main(argv=None) -> int:
     records = {}
     s2s_step_ms = None  # the train phase's one-process seq2seq-small step
     if "kernels" in phases:
+        t0 = time.perf_counter()
         records = {**check_kernels(), **check_bn_kernels()}
         check_lse_cotangent()
         check_head()
+        log(f"card: {card}; kernels phase done in "
+            f"{time.perf_counter() - t0:.1f} s")
+    bn_paths = {}
     if "model" in phases:
+        t0 = time.perf_counter()
         check_model()
         check_resnet_model()
+        bn_paths = check_resnet_options()
         check_bert_model()
         check_vit_seq2seq_models()
+        log(f"card: {card}; model phase done in "
+            f"{time.perf_counter() - t0:.1f} s")
     if "profile" in phases:
         profile_step()
         profile_resnet_step()
@@ -5497,6 +5775,7 @@ def main(argv=None) -> int:
     if "data" in phases:
         ab_data_step()
     if "train" in phases:
+        t_train = time.perf_counter()
         # Each main path's own run gives its kernels' launch counts.
         summary, launches = run_train()
         dots_launches = run_train_dots(summary)
@@ -5518,6 +5797,10 @@ def main(argv=None) -> int:
                 bhsd_launches if name.startswith("flash_bhsd_") else
                 launches, name))
             rec["launches"] = counts[key]
+            if name.startswith("bn_") and bn_paths:
+                # The model phase's ResNet options, each counted alone.
+                rec["launches_by_path"] = {k: c[name]
+                                           for k, c in bn_paths.items()}
             if name in FLASH_NAMES["flat"]:
                 # The other paths through the flat kernels, each counted
                 # in its own run.
@@ -5542,9 +5825,11 @@ def main(argv=None) -> int:
             f"snapshot {costs['sync']['snapshot']:.4f} s + write "
             f"{costs['sync']['write']:.4f} s a save, async snapshot "
             f"{costs['async']['snapshot']:.4f} s (write "
-            f"{costs['async']['write']:.4f} s behind the steps)")
+            f"{costs['async']['write']:.4f} s behind the steps); train phase "
+            f"done in {time.perf_counter() - t_train:.1f} s")
     moe_model = None
     if "moe" in phases:
+        t0 = time.perf_counter()
         m_summary, m_launches, moe_model = run_moe_train()
         for name in FLASH_NAMES["flat"]:
             if name in records:
@@ -5552,8 +5837,10 @@ def main(argv=None) -> int:
                     "mixtral-8x7b"] = m_launches[name]
         log(f"card: {card}; moe mixtral-8x7b/{MOE_LAYERS} layers tokens/s "
             f"{m_summary['tokens_per_sec']} step_ms {m_summary['step_ms']} "
-            f"routed MFU {m_summary['mfu_bf16_peak_routed']:.4f}")
+            f"routed MFU {m_summary['mfu_bf16_peak_routed']:.4f}; moe phase "
+            f"done in {time.perf_counter() - t0:.1f} s")
     if "decode" in phases:
+        t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_decode_") as tmp:
             d_paths = run_decode(Path(tmp), moe_model)
         moe_model = None
@@ -5561,7 +5848,8 @@ def main(argv=None) -> int:
             if name in records:
                 records[name].setdefault("launches_by_path", {}).update(
                     {f"decode {k}": c[name] for k, c in d_paths.items()})
-        log(f"card: {card}; decode phase done")
+        log(f"card: {card}; decode phase done in "
+            f"{time.perf_counter() - t0:.1f} s")
     del moe_model
     if "decode_world" in phases:
         free_card("the decode_world phase")
@@ -5576,13 +5864,15 @@ def main(argv=None) -> int:
             f"{time.perf_counter() - t0:.1f} s")
     if "world" in phases:
         free_card("the world phase")
+        t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_world_") as tmp:
             by_path = run_world(Path(tmp))
         for name in FLASH_NAMES["flat"]:
             if name in records:
                 records[name].setdefault("launches_by_path", {}).update(
                     {f"world {k}": c[name] for k, c in by_path.items()})
-        log(f"card: {card}; world phase done")
+        log(f"card: {card}; world phase done in "
+            f"{time.perf_counter() - t0:.1f} s")
     if "sp" in phases:
         free_card("the sp phase")
         t0 = time.perf_counter()

@@ -236,8 +236,7 @@ def check_sp_mesh(args) -> None:
     """The sp axis against the rest of the call, as the JAX trainer
     checks it: a token model (llama, bert), --seq-len divisible by sp
     (by 2*sp for the zigzag ring), no MoE; with tp, Ulysses splits the
-    local heads (n_heads / tp) over sp. BERT's gathered positions on sp
-    are not ported (naming the ROADMAP.md item)."""
+    local heads (n_heads / tp) over sp."""
     from ..models import bert
     from ..models import llama as lib
 
@@ -256,10 +255,6 @@ def check_sp_mesh(args) -> None:
             f"--mesh sp={sp} with an MoE model (--model {args.model}): MoE "
             f"composes with dp/tp/ep; sp (routing capacity is per sequence) "
             f"does not apply")
-    if args.model.startswith("bert") and args.mlm_layout == "positions":
-        raise SystemExit(f"--mlm-layout positions with --mesh sp={sp} (its "
-                         f"[B, P] slots gather across sequence shards) is not "
-                         f"ported yet (ROADMAP.md queue (a) item 15)")
     if args.seq_len % sp:
         raise SystemExit(f"--seq-len {args.seq_len} not divisible by sp={sp}")
     if (args.zigzag_ring and args.sequence_parallel == "ring"
@@ -450,6 +445,17 @@ def _sequence_batch(tokens, positions) -> tuple:
     return tuple(a[:, positions] for a in (tokens, targets, weights))
 
 
+def _bert_columns(batch: tuple, positions, layout: str) -> tuple:
+    """An sp rank's BERT batch: the columns ``positions`` of its [B, S]
+    arrays. The ``positions`` layout's [B, P] slot arrays stay whole:
+    their slots index the whole sequence, and the loss keeps the ones
+    that fall in the rank's columns (``models/bert.py:
+    mlm_loss_positions``)."""
+    if layout == "positions":
+        return (batch[0][:, positions], *batch[1:])
+    return tuple(a[:, positions] for a in batch)
+
+
 def _token_batch_fn(args, vocab: int, global_batch: int, mesh,
                     positions=None, accum_steps: int = 0):
     """``batch_fn(step)`` for ``--data`` (the JAX trainer's
@@ -484,7 +490,7 @@ def _token_batch_fn(args, vocab: int, global_batch: int, mesh,
         rand = np.concatenate([rand[lo:hi] for lo, hi in ranges])
         batch = _mlm_batch(rows, rand, args.mlm_layout)
         if positions is not None:
-            batch = tuple(a[:, positions] for a in batch)
+            batch = _bert_columns(batch, positions, args.mlm_layout)
         return _as_tensors(batch, pin=pin)
 
     return batch_fn
@@ -585,7 +591,7 @@ def _lm_workload(args, mesh, n_devices: int) -> Workload:
                 make_step, positions=at,
                 scale=batch_shards * sp / (micro * (args.seq_len - 1)))
         else:
-            batch = tuple(a[:, positions] for a in batch)
+            batch = _bert_columns(batch, positions, args.mlm_layout)
             make_step = functools.partial(make_step, positions=at)
     tp = sizes.get("tp", 1)
     shard_params(model, mesh,

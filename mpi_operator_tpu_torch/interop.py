@@ -167,12 +167,20 @@ def seq2seq_params_to_jax(state: Mapping[str, torch.Tensor]) -> dict:
 
 _TPU_BN = re.compile(r"^TpuBatchNorm_(\d+)$")
 _PORT_BN = re.compile(r"^BatchNorm_(\d+)$")
+# Flax kernel axes -> the port's weight axes, by rank: Dense [in, out];
+# Conv [kh, kw, in, out]; a scanned stage's stacked Conv [n, kh, kw, in,
+# out].
+_KERNEL_TO_PORT = {2: (1, 0), 4: (3, 2, 0, 1), 5: (0, 4, 3, 1, 2)}
 
 
 def resnet_params_from_jax(params: Mapping, batch_stats: Mapping = None
                            ) -> dict[str, torch.Tensor]:
     """Flax ResNet ``params`` and ``batch_stats`` trees (numpy leaves, from
-    either BN route) -> the port's ``state_dict``."""
+    either BN route, plain or ``scan_stages``) -> the port's
+    ``state_dict``. A scanned stage's kernels are 5-D, ``[n, kh, kw, in,
+    out]`` -> ``[n, out, in, kh, kw]``; the space_to_depth stem's [4, 4,
+    12, 64] kernel carries its (dy, dx, c) input channels over as they
+    are."""
     state = {}
     leaves = [*_flatten(params)] + [*_flatten(batch_stats or {})]
     for path, leaf in leaves:
@@ -181,7 +189,7 @@ def resnet_params_from_jax(params: Mapping, batch_stats: Mapping = None
         modules = [_TPU_BN.sub(r"BatchNorm_\1", m) for m in modules]
         if leaf_name == "kernel":
             name = "weight"
-            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            arr = arr.transpose(_KERNEL_TO_PORT[arr.ndim])
         elif leaf_name in ("scale", "bias", "mean", "var"):
             name = leaf_name
         else:
@@ -206,7 +214,7 @@ def resnet_params_to_jax(state: Mapping[str, torch.Tensor],
         tree, leaf = params, name
         if name == "weight":
             leaf = "kernel"
-            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+            arr = arr.transpose(np.argsort(_KERNEL_TO_PORT[arr.ndim]))
         elif name in ("mean", "var"):
             tree = stats
         elif name not in ("scale", "bias"):
@@ -214,5 +222,7 @@ def resnet_params_to_jax(state: Mapping[str, torch.Tensor],
         node = tree
         for m in modules:
             node = node.setdefault(m, {})
-        node[leaf] = np.ascontiguousarray(arr)
+        # A copy: the tree must not alias a live model's running stats,
+        # which its next train-mode pass updates in place.
+        node[leaf] = np.array(arr, order="C")
     return params, stats

@@ -165,8 +165,10 @@ class Bert(nn.Module):
         """Logits, f32: [B, S, V], or [B, P, V] with ``mlm_positions``
         ([B, P] int), which gathers the encoder output at those positions
         before the MLM head, so the head runs on P masked slots instead of
-        all S. ``positions`` ([S] int, default ``arange(S)``): the global
-        positions of the tokens' columns (an sp rank's slice)."""
+        all S; they index the columns of ``tokens`` (on an sp rank its
+        own, :func:`mlm_loss_positions` maps them). ``positions`` ([S]
+        int, default ``arange(S)``): the global positions of the tokens'
+        columns (an sp rank's slice)."""
         cfg = self.config
         b, s = tokens.shape
         # Embed(dtype=compute) rounds its table before the lookup; the
@@ -260,13 +262,23 @@ def mlm_loss(model: Bert, tokens, mlm_positions_mask, mlm_targets,
 
 
 def mlm_loss_positions(model: Bert, tokens, mlm_positions, mlm_targets,
-                       mlm_weights):
+                       mlm_weights, positions=None):
     """Masked-LM cross-entropy over gathered positions (the TF-BERT
     ``max_predictions_per_seq`` interface): ``mlm_positions`` [B, P]
     indexes the masked slots, ``mlm_targets`` [B, P] their original
     tokens, ``mlm_weights`` [B, P] 1.0 for real predictions, 0.0 for
-    padding slots. The MLM head runs on P positions, not S."""
-    logits = model(tokens, mlm_positions=mlm_positions)
+    padding slots. The MLM head runs on P positions, not S.
+
+    ``positions``: the global positions of an sp rank's columns. The
+    slots still index the whole sequence; the rank gathers the ones that
+    fall in its columns and weighs the others 0, so each slot counts on
+    exactly one rank and the sum over sp is the whole batch's."""
+    if positions is not None:
+        from ..parallel.sharding import owned_slots
+
+        mlm_positions, owned = owned_slots(mlm_positions, positions)
+        mlm_weights = mlm_weights * owned
+    logits = model(tokens, mlm_positions=mlm_positions, positions=positions)
     return _weighted_xent(logits, mlm_targets, mlm_weights)
 
 
@@ -286,13 +298,15 @@ def make_train_step(model: Bert, optimizer, accum_steps: int = 1,
 
 
 def make_train_step_positions(model: Bert, optimizer, accum_steps: int = 1,
-                              lr_schedule=None):
+                              lr_schedule=None, positions=None):
     """The train step over the gathered-positions batch
-    ``(tokens, mlm_positions, mlm_targets, mlm_weights)``."""
+    ``(tokens, mlm_positions, mlm_targets, mlm_weights)``; ``positions``
+    as in :func:`make_train_step`."""
     from ..parallel.accum import make_update_step
 
     return make_update_step(
-        lambda t, pos, tg, w: mlm_loss_positions(model, t, pos, tg, w),
+        lambda t, pos, tg, w: mlm_loss_positions(model, t, pos, tg, w,
+                                                 positions),
         optimizer, accum_steps, lr_schedule=lr_schedule,
     )
 

@@ -98,6 +98,20 @@ def local_positions(seq_len: int, mesh: Mesh, zigzag: bool = False
                                      (2 * n - i) * half)])
 
 
+def owned_slots(slots: torch.Tensor, positions: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Which of a batch's prediction slots this sp rank owns: ``slots``
+    (any shape, int) index the global sequence, ``positions`` (sorted,
+    as :func:`local_positions` gives them) are the columns the rank
+    holds. Returns (each slot's local column, clamped into range where
+    the rank does not own the slot; a bool mask of the slots it owns).
+    Every slot is owned by exactly one rank of the sp group."""
+    positions = positions.to(slots.device)
+    col = torch.searchsorted(positions, slots.contiguous().long())
+    col = col.clamp_(max=positions.numel() - 1)
+    return col, positions[col] == slots
+
+
 def shard_batch(arrays: Sequence[np.ndarray], mesh: Mesh,
                 accum_steps: int = 1) -> tuple:
     """This process's rows of each global-batch array (dim 0)."""

@@ -251,10 +251,16 @@ def test_bn_operands_are_views_under_channels_last():
     assert len(seen) == 17 and all(seen)
 
 
-def test_unported_options_raise():
-    for kw in ({"space_to_depth": True}, {"scan_stages": True}):
-        with pytest.raises(NotImplementedError, match="queue \\(a\\) item 18"):
-            tresnet.resnet(18, device="meta", **kw)
+def test_options_build_and_an_unknown_bn_impl_raises():
+    """``space_to_depth`` and ``scan_stages`` build, in the JAX model's
+    shapes (held to it in ``tests/test_torch_resnet_{s2d,scan}.py``); an
+    unknown BN route refuses."""
+    s2d = tresnet.resnet(18, space_to_depth=True, device="meta")
+    assert s2d.conv_init.weight.shape == (64, 12, 4, 4)
+    scanned = tresnet.resnet101(scan_stages=True, device="meta")
+    stacked = scanned.stage2_rest.BottleneckBlock_0.Conv_1.weight
+    assert stacked.shape == (22, 256, 256, 3, 3)
+    assert sum(p.numel() for p in scanned.parameters()) == 44_549_160
     with pytest.raises(ValueError, match="unknown bn_impl"):
         tresnet.resnet(18, bn_impl="cuda", device="meta")
 

@@ -62,11 +62,12 @@ def test_loss_falls_with_grad_accum_and_cosine_schedule(capsys):
 
 
 REFUSED = {
-    # sp trains since ring and Ulysses came, with tp too; BERT's gathered
-    # positions on it refuse.
+    # sp trains since ring and Ulysses came, with tp too, and BERT's
+    # gathered positions on it: past the checks, one process stops only
+    # at the mesh's device count.
     "mesh-sp-positions": (["--model", "bert-tiny", "--mlm-layout",
                            "positions", "--mesh", "sp=2"],
-                          "ROADMAP.md queue \\(a\\) item 15"),
+                          "require 2 devices, have 1"),
     # pp is ported: past the checks, one process stops only at the
     # mesh's device count.
     "mesh-pp": (["--mesh", "dp=1,pp=2"], "require 2 devices, have 1"),

@@ -1,12 +1,20 @@
 """BERT on an ``sp`` mesh and an sp checkpoint moved to one process, on
 the CPU over gloo.
 
-- bert-tiny with ``--mlm-layout mask`` on the ``sp=2`` ring (the
-  non-causal ring: no ids, every hop sees every column) against the JAX
-  trainer's ``dp=-1,sp=2``: the learned position table reads global
-  positions, the [B, S] inputs, mask and targets shard on S, and the MLM
-  loss divides by the global weight count. First and third global-batch
-  losses at rtol 1e-5.
+- bert-tiny on ``sp=2`` against the JAX trainer's ``dp=-1,sp=2``, from
+  the JAX init: the learned position table reads global positions, the
+  [B, S] inputs shard on S, and the MLM loss divides by the global
+  weight count. With ``--mlm-layout mask`` (the non-causal ring: no ids,
+  every hop sees every column) the mask and targets shard on S too. With
+  ``--mlm-layout positions`` (the ring and Ulysses) the [B, P] slots,
+  targets and weights stay whole on every sp rank, as JAX replicates
+  them over sp: each rank gathers the slots that fall in its columns and
+  weighs the others 0 (``parallel/sharding.py:owned_slots``), so each
+  slot counts once. One gang for the three arms; first and third
+  global-batch losses at rtol 1e-5. The slot map itself: every slot of a
+  random batch is owned by exactly one rank, for sp 2 and 4, contiguous
+  and zigzag. (Positions on a token file and its checkpoint:
+  ``tests/test_torch_world_sp_bert_data.py``.)
 - llama-tiny on a token file (``--data``: each rank slices its columns
   of its rows of the stream, as of the synthetic batch), saved on
   ``sp=2`` with the zigzag ring at step 2 and resumed on one process to
@@ -18,8 +26,11 @@ the CPU over gloo.
   a gradient is near 0; the resume may add nothing beyond it).
 """
 
+import types
+
 import numpy as np
 import pytest
+import torch
 
 from tests.test_torch_world import (BASE, MODELS, RTOL, assert_matches_jax,
                                     compare_to_jax, run_gang)
@@ -27,12 +38,53 @@ from tests.test_torch_world import (BASE, MODELS, RTOL, assert_matches_jax,
 pytestmark = pytest.mark.kernel
 ATOL = 1e-6
 
+POSITIONS = ["--model", "bert-tiny", "--mlm-layout", "positions"]
 
-def test_bert_mask_layout_on_the_sp2_ring(tmp_path):
-    models = {"bert-tiny": MODELS["bert-tiny"]}
-    want, lines = compare_to_jax(tmp_path, "sp=2", "dp=-1,sp=2", 2,
-                                 models=models)["bert-tiny"]
+
+@pytest.fixture(scope="module")
+def sp2(tmp_path_factory):
+    arms = {
+        "mask": MODELS["bert-tiny"],
+        "positions ring": POSITIONS,
+        "positions ulysses": [*POSITIONS, "--sequence-parallel", "ulysses"],
+    }
+    return compare_to_jax(tmp_path_factory.mktemp("sp2"), "sp=2",
+                          "dp=-1,sp=2", 2, models=arms)
+
+
+@pytest.mark.parametrize("arm", ["positions ring", "positions ulysses"])
+def test_bert_positions_on_sp2_match_the_jax_trainer(sp2, arm):
+    want, lines = sp2[arm]
     assert_matches_jax(want, lines, 2)
+
+
+def test_bert_mask_layout_on_the_sp2_ring(sp2):
+    want, lines = sp2["mask"]
+    assert_matches_jax(want, lines, 2)
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+@pytest.mark.parametrize("zigzag", [False, True], ids=["contiguous", "zigzag"])
+def test_every_slot_has_one_owner(sp, zigzag):
+    from mpi_operator_tpu_torch.parallel.sharding import (local_positions,
+                                                          owned_slots)
+
+    seq, n_pred, rows = 32, 5, 6
+    rng = np.random.RandomState(sp)
+    slots = torch.tensor(np.sort(np.stack(
+        [rng.permutation(seq)[:n_pred] for _ in range(rows)]), axis=1))
+    owners = torch.zeros_like(slots)
+    for rank in range(sp):
+        mesh = types.SimpleNamespace(axis_size=lambda _: sp,
+                                     coordinate=lambda _, r=rank: r)
+        positions = torch.as_tensor(local_positions(seq, mesh, zigzag))
+        col, owned = owned_slots(slots, positions)
+        assert col.shape == owned.shape == slots.shape
+        assert int(col.min()) >= 0 and int(col.max()) < seq // sp
+        # An owned slot's local column holds its global position.
+        assert torch.equal(positions[col][owned], slots[owned])
+        owners += owned
+    assert torch.all(owners == 1)
 
 
 def _params(directory) -> dict:
