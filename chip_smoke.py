@@ -59,7 +59,7 @@ Phases, in order:
    model) within twice the plain model's own kernel-vs-plain BN route
    difference (plus 1e-4) and within SCANNED_TOL, 104/104 BN launches a
    pass; then B=64 bf16, 6 SGD steps (the trainer's nesterov SGD at 0.1)
-   each of the plain, s2d and scanned models in turn, five rounds: loss
+   each of the plain, s2d and scanned models in turn, three rounds: loss
    finite and falling, 104/104 launches a step, each model's median
    step_ms beside the plain model's; and the stem alone (the 7x7
    stride-2 conv against the regroup and the 4x4 stride-1 conv, forward
@@ -118,7 +118,7 @@ Phases, in order:
    world phase's gang), each rank drawing the seeded parameters one
    tensor at a time and keeping only its slices: llama3-8b at full width
    and depth on ``tp=2`` and mixtral-8x7b at full width, 2 layers, on
-   ``ep=2`` and ``tp=2`` (B=4, a 32-token prompt, 32 new, greedy),
+   ``ep=2`` and ``tp=2`` (B=4, a 16-token prompt, 16 new, greedy),
    against one process decoding the same parameters: teacher-forced
    logits at DECODE_LOGITS_TOL, greedy tokens equal up to the first
    position whose one-process top-2 logit gap is under DECODE_NEAR_TIE,
@@ -137,7 +137,7 @@ Phases, in order:
    on one GPU) runs in turn: BERT-base at full size (B=64 global, S=512,
    ``--mlm-layout positions``) with ``--mesh dp=2``, six steps, its loss
    curve held against the one-process run of the same call (rtol 2e-3)
-   and each rank's flash launches against that run's; three steps each
+   and each rank's flash launches against that run's; two steps each
    with ``fsdp=2`` (FSDP2) and ``tp=2`` (the tensor-parallel plan); a
    checkpoint saved sharded by ``fsdp=2`` at step 2 and resumed on
    ``dp=2`` to step 3; the resume check on a token file (straight to
@@ -180,7 +180,7 @@ Phases, in order:
    rank (by c10d op, from a dispatch mode) are printed beside the
    one-process run's;
 11. ``pp``: pipeline parallelism on the one card (GPipe over ``--mesh
-   pp``), each arm through ``cmd.train.main`` on a gang over gloo, 3
+   pp``), each arm through ``cmd.train.main`` on a gang over gloo, 2
    steps, against the one-process run of the same call (curve at rtol
    2e-3): llama3-8b at full width, 2 layers, B=4, S=2048 on ``pp=2``
    (4 microbatches of 1, a layer a stage); mixtral-8x7b at full width,
@@ -249,7 +249,16 @@ Phases, in order:
    down (it resumes with a 410 and relists); a malformed command
    (Failed, naming the pod); ``--apply`` of the shipped pi.yaml over REST
    as a process (exit 0); ``--backend kube --enable-scheduler`` refused;
-15. ``examples``: the port's deployable jobs. The worker image's kernel
+15. ``fleet``: the operator's control plane at fleet scale, on the card
+   machine's host (no kernel runs): the port's four seeded benches
+   through their ``main()`` (``cmd/bench_{straggler,memory,goodput,
+   controlplane}.py``). The straggler and memory documents at ``--jobs 8
+   --seed 42`` must equal the committed ``BENCH_STRAGGLER.json`` and
+   ``BENCH_MEMORY.json`` (the JAX benches' output) byte for byte; the
+   goodput curve at ``--jobs 8 --rates 0,0.3`` must pass its gates; a
+   100-job storm under ``--lock-trace`` must converge with no lock-order
+   inversion, its jobs/s and reconcile p50/p99 printed beside the card;
+16. ``examples``: the port's deployable jobs. The worker image's kernel
    build: the kernel-build line of ``mpi_operator_tpu_torch/build/worker/
    Dockerfile``, read out of the file, run on a copy of the port as the
    image's build runs it (all eight libraries must appear in the copy's
@@ -264,9 +273,9 @@ Phases, in order:
    launches 18 a step, step_ms and peak GB a rank (from a
    ``sitecustomize`` on the pods' ``PYTHONPATH`` that reports at exit)
    beside the one-process step, and step 3 committed;
-16. ``profile`` (opt-in, ``--phases profile``): where one training step's
+17. ``profile`` (opt-in, ``--phases profile``): where one training step's
    time goes, for each arm (device kernel time by kind, idle share);
-17. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
+18. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
    step, as a same-call A/B: the Llama and the BERT-base train runs
    synthetic and on a token file in turns (S D D S, four times), 10 steps
    each, with every run's step_ms and each side's median.
@@ -1577,7 +1586,7 @@ SCANNED_TOL = 1e-6
 # plain, s2d and scanned models in turn OPTION_ROUNDS times; a run's
 # step_ms is the mean of its steps after the first, each model's the
 # median of its runs.
-OPTION_STEPS, OPTION_ROUNDS, OPTION_BATCH = 6, 5, 64
+OPTION_STEPS, OPTION_ROUNDS, OPTION_BATCH = 6, 3, 64
 
 
 def _option_pass(model, state, images, labels) -> tuple:
@@ -2694,45 +2703,59 @@ def _decode_cli(tmp: Path) -> dict:
     card: llama-tiny and llama-moe-tiny checkpoints the trainer writes
     here (2 steps), two prompts of 3 tokens, 8 new; the tokens equal the
     same command's on the CPU (f32 both; only the order of sums differs)
-    and the command launches no kernel."""
-    out = {}
+    and the command launches no kernel. The two commands run side by
+    side, beside this process's own runs of the same argv."""
+    out, runs = {}, {}
     for name in ("llama-tiny", "llama-moe-tiny"):
         ck = tmp / f"gen-{name}"
         _drive_trainer(["--model", name, "--steps", "2", "--warmup", "1",
                         "--global-batch", "8", "--seq-len", "16", "--lr",
                         "1e-3", "--checkpoint-dir", str(ck), "--save-every",
                         "1", "--log-every", "1"])
-        argv = ["--checkpoint-dir", str(ck), "--model", name, "--prompt",
-                "12,7,42", "--prompt", "3,9,27", "--max-new", "8"]
-        cmd = [sys.executable, "-m", "mpi_operator_tpu_torch.cmd.generate",
-               *argv]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=300, cwd=str(Path(__file__).parent))
-        wall = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"{cmd} exited {proc.returncode}:\n"
-                                 f"{proc.stderr[-4000:]}")
-        card = [json.loads(line) for line in proc.stdout.splitlines()
-                if line.startswith("{")]
-        _reset_all_launch_counts()
-        inproc = _generate_lines(argv)
-        launches = _all_launch_counts()
-        cpu = _generate_lines([*argv, "--device", "cpu"])
-        ok = (len(card) == 2 and card == inproc
-              and [line["tokens"] for line in card]
-              == [line["tokens"] for line in cpu]
-              and all(line["step"] == 2 and len(line["new"]) == 8
-                      and line["tokens"][:3] == line["prompt"]
-                      for line in card)
-              and launches == _want_launches({}))
-        log(f"decode cmd.generate {name} ({wall:.1f} s as a process): "
-            f"{json.dumps(card)}; CPU tokens "
-            f"{[line['tokens'] for line in cpu]}; launches {launches} -> "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"cmd.generate on {name} failed its checks")
-        out[f"cmd.generate {name}"] = launches
+        runs[name] = ["--checkpoint-dir", str(ck), "--model", name,
+                      "--prompt", "12,7,42", "--prompt", "3,9,27",
+                      "--max-new", "8"]
+    procs = {}
+    try:
+        for name, argv in runs.items():
+            cmd = [sys.executable, "-m",
+                   "mpi_operator_tpu_torch.cmd.generate", *argv]
+            procs[name] = (cmd, time.perf_counter(), subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, cwd=str(Path(__file__).parent)))
+        for name, argv in runs.items():
+            _reset_all_launch_counts()
+            inproc = _generate_lines(argv)
+            launches = _all_launch_counts()
+            cpu = _generate_lines([*argv, "--device", "cpu"])
+            cmd, t0, proc = procs[name]
+            stdout, stderr = proc.communicate(timeout=300)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"{cmd} exited {proc.returncode}:\n"
+                                     f"{stderr[-4000:]}")
+            card = [json.loads(line) for line in stdout.splitlines()
+                    if line.startswith("{")]
+            ok = (len(card) == 2 and card == inproc
+                  and [line["tokens"] for line in card]
+                  == [line["tokens"] for line in cpu]
+                  and all(line["step"] == 2 and len(line["new"]) == 8
+                          and line["tokens"][:3] == line["prompt"]
+                          for line in card)
+                  and launches == _want_launches({}))
+            log(f"decode cmd.generate {name} ({wall:.1f} s as a process, "
+                f"beside the other): {json.dumps(card)}; CPU tokens "
+                f"{[line['tokens'] for line in cpu]}; launches {launches} "
+                f"-> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(
+                    f"cmd.generate on {name} failed its checks")
+            out[f"cmd.generate {name}"] = launches
+    finally:
+        for _, _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     return out
 
 
@@ -2786,9 +2809,9 @@ def run_decode(tmp: Path, moe_model=None) -> dict:
 # Phase decode_world: sharded decoding on two processes over gloo (the
 # world phase's gang), each rank holding only its slices of seeded
 # parameters drawn one tensor at a time (models/generate.py), against
-# one process decoding the same parameters. B=4, a 32-token prompt, 32
+# one process decoding the same parameters. B=4, a 16-token prompt, 16
 # new tokens, greedy.
-DECODE_WORLD_BATCH, DECODE_WORLD_PROMPT, DECODE_WORLD_NEW = 4, 32, 32
+DECODE_WORLD_BATCH, DECODE_WORLD_PROMPT, DECODE_WORLD_NEW = 4, 16, 16
 # A greedy token may flip between the ranks and one process only where
 # the one-process top-2 logits lie closer than this: the f32 tp and ep
 # sums add the partial products in another order than one process's
@@ -3422,8 +3445,8 @@ def profile_resnet_step() -> None:
 WORLD_PROCESSES = 2
 WORLD_ARGS = BERT_TRAIN_ARGS + ["--mesh", "dp=2"]
 # The mesh runs that gloo carries on CUDA tensors (FSDP2 and the DTensor
-# tensor-parallel plan), three steps each.
-WORLD_MESH_STEPS = 3
+# tensor-parallel plan), two steps each.
+WORLD_MESH_STEPS = 2
 # A loss of the dp=2 curve against the one-process curve of the same
 # call: bf16 keeps 8 significant bits (3.9e-3 a rounding); the loss
 # averages 64 x 76 predictions, and the runs differ only in the GEMMs'
@@ -4280,7 +4303,7 @@ def run_tp(tmp: Path) -> dict:
 # the shallow model overshoots and magnifies the bf16 rounding that
 # another GEMM row count moves); llama3-8b on pp=2,tp=2 over four
 # processes, 16/4 heads a rank.
-PP_STEPS = 3
+PP_STEPS = 2
 PP_LLAMA_ARGS = _with_flag(_with_steps(_with_flag(TRAIN_ARGS,
                                                   "--global-batch", "4"),
                                        PP_STEPS), "--warmup", "1")
@@ -5466,6 +5489,77 @@ def run_observe(tmp: Path, direct: dict) -> dict:
     return launches
 
 
+# -- fleet: the control plane's seeded observatories, on this machine's host --
+
+# Each bench's arguments. The straggler and memory documents must equal
+# the committed JAX benches' output byte for byte (same seed, same gang:
+# an h100-4 job's four worker pods mirror a v5e-16 slice's four hosts).
+FLEET_BENCHES = (
+    ("straggler", ["--jobs", "8", "--seed", "42"], "BENCH_STRAGGLER.json"),
+    ("memory", ["--jobs", "8", "--seed", "42"], "BENCH_MEMORY.json"),
+    ("goodput", ["--jobs", "8", "--rates", "0,0.3", "--seed", "42"], None),
+    ("controlplane", ["--jobs", "100", "--seed", "42", "--lock-trace"], None),
+)
+
+
+def run_fleet(tmp: Path, card: str) -> None:
+    """The port's four control-plane benches through their ``main()``:
+    each exits 0 (its own gates), the straggler and memory documents
+    equal the committed ones, and the 100-job storm converges under the
+    lock-order tracer with no inversion. Their summary lines go to the
+    log with a prefix, so the script's own last lines stay its own."""
+    import importlib
+
+    from mpi_operator_tpu_torch.utils import logging as logutil
+
+    root = Path(__file__).resolve().parent
+    failed = []
+
+    def check(name: str, ok: bool, detail: str = "") -> None:
+        log(f"fleet: {'ok' if ok else 'FAIL'} {name} {detail}".rstrip())
+        if not ok:
+            failed.append(name)
+
+    prev = logutil.configure(level="warning")
+    try:
+        for name, argv, committed in FLEET_BENCHES:
+            bench = importlib.import_module(
+                f"mpi_operator_tpu_torch.cmd.bench_{name}")
+            out = tmp / f"bench_{name}.json"
+            summary = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(summary):
+                rc = bench.main([*argv, "--out", str(out)])
+            seconds = time.perf_counter() - t0
+            log(f"fleet {name}: {summary.getvalue().strip()}")
+            check(f"{name}: main exits 0", rc == 0,
+                  f"(rc {rc}, {seconds:.2f} s)")
+            if committed is not None:
+                same = out.read_bytes() == (root / committed).read_bytes()
+                check(f"{name}: document equals {committed}", same)
+            if name == "controlplane":
+                (res,) = json.loads(out.read_text())["results"]
+                trace = res["lock_trace"]
+                check("controlplane: 100 jobs converged",
+                      res["converged"]
+                      and res["outcomes"].get("Succeeded", 0) == 100,
+                      f"{res['outcomes']} in {res['rounds']} rounds")
+                check("controlplane: no lock-order inversion",
+                      trace["inversions"] == [],
+                      f"({trace['acquisitions']} acquisitions over "
+                      f"{len(trace['locks'])} locks)")
+                log(f"card: {card}; fleet controlplane on this host: "
+                    f"{res['jobs_per_second_to_converged']} jobs/s to "
+                    f"converged, reconcile p50 "
+                    f"{res['reconcile']['p50_seconds'] * 1e3:.3f} ms p99 "
+                    f"{res['reconcile']['p99_seconds'] * 1e3:.3f} ms, "
+                    f"wall {res['wall_seconds']} s")
+    finally:
+        logutil.configure(**prev)
+    if failed:
+        raise AssertionError(f"fleet checks failed: {failed}")
+
+
 # -- examples: the worker image's kernel build and a shipped example job --
 
 WORKER_DOCKERFILE = "mpi_operator_tpu_torch/build/worker/Dockerfile"
@@ -5707,11 +5801,11 @@ def main(argv=None) -> int:
     parser.add_argument("--phases",
                         default="kernels,model,train,moe,decode,"
                                 "decode_world,world,sp,tp,pp,operator,"
-                                "observe,kube,examples",
+                                "observe,kube,fleet,examples",
                         help="comma-separated subset of kernels,model,train,"
                              "moe,decode,decode_world,world,sp,tp,pp,"
-                             "operator,observe,kube,examples and the opt-in "
-                             "profile and data")
+                             "operator,observe,kube,fleet,examples and the "
+                             "opt-in profile and data")
     parser.add_argument("--world-child", default="", help=argparse.SUPPRESS)
     parser.add_argument("--image-check", default="", help=argparse.SUPPRESS)
     parser.add_argument("--gloo-probe", default="", help=argparse.SUPPRESS)
@@ -5947,6 +6041,12 @@ def main(argv=None) -> int:
                 records[name].setdefault("launches_by_path", {})[
                     "kube llama3-8b"] = k_launches[name]
         log(f"card: {card}; kube phase done in "
+            f"{time.perf_counter() - t0:.1f} s")
+    if "fleet" in phases:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+            run_fleet(Path(tmp), card)
+        log(f"card: {card}; fleet phase done in "
             f"{time.perf_counter() - t0:.1f} s")
     if "examples" in phases:
         torch.cuda.empty_cache()

@@ -21,7 +21,6 @@ import os
 import socket
 import sys
 
-from ..api.v2beta1 import constants
 from ..utils.logging import emit_json, get_logger
 from .bootstrap import RendezvousConfig, initialize, shutdown
 

@@ -379,7 +379,7 @@ def _flash_fwd_op(qf, kf, vf, row_ids, col_ids, h, sm_scale, causal):
 
 
 @_flash_fwd_op.register_fake
-def _(qf, kf, vf, row_ids, col_ids, h, sm_scale, causal):
+def _flash_fwd_fake(qf, kf, vf, row_ids, col_ids, h, sm_scale, causal):
     return (torch.empty_like(qf),
             qf.new_empty((qf.shape[0], qf.shape[1], h), dtype=torch.float32))
 
@@ -475,7 +475,7 @@ def _flash_bhsd_fwd_op(q, k, v, row_ids, col_ids, sm_scale, causal):
 
 
 @_flash_bhsd_fwd_op.register_fake
-def _(q, k, v, row_ids, col_ids, sm_scale, causal):
+def _flash_bhsd_fwd_fake(q, k, v, row_ids, col_ids, sm_scale, causal):
     return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)
 
 

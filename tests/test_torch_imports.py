@@ -89,6 +89,14 @@ CONTROL_PLANE = (
     "mpi_operator_tpu_torch.runtime.kube",
     "mpi_operator_tpu_torch.runtime.httpserver",
     "mpi_operator_tpu_torch.cmd.gen_manifests",
+    "mpi_operator_tpu_torch.cmd.bench_straggler",
+    "mpi_operator_tpu_torch.cmd.bench_memory",
+    "mpi_operator_tpu_torch.cmd.bench_controlplane",
+    "mpi_operator_tpu_torch.cmd.bench_goodput",
+    "mpi_operator_tpu_torch.analysis.framework",
+    "mpi_operator_tpu_torch.analysis.rules",
+    "mpi_operator_tpu_torch.analysis.lockcheck",
+    "mpi_operator_tpu_torch.cmd.analyze",
 )
 
 
