@@ -104,7 +104,7 @@ Phases, in order:
    more steps;
 6. ``decode``: KV-cache decoding (``models/generate.py``, which launches
    no kernel, as the JAX version's plain einsums): llama3-8b at full width
-   and depth from seeded parameters (B=4, a 128-token prompt, 128 new,
+   and depth from seeded parameters (B=4, a 128-token prompt, 64 new,
    greedy), the weights-read bound printed first, ms a step, new tokens/s
    and the idle share (one step eager against its CUDA-graph replay); its
    teacher-forced logits against the training forward of the prompt
@@ -168,11 +168,11 @@ Phases, in order:
    S=2048, lr 3e-5 on ``--mesh fsdp=2`` and on ``--mesh tp=2`` (16 q / 4
    kv heads and half of every expert's hidden dim a rank); vit-base, seq2seq-small
    and resnet101 (``--bn-kernel xla``, the replicated layout) on
-   ``tp=2``; bert-base with the train phase's arguments (B=64, S=512,
+   ``tp=2``; bert-base with the train phase's arguments at B=32 (S=512,
    ``--mlm-layout positions``: each rank gathers the prediction slots
    in its columns) on ``--mesh sp=2`` as the ring (12/12 heads, 2 hops
-   a layer) and as Ulysses (6/6); bert-base S=512 (the mask layout) on
-   ``--mesh sp=2,tp=2``, four processes, as the ring and as Ulysses.
+   a layer) and as Ulysses (6/6); bert-base B=32 S=512 (the mask layout)
+   on ``--mesh sp=2,tp=2``, four processes, as the ring and as Ulysses.
    Each rank's flat kernel launches are held to the run's count at the
    local head counts (the wrappers count them by q/kv heads,
    ``ops/attention.py:LAUNCH_HEADS``); step_ms, peak GB a rank
@@ -273,9 +273,27 @@ Phases, in order:
    launches 18 a step, step_ms and peak GB a rank (from a
    ``sitecustomize`` on the pods' ``PYTHONPATH`` that reports at exit)
    beside the one-process step, and step 3 committed;
-17. ``profile`` (opt-in, ``--phases profile``): where one training step's
+17. ``entry``: the port's compute entry points
+   (``mpi_operator_tpu_torch/entry.py``, the counterpart of the repo's
+   ``__graft_entry__.py``). ``entry()`` on the card: ResNet-101's eval
+   forward at B=8, 224x224 and the causal flash forward on bf16 ``q [2,
+   512, 8, 128]``, ``k, v [2, 512, 4, 128]``, one call on seeded inputs of
+   those shapes (the entry's own are zeros, as JAX's): finite [8, 1000]
+   logits, exactly one launch of the flat forward kernel and none of any
+   other, the attention against its plain version at the kernels phase's
+   bf16 tolerance. Then ``dryrun_multichip(8)`` on the card: eight ranks
+   of one world over gloo on the one card, each held to an equal share
+   of its memory, one train step of every composition of JAX's dryrun
+   (Llama on dp x fsdp x tp x sp with the ring and with Ulysses, MoE on
+   dp x ep x tp, GPipe on dp x fsdp x pp, sp x tp x pp, MoE x pp, the
+   cross-slice HSDP step, ResNet-18 on dp x fsdp) with its sharding
+   receipt: each composition's loss and rank 0's flat launches printed,
+   every Llama and MoE composition launching the flat forward, dq and
+   dk/dv kernels on every rank (the ring ones their id instantiations),
+   the phase's seconds beside the card;
+18. ``profile`` (opt-in, ``--phases profile``): where one training step's
    time goes, for each arm (device kernel time by kind, idle share);
-18. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
+19. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
    step, as a same-call A/B: the Llama and the BERT-base train runs
    synthetic and on a token file in turns (S D D S, four times), 10 steps
    each, with every run's step_ms and each side's median.
@@ -289,6 +307,7 @@ device is present.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import io
 import json
@@ -420,9 +439,10 @@ MOE_TRAIN_ARGS = [
     "--warmup", "2", "--lr", "3e-4", "--log-every", "1",
 ]
 # Phase decode: llama3-8b at full width and depth from seeded parameters
-# (and the moe phase's Mixtral), B=4, a 128-token prompt, 128 new tokens,
-# greedy; seq2seq-small B=16, src 512, 64 new.
-DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 128, 128
+# (and the moe phase's Mixtral), B=4, a 128-token prompt, 64 new tokens
+# (128 until the entry phase joined the run), greedy; seq2seq-small
+# B=16, src 512, 64 new.
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 4, 128, 64
 S2S_DECODE_BATCH, S2S_DECODE_SRC, S2S_DECODE_NEW = 16, 512, 64
 # Teacher-forced decode logits against the training forward of the same
 # tokens, norm-relative. Both run bf16 products with f32 accumulation but
@@ -1632,6 +1652,7 @@ def _option_steps(model, images, labels, steps: int) -> dict:
     import torch
 
     from mpi_operator_tpu_torch.models import resnet as lib
+    from mpi_operator_tpu_torch.utils.torchtrace import host_read
 
     optimizer = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9,
                                 nesterov=True, dampening=0, weight_decay=0)
@@ -1641,7 +1662,7 @@ def _option_steps(model, images, labels, steps: int) -> dict:
     for _ in range(steps):
         t0 = time.perf_counter()
         loss = step(images, labels)
-        losses.append(float(loss))  # a host sync a step
+        losses.append(host_read(loss))  # a host sync a step
         times.append((time.perf_counter() - t0) * 1e3)
     return {"losses": losses, "step_ms": sum(times[1:]) / (steps - 1),
             "launches": _all_launch_counts()}
@@ -3017,7 +3038,7 @@ def run_decode_world(tmp: Path) -> dict:
     jobs += [{"cmd": "generate", "argv": [*base[name], "--mesh", mesh]}
              for name, mesh in cli]
     free_card("the decode_world phase")
-    ranks = _run_gang(jobs, tmp)
+    ranks = _run_gang(jobs)
     none = _want_launches({})
     ok, paths = cli_launches == none, {}
     for i, (arm, (model, _, _)) in enumerate(DECODE_WORLD_ARMS.items()):
@@ -3640,21 +3661,12 @@ def _one_process(argv: list) -> dict:
     return _ONE_PROCESS[key]
 
 
-def world_child(spec: str) -> int:
-    """A rank of the world phase's gang (the rendezvous env set by the
-    parent): each job of ``spec`` in turn, one JSON result line each."""
+def _child_jobs(jobs: list, rank: int) -> int:
+    """Each of ``jobs`` in turn in this gang rank, one JSON result line
+    each; 1 when a released job waited past its limit, else 0."""
     import os
 
-    import torch
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    rank = int(os.environ["TPUJOB_PROCESS_ID"])
-    share = int(os.environ.get("CHIP_SMOKE_RANK_MEMORY_BYTES", "0"))
-    if share:
-        torch.cuda.set_per_process_memory_fraction(
-            min(1.0, share / torch.cuda.mem_get_info()[1]))
-    for job in json.loads(Path(spec).read_text()):
+    for job in jobs:
         if job.get("sigterm_rank", rank) != rank:
             job = {**job, "sigterm_after": 0}
         if job.get("replica"):
@@ -3675,22 +3687,57 @@ def world_child(spec: str) -> int:
     return 0
 
 
-def _run_gang(jobs: list, tmp: Path, n: int = WORLD_PROCESSES) -> list:
-    """``jobs`` in each of ``n`` processes of one world on the card
-    (``python3 chip_smoke.py --world-child``, gloo). A rank that fails
-    stops every rank and fails the phase, naming the rank and showing the
-    end of its log. Each rank's caching allocator is held to an equal
-    share of the card's free memory (less RANK_CONTEXT_BYTES), so it
-    hands cached blocks back before it takes what another rank needs.
-    Returns each rank's job results."""
+def world_child(spec: str) -> int:
+    """A gang rank (the rendezvous env set by the parent). ``spec`` is a
+    file of jobs (a pod's: those jobs, then exit) or a gang's directory
+    (:func:`_run_gang`): its batches ``jobs<k>.json`` in turn, each
+    followed by a ``{"batch": k}`` line, until a ``stop`` file appears."""
+    import os
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["TPUJOB_PROCESS_ID"])
+    share = int(os.environ.get("CHIP_SMOKE_RANK_MEMORY_BYTES", "0"))
+    if share:
+        torch.cuda.set_per_process_memory_fraction(
+            min(1.0, share / torch.cuda.mem_get_info()[1]))
+    home = Path(spec)
+    if not home.is_dir():
+        return _child_jobs(json.loads(home.read_text()), rank)
+    batch = 0
+    while True:
+        batch += 1
+        jobs = home / f"jobs{batch}.json"
+        while not jobs.exists():
+            if (home / "stop").exists():
+                return 0
+            time.sleep(0.1)
+        if _child_jobs(json.loads(jobs.read_text()), rank):
+            return 1
+        print(json.dumps({"batch": batch}), flush=True)
+
+
+# The gangs of the decode_world, world, sp, tp and pp phases, by size,
+# kept running from one phase to the next: a rank's start (interpreter,
+# torch, the card's context, the world's formation) is paid once a size,
+# not once a phase. main stops them after the last of those phases.
+_GANGS: dict = {}
+
+
+def _start_gang(n: int) -> dict:
+    """``n`` processes of one world on the card (``python3 chip_smoke.py
+    --world-child <dir>``, gloo), each rank's caching allocator held to an
+    equal share of the card's free memory (less RANK_CONTEXT_BYTES), so
+    it hands cached blocks back before it takes what another rank needs."""
     import os
 
     import torch
 
     from mpi_operator_tpu_torch.utils.net import free_port_pair
 
-    spec = tmp / "world_jobs.json"
-    spec.write_text(json.dumps(jobs))
+    home = Path(tempfile.mkdtemp(prefix=f"chip_smoke_gang{n}_"))
     free, total = torch.cuda.mem_get_info()
     share = max(free // n - RANK_CONTEXT_BYTES, 0)
     log(f"gang of {n} on the card: each rank's allocator held to "
@@ -3705,36 +3752,89 @@ def _run_gang(jobs: list, tmp: Path, n: int = WORLD_PROCESSES) -> list:
                "TPUJOB_PROCESS_ID": str(rank), "TPU_WORKER_ID": str(rank),
                "TPUJOB_DIST_BACKEND": "gloo",
                "CHIP_SMOKE_RANK_MEMORY_BYTES": str(share)}
-        out, err = tmp / f"rank{rank}.out", tmp / f"rank{rank}.err"
+        out, err = home / f"rank{rank}.out", home / f"rank{rank}.err"
         logs.append((out, err))
         procs.append(subprocess.Popen(
-            [sys.executable, __file__, "--world-child", str(spec)], env=env,
+            [sys.executable, __file__, "--world-child", str(home)], env=env,
             stdout=out.open("w"), stderr=err.open("w")))
+    return {"home": home, "procs": procs, "logs": logs, "batches": 0}
+
+
+def _stop_gangs() -> None:
+    """Stop every gang of :data:`_GANGS`: the ``stop`` file, then each rank
+    waited for (killed past WORLD_TIMEOUT_S)."""
+    import shutil
+
+    for n in list(_GANGS):
+        gang = _GANGS.pop(n)
+        (gang["home"] / "stop").write_text("")
+        deadline = time.monotonic() + WORLD_TIMEOUT_S
+        for p in gang["procs"]:
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        shutil.rmtree(gang["home"], ignore_errors=True)
+
+
+def _run_gang(jobs: list, n: int = WORLD_PROCESSES) -> list:
+    """``jobs`` in each of ``n`` processes of one world on the card, the
+    gang of ``n`` (:func:`_start_gang`) started on its first call and
+    handed each later call's jobs as its next batch. A rank that fails
+    stops every rank of the gang and fails the phase, naming the rank and
+    showing the end of its log. Returns each rank's job results."""
+    import os
+
+    gang = _GANGS.get(n)
+    if gang is None:
+        if not _GANGS:
+            atexit.register(_stop_gangs)
+        gang = _GANGS[n] = _start_gang(n)
+    gang["batches"] += 1
+    batch = gang["batches"]
+    spec = gang["home"] / f"jobs{batch}.json"
+    part = spec.with_suffix(".part")
+    part.write_text(json.dumps(jobs))
+    os.replace(part, spec)
+    procs, logs = gang["procs"], gang["logs"]
+    marker = json.dumps({"batch": batch})
+
+    def done(out: Path) -> bool:
+        return marker in out.read_text().splitlines()
+
     deadline = time.monotonic() + WORLD_TIMEOUT_S
     try:
-        while any(p.poll() is None for p in procs):
+        while not all(done(out) for out, _ in logs):
             for rank, p in enumerate(procs):
-                if p.poll() not in (None, 0):
+                if p.poll() is not None:
                     raise AssertionError(
                         f"world rank {rank} exited {p.returncode}:\n"
                         f"{logs[rank][1].read_text()[-6000:]}")
             if time.monotonic() > deadline:
                 raise AssertionError(
-                    f"world ranks still running after {WORLD_TIMEOUT_S} s")
-            time.sleep(0.5)
-        for rank, p in enumerate(procs):
-            if p.returncode != 0:
-                raise AssertionError(
-                    f"world rank {rank} exited {p.returncode}:\n"
-                    f"{logs[rank][1].read_text()[-6000:]}")
-    finally:
+                    f"world ranks still running batch {batch} after "
+                    f"{WORLD_TIMEOUT_S} s")
+            time.sleep(0.2)
+    except BaseException:
+        import shutil
+
+        _GANGS.pop(n, None)
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    return [[json.loads(line)["result"]
-             for line in out.read_text().splitlines()
-             if line.startswith('{"result"')] for out, _ in logs]
+        shutil.rmtree(gang["home"], ignore_errors=True)
+        raise
+    results = []
+    for out, _ in logs:
+        lines = out.read_text().splitlines()
+        start = (lines.index(json.dumps({"batch": batch - 1})) + 1
+                 if batch > 1 else 0)
+        results.append([json.loads(line)["result"]
+                        for line in lines[start:lines.index(marker)]
+                        if line.startswith('{"result"')])
+    return results
 
 
 def _nccl_probe() -> dict:
@@ -3832,7 +3932,7 @@ def run_world(tmp: Path) -> dict:
         "ep=2": {"argv": [*MOE_WORLD_ARGS, "--mesh", "ep=2"]},
     }
     t0 = time.perf_counter()
-    ranks = _run_gang(list(jobs.values()), tmp)
+    ranks = _run_gang(list(jobs.values()))
     gang_s = time.perf_counter() - t0
     got = {name: [r[i] for r in ranks] for i, name in enumerate(jobs)}
     failed = []
@@ -4122,7 +4222,7 @@ def run_sp(tmp: Path) -> dict:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     jobs = {arm: {"argv": [*SP_ARGS, *flags]} for arm, flags in SP_ARMS.items()}
-    ranks = _run_gang(list(jobs.values()), tmp)
+    ranks = _run_gang(list(jobs.values()))
     gang_s = time.perf_counter() - t0
     got = {arm: [r[i] for r in ranks] for i, arm in enumerate(jobs)}
     flat = FLASH_NAMES["flat"]
@@ -4189,10 +4289,15 @@ def run_sp(tmp: Path) -> dict:
 TP_STEPS = 2
 RESNET_TP_ARGS = _with_steps(
     [a if a != "pallas" else "xla" for a in RESNET_TRAIN_ARGS], TP_STEPS)
-BERT_SP_ARGS = _with_steps(BERT_TRAIN_ARGS, TP_STEPS)
+# The bert-base sequence-parallel arms at B=32 (64, the train phase's,
+# until the entry phase joined the run: their ring and all-to-all bytes
+# through gloo scale with the batch).
+BERT_SP_ARGS = _with_flag(_with_steps(BERT_TRAIN_ARGS, TP_STEPS),
+                          "--global-batch", "32")
 # The mask layout: the positions layout runs on sp=2 above.
-BERT_SP_TP_ARGS = _with_steps(
-    [a if a != "positions" else "mask" for a in BERT_TRAIN_ARGS], TP_STEPS)
+BERT_SP_TP_ARGS = _with_flag(_with_steps(
+    [a if a != "positions" else "mask" for a in BERT_TRAIN_ARGS], TP_STEPS),
+    "--global-batch", "32")
 MOE_TP_ARGS = _with_steps(_with_flag(MOE_WORLD_ARGS, "--lr", "3e-5"),
                           TP_STEPS)
 _MOE_FLASH = (2 * TP_STEPS, TP_STEPS, TP_STEPS)  # one layer, remat
@@ -4243,7 +4348,7 @@ def run_tp(tmp: Path) -> dict:
         names = [name for name, run in TP_RUNS.items() if run[2] == n]
         t0 = time.perf_counter()
         ranks = _run_gang([{"argv": TP_RUNS[name][0] + TP_RUNS[name][1],
-                            "count_bytes": True} for name in names], tmp, n)
+                            "count_bytes": True} for name in names], n)
         gang_s[n] = time.perf_counter() - t0
         got.update({name: [r[i] for r in ranks]
                     for i, name in enumerate(names)})
@@ -4433,7 +4538,7 @@ def run_pp(tmp: Path) -> dict:
             jobs.append({"argv": [*PP_TINY_ARGS, "--steps", "3", "--mesh",
                                   "pp=2", "--checkpoint-dir", str(ckpt)]})
         t0 = time.perf_counter()
-        ranks = _run_gang(jobs, tmp, n)
+        ranks = _run_gang(jobs, n)
         gang_s[n] = time.perf_counter() - t0
         got.update({name: [r[i] for r in ranks]
                     for i, name in enumerate(names)})
@@ -5796,16 +5901,143 @@ def run_examples(tmp: Path, one_process_ms=None) -> dict:
     return launches
 
 
+# The dryrun's world: JAX's dryrun of the repo's compute check runs on 8
+# devices, the n at which every composition (sp x tp x pp, MoE x pp) runs.
+ENTRY_DRYRUN_PROCESSES = 8
+ENTRY_PHASE_BUDGET_S = 60.0
+# A dryrun composition's global first loss against the same model on one
+# process on the card (f32 Llama and MoE: the sums' order and gloo's;
+# ResNet-18 in bf16: cuDNN's per-batch-size algorithms besides).
+DRYRUN_LOSS_RTOL = {"llama": 1e-4, "resnet": MODEL_LOSS_REL_TOL}
+
+
+def _one_process_loss(comp) -> float:
+    """``comp``'s first loss on one process on the card, no mesh: the
+    whole model from ``entry.initial_state`` on the global batch (the
+    ring and Ulysses compositions on the flat kernels alone)."""
+    import dataclasses
+
+    import torch
+
+    from mpi_operator_tpu_torch import entry as entry_lib
+    from mpi_operator_tpu_torch.models import llama, resnet
+
+    state = entry_lib.initial_state(comp)
+    arrays = [torch.as_tensor(a, device="cuda")
+              for a in entry_lib.global_batch(comp)]
+    with torch.no_grad():
+        if comp.model == "resnet":
+            model = resnet.resnet(18, num_classes=64, device="cuda")
+            model.load_state_dict(state)
+            model.to(memory_format=torch.channels_last).train()
+            return float(resnet.loss_fn(model, arrays[0].permute(0, 3, 1, 2),
+                                        arrays[1].long()))
+        cfg = comp.llama_config()
+        if cfg.attention_impl in ("ring", "ulysses"):
+            cfg = dataclasses.replace(cfg, attention_impl="flash")
+        model = llama.Llama(cfg, device="cuda")
+        model.load_state_dict(state)
+        return float(llama.loss_fn(model, arrays[0]))
+
+
+def run_entry(card: str) -> dict:
+    """Phase ``entry``: ``entry()`` and ``dryrun_multichip(8)`` on the card
+    (the module docstring's item 17). The dryrun's world starts first, in
+    a thread of this process; ``entry()`` and the one-process reference
+    losses run here meanwhile. Returns the flat kernels' launches by
+    path: ``entry``, and each dryrun composition's rank 0."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from mpi_operator_tpu_torch import entry as entry_lib
+    from mpi_operator_tpu_torch.ops import attention as attn
+
+    failed = []
+
+    def check(label: str, ok: bool, detail: str) -> None:
+        log(f"entry {label}: {detail} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(label)
+
+    t0 = time.perf_counter()
+    pool = ThreadPoolExecutor(max_workers=1)
+    dryrun = pool.submit(entry_lib.dryrun_multichip, ENTRY_DRYRUN_PROCESSES)
+    fn, (model, images, q, k, v) = entry_lib.entry()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.randn(images.shape, generator=gen, device="cuda").to(
+        memory_format=torch.channels_last)
+    q, k, v = (torch.randn(t.shape, generator=gen, device="cuda").to(t.dtype)
+               for t in (q, k, v))
+    _reset_all_launch_counts()
+    logits, att = fn(model, images, q, k, v)
+    torch.cuda.synchronize()
+    launches = _all_launch_counts()
+    h = q.shape[2]
+    want, _ = attn.flash_fwd_plain(
+        *(t.reshape(t.shape[0], t.shape[1], -1) for t in (q, k, v)), h,
+        q.shape[-1] ** -0.5, True)
+    err = norm_rel(att.reshape(want.shape), want)
+    check("forward", tuple(logits.shape) == (8, 1000)
+          and bool(logits.float().isfinite().all()),
+          f"resnet101 logits {list(logits.shape)} finite "
+          f"{bool(logits.float().isfinite().all())}")
+    check("launches", launches == _want_launches({"flash_fwd": 1}),
+          f"flash_fwd {launches['flash_fwd']} (want exactly 1; every "
+          f"other kernel 0: {sum(launches.values()) == 1})")
+    check("attention", err <= NORM_REL_TOL["bf16"],
+          f"att {list(att.shape)} bf16 norm_rel_err={err:.3e} vs plain "
+          f"(tol {NORM_REL_TOL['bf16']:.0e})")
+    by_path = {"entry": {k: launches[k] for k in FLASH_NAMES["flat"]}}
+    del fn, model, images, q, k, v, logits, att, want
+    comps = entry_lib.compositions(ENTRY_DRYRUN_PROCESSES)
+    reference = {c.name: _one_process_loss(c) for c in comps}
+    torch.cuda.empty_cache()
+    results = dryrun.result()
+    pool.shutdown()
+    dryrun_s = time.perf_counter() - t0
+    for comp, r in zip(comps, results):
+        counts = [{k: c[k] for k in FLASH_NAMES["flat"]}
+                  for c in r["launches"]]
+        attention = comp.model != "resnet"
+        one = reference[comp.name]
+        rel = abs(r["loss"] - one) / abs(one)
+        rtol = DRYRUN_LOSS_RTOL["resnet" if comp.model == "resnet"
+                                else "llama"]
+        ok = (r["name"] == comp.name and math.isfinite(r["loss"])
+              and rel <= rtol
+              and all(all(c.values()) if attention else not any(c.values())
+                      for c in counts))
+        check(f"dryrun {r['name']}", ok,
+              f"mesh {r['mesh']} loss {r['loss']:.6f}, one process "
+              f"{one:.6f} (rel {rel:.2e}, tol {rtol:.0e}); rank 0 launches "
+              f"{counts[0]['flash_fwd']}/{counts[0]['flash_bwd_dq']}/"
+              f"{counts[0]['flash_bwd_dkv']}; sharded as planned "
+              f"{min(r['sharded'])}-{max(r['sharded'])} of "
+              f"{min(r['params'])}-{max(r['params'])} parameters a rank; "
+              f"rank 0 {r['seconds']:.2f} s")
+        by_path[f"entry dryrun {r['name']} rank 0"] = counts[0]
+    seconds = time.perf_counter() - t0
+    check("budget", seconds <= ENTRY_PHASE_BUDGET_S,
+          f"phase {seconds:.1f} s (the dryrun of {ENTRY_DRYRUN_PROCESSES} "
+          f"ranks {dryrun_s:.1f} s from the phase's start, entry() and the "
+          f"references beside it) on {card} (budget "
+          f"{ENTRY_PHASE_BUDGET_S:.0f} s)")
+    if failed:
+        raise AssertionError(f"entry checks failed: {failed}")
+    return by_path
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases",
                         default="kernels,model,train,moe,decode,"
                                 "decode_world,world,sp,tp,pp,operator,"
-                                "observe,kube,fleet,examples",
+                                "observe,kube,fleet,examples,entry",
                         help="comma-separated subset of kernels,model,train,"
                              "moe,decode,decode_world,world,sp,tp,pp,"
-                             "operator,observe,kube,fleet,examples and the "
-                             "opt-in profile and data")
+                             "operator,observe,kube,fleet,examples,entry "
+                             "and the opt-in profile and data")
     parser.add_argument("--world-child", default="", help=argparse.SUPPRESS)
     parser.add_argument("--image-check", default="", help=argparse.SUPPRESS)
     parser.add_argument("--gloo-probe", default="", help=argparse.SUPPRESS)
@@ -6000,6 +6232,8 @@ def main(argv=None) -> int:
                     {k: c[name] for k, c in by_path.items()})
         log(f"card: {card}; pp phase done in "
             f"{time.perf_counter() - t0:.1f} s")
+    # The last phase that runs a gang: hand their processes' memory back.
+    _stop_gangs()
     direct = None
     if "operator" in phases:
         torch.cuda.empty_cache()
@@ -6059,6 +6293,17 @@ def main(argv=None) -> int:
                 records[name].setdefault("launches_by_path", {})[
                     "examples seq2seq dp=8 rank 0"] = x_launches[name]
         log(f"card: {card}; examples phase done in "
+            f"{time.perf_counter() - t0:.1f} s")
+    if "entry" in phases:
+        torch.cuda.empty_cache()
+        free_card("the entry phase")
+        t0 = time.perf_counter()
+        by_path = run_entry(card)
+        for name in FLASH_NAMES["flat"]:
+            if name in records:
+                records[name].setdefault("launches_by_path", {}).update(
+                    {k: c[name] for k, c in by_path.items()})
+        log(f"card: {card}; entry phase done in "
             f"{time.perf_counter() - t0:.1f} s")
     if records:
         log(json.dumps({"kernels": list(records.values())}))

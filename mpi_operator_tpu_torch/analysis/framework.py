@@ -19,13 +19,19 @@ line-independent so unrelated edits shifting a legacy finding by a few
 lines do not resurrect it — with an occurrence count per key.  "New"
 findings are occurrences in excess of the baselined count; a shrunk
 count is progress, not drift (regenerate with ``--update-baseline``).
+
+Beside the registry it keeps the shared passes the rule modules walk:
+the call-graph fixpoints of lockcheck (TPU4xx) and the per-module call
+graph (:class:`ModuleGraph`, :func:`module_graph`) whose reachability the
+torch perf-correctness rules (TPU5xx, ``torchcheck``) follow from a step
+root; :data:`REQUIRED_RULE_FAMILIES` names the five families TPU0-TPU5.
 """
 
 from __future__ import annotations
 
 import ast
 import json
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, Iterable, Optional
 
@@ -194,6 +200,99 @@ def intersect_fixpoint(entry: dict, call_sites: dict) -> dict:
     return entry
 
 
+@dataclass
+class FunctionNode:
+    """One function/method/closure definition in a module call graph."""
+
+    name: str            # simple name
+    qualname: str        # dotted lexical path ("Cls.m", "make.step")
+    node: ast.AST        # the FunctionDef / AsyncFunctionDef
+    lineno: int
+    parent: Optional[str] = None   # enclosing def's qualname
+    in_loop: bool = False          # defined lexically inside for/while
+    calls: list = field(default_factory=list)  # (callee simple name, line)
+
+
+class ModuleGraph:
+    """Module-level call graph: every def (including closures and
+    methods) plus simple-name call edges.  Resolution is by simple name
+    — a heuristic vet, not a prover, matching lockcheck's contract."""
+
+    def __init__(self, sf: SourceFile):
+        self.sf = sf
+        self.functions: list[FunctionNode] = []
+        self.by_name: dict[str, list[FunctionNode]] = {}
+        if sf.tree is not None:
+            self._collect(sf.tree, parent=None, in_loop=False)
+
+    def _collect(self, node: ast.AST, parent: Optional[str],
+                 in_loop: bool) -> None:
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                qual = (f"{parent}.{child.name}" if parent else child.name)
+                fn = FunctionNode(
+                    child.name, qual, child, child.lineno, parent, in_loop)
+                fn.calls = self._direct_calls(child)
+                self.functions.append(fn)
+                self.by_name.setdefault(child.name, []).append(fn)
+                self._collect(child, parent=qual, in_loop=in_loop)
+            elif isinstance(child, ast.ClassDef):
+                self._collect(child, parent=child.name, in_loop=in_loop)
+            else:
+                looped = in_loop or isinstance(
+                    child, (ast.For, ast.AsyncFor, ast.While))
+                self._collect(child, parent=parent, in_loop=looped)
+
+    @staticmethod
+    def _direct_calls(fn_node: ast.AST) -> list:
+        """(simple callee name, lineno) pairs in this def's own body —
+        nested defs keep their calls (they are their own nodes)."""
+        out = []
+        stack = [c for c in ast.iter_child_nodes(fn_node)]
+        while stack:
+            node = stack.pop()
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                continue
+            if isinstance(node, ast.Call):
+                f = node.func
+                callee = (
+                    f.id if isinstance(f, ast.Name)
+                    else f.attr if isinstance(f, ast.Attribute) else None
+                )
+                if callee:
+                    out.append((callee, node.lineno))
+            stack.extend(ast.iter_child_nodes(node))
+        return out
+
+    def reachable(self, roots: Iterable[FunctionNode],
+                  stop: Optional[Callable[[FunctionNode], bool]] = None,
+                  ) -> list[FunctionNode]:
+        """Defs reachable from ``roots`` via simple-name call edges.
+        ``stop`` prunes traversal *through* a node (it is still
+        returned) — torchcheck stops at compiled boundaries, where implicit
+        host transfers cannot hide."""
+        seen: dict[str, FunctionNode] = {}
+        frontier = list(roots)
+        while frontier:
+            fn = frontier.pop()
+            if fn.qualname in seen:
+                continue
+            seen[fn.qualname] = fn
+            if stop is not None and stop(fn):
+                continue
+            for callee, _ in fn.calls:
+                frontier.extend(self.by_name.get(callee, ()))
+        return sorted(seen.values(), key=lambda f: f.lineno)
+
+
+def module_graph(sf: SourceFile) -> ModuleGraph:
+    """The (cached) call graph of one source file."""
+    cached = getattr(sf, "_module_graph", None)
+    if cached is None:
+        cached = sf._module_graph = ModuleGraph(sf)
+    return cached
+
+
 @dataclass(frozen=True)
 class Rule:
     id: str
@@ -224,13 +323,14 @@ REQUIRED_RULE_FAMILIES = {
     "TPU2": "hygiene",
     "TPU3": "sole-writer",
     "TPU4": "lock discipline",
+    "TPU5": "torch perf-correctness",
 }
 
 
 def all_rules() -> list[Rule]:
     """Every registered rule, importing the rule modules on first use."""
     # Importing the rule modules registers their rules.
-    from . import lockcheck, rules  # noqa: F401
+    from . import lockcheck, rules, torchcheck  # noqa: F401
     return [_RULES[k] for k in sorted(_RULES)]
 
 

@@ -7,6 +7,7 @@ Usage:
     python -m mpi_operator_tpu_torch.cmd.analyze --format json
     python -m mpi_operator_tpu_torch.cmd.analyze --fail-on-new
     python -m mpi_operator_tpu_torch.cmd.analyze --select TPU4
+    python -m mpi_operator_tpu_torch.cmd.analyze --select TPU5   # torch perf
     python -m mpi_operator_tpu_torch.cmd.analyze --update-baseline
     python -m mpi_operator_tpu_torch.cmd.analyze --list-rules
 

@@ -1152,9 +1152,9 @@ def main(argv=None) -> int:
             _stop_profiler(profiler, device, args.profile_dir, cfg.process_id)
             profiler = None
         if args.log_every and step % args.log_every == 0:
-            # The log cadence is the explicit sync point: .item() waits
+            # The log cadence is the explicit sync point: the read waits
             # for the step, so the ms/step below measures completed work.
-            loss_val = float(_global_mean(loss))
+            loss_val = torchtrace.host_read(_global_mean(loss))
             if t_log is not None and step > last_log_step:
                 now = time.perf_counter()
                 ms = (now - t_log) / (step - last_log_step) * 1000

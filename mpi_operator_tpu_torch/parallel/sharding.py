@@ -167,7 +167,14 @@ def shard_params(model: torch.nn.Module, mesh: Mesh, *,
         parallelize_module(model, mesh.submesh(TP), plan)
     if mesh.axis_size(FSDP) > 1:
         from torch.distributed.fsdp import fully_shard
+        from torch.distributed.tensor import DTensor
 
+        # FSDP2 shards contiguous parameters only: a channels_last conv
+        # kernel (ResNet's) takes the default layout back first; its
+        # convolutions still read channels_last activations.
+        for p in model.parameters():
+            if not isinstance(p, DTensor) and not p.is_contiguous():
+                p.data = p.data.contiguous()
         # The ep x tp meshes of the experts and the plan are children of
         # the same DeviceMesh as this one, as FSDP2 requires of a DTensor
         # parameter; where the experts' dim 0 is already split over ep,

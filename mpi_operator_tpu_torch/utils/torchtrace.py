@@ -211,6 +211,16 @@ def note_step() -> None:
         t.note_step()
 
 
+def host_read(x):
+    """The explicit device-to-host read of a step boundary: tensor ``x``
+    as a Python number (a 0-d tensor) or nested list, ``x.tolist()``. It
+    waits for the queued work that produces ``x``, as ``float(x)`` would;
+    spelling it so marks the sync as meant, and the static checker's
+    host-sync rules (``analysis/torchcheck.py``, TPU503 and TPU506)
+    exempt it. When tracing is on it is counted as any ``.tolist()``."""
+    return x.tolist()
+
+
 def _on_kernel_load(kind: str, name: str, seconds: float) -> None:
     t = _tracer
     if t is not None:

@@ -1,5 +1,6 @@
 """The port's static analyzer (``mpi_operator_tpu_torch/analysis``, rule
-families TPU0–TPU4) and its gate.
+families TPU0–TPU5) and its gate; the TPU5 family's own cases are in
+``tests/test_torch_torchcheck.py``.
 
 - The gate: the port package and ``chip_smoke.py`` have no finding
   beyond ``analysis/baseline.json``, the baseline holds nothing stale,
@@ -95,19 +96,29 @@ def test_analyze_cli_json_is_clean():
     assert doc["baselined"] == 1
     assert doc["files"] > 100
     assert "TPU402" in doc["rules"]
-    assert not [r for r in doc["rules"] if r.startswith("TPU5")]
+    assert [r for r in doc["rules"] if r.startswith("TPU5")] == [
+        f"TPU50{i}" for i in range(1, 8)]
 
 
 def test_rule_catalog_is_the_jax_catalog_without_tpu5():
-    """The same IDs, names and descriptions, the package paths renamed."""
+    """TPU0-TPU4: the same IDs, names and descriptions, the package paths
+    renamed. TPU5 (``analysis/torchcheck.py``): JAX's IDs, with their
+    torch descriptions. Five required families."""
     ours = [(r.id, r.name, _jax_paths(r.description))
-            for r in framework.all_rules()]
+            for r in framework.all_rules()
+            if r.id.startswith(tuple(FAMILIES))]
     theirs = [(r.id, r.name, r.description)
               for r in jax_framework.all_rules()
               if r.id.startswith(tuple(FAMILIES))]
     assert ours == theirs
+    tpu5 = [r for r in framework.all_rules() if r.id.startswith("TPU5")]
+    jax5 = [r for r in jax_framework.all_rules() if r.id.startswith("TPU5")]
+    assert [r.id for r in tpu5] == [r.id for r in jax5]
+    for r in tpu5:
+        assert "jax" not in r.description.lower() and "pallas" not in (
+            r.description.lower()), r.id
     assert framework.missing_rule_families() == []
-    assert sorted(framework.REQUIRED_RULE_FAMILIES) == FAMILIES
+    assert sorted(framework.REQUIRED_RULE_FAMILIES) == [*FAMILIES, "TPU5"]
     assert framework.LEGACY_ALIASES == jax_framework.LEGACY_ALIASES
 
 

@@ -40,6 +40,7 @@ def test_port_has_modules():
     assert "mpi_operator_tpu_torch/ops/ulysses.py" in FILES
     assert "mpi_operator_tpu_torch/parallel/pipeline.py" in FILES
     assert "mpi_operator_tpu_torch/models/llama_pp.py" in FILES
+    assert "mpi_operator_tpu_torch/entry.py" in FILES
 
 
 def test_the_pipeline_modules_import_and_nothing_waits_for_item_16():
@@ -96,7 +97,9 @@ CONTROL_PLANE = (
     "mpi_operator_tpu_torch.analysis.framework",
     "mpi_operator_tpu_torch.analysis.rules",
     "mpi_operator_tpu_torch.analysis.lockcheck",
+    "mpi_operator_tpu_torch.analysis.torchcheck",
     "mpi_operator_tpu_torch.cmd.analyze",
+    "mpi_operator_tpu_torch.utils.env",
 )
 
 
