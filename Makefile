@@ -68,8 +68,8 @@ image:
 
 # The PyTorch/CUDA port's images (mpi_operator_tpu_torch/build/): the
 # operator, the worker (its kernels built for sm_90a during the build)
-# and pi on the worker, from the repo root; then the operator image's
-# import of its control plane.
+# and pi on the worker, from the repo root, each stamped with the commit;
+# then the operator image's import of its control plane and its version.
 TORCH_IMAGES := operator:tpu-job-operator/gpu-operator:latest \
     worker:tpu-job-operator/gpu-worker:latest \
     pi:tpu-job-operator/examples:pi-torch
@@ -77,13 +77,15 @@ image-torch:
 	@runtime=$$(command -v docker || command -v podman); \
 	if [ -z "$$runtime" ]; then \
 	    echo "no container runtime in this image"; exit 0; fi; \
+	sha=$$(git rev-parse --short HEAD 2>/dev/null || echo unknown); \
 	for spec in $(TORCH_IMAGES); do \
 	    dir=$${spec%%:*}; tag=$${spec#*:}; \
-	    $$runtime build -t $$tag \
+	    $$runtime build -t $$tag --build-arg GIT_SHA=$$sha \
 	        -f mpi_operator_tpu_torch/build/$$dir/Dockerfile . || exit 1; \
 	done; \
 	$$runtime run --rm --entrypoint python tpu-job-operator/gpu-operator:latest \
-	    -c "import mpi_operator_tpu_torch.cmd.operator; print('image import OK')"
+	    -c "import mpi_operator_tpu_torch.cmd.operator; print('image import OK')" && \
+	$$runtime run --rm tpu-job-operator/gpu-operator:latest --version
 
 # Test tiers (SURVEY.md §4): unit, integration (in-memory apiserver +
 # envtest-style HTTP kube backend), e2e (real subprocess workers doing

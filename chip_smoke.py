@@ -22,13 +22,17 @@ Phases, in order:
      non-causal; timed at both), and in f32 and bf16 a padded GQA shape
      (S=200), a masked-row shape (Sq > Sk, causal) and, for the
      [B*H, S, D] kernels, an id-masked shape with rows that see nothing
-     (their out, lse and dq must be exactly 0, -1e30 and 0), in both
-     layouts; the flat kernels with the ids of the sp phase's ring hops
-     (q [1, 4096, 32*128], kv [1, 4096, 8*128], bf16: the zigzag ring's
-     four (rank, hop) pairs on sp=2 over S=8192, and the contiguous
-     ring's hop in which no row sees any column), three of them timed
-     beside the same kernel without ids (every tile visited either way)
-     and beside SDPA under the ids' mask; the lse cotangent's backward
+     (their out, lse and dq must be exactly 0, -1e30 and 0) and an
+     unsorted-id shape (shuffled blocks, +-2^30 padding ids, ragged
+     tiles, every tile class at every tiling), in both layouts, each id
+     shape's dead/mixed/full tile pairs logged (``tile_classes``); the
+     flat kernels with the ids of the sp phase's ring hops (q [1, 4096,
+     32*128], kv [1, 4096, 8*128], bf16: the zigzag ring's four (rank,
+     hop) pairs on sp=2 over S=8192, and the contiguous ring's hops in
+     which no row sees any column, the causal diagonal and every pair
+     visible), each timed beside the same kernel without ids, from a
+     CUDA graph (device time alone) and beside SDPA under the ids'
+     mask; the lse cotangent's backward
      (``flash_attention_bshd_lse`` at a zigzag hop) against the plain
      versions with delta less the cotangent; bf16 also at
      head dims 80 and 32, which run on the tensor-core bodies' next
@@ -296,7 +300,12 @@ Phases, in order:
 19. ``data`` (opt-in, ``--phases data``): the cost of ``--data`` on the
    step, as a same-call A/B: the Llama and the BERT-base train runs
    synthetic and on a token file in turns (S D D S, four times), 10 steps
-   each, with every run's step_ms and each side's median.
+   each, with every run's step_ms and each side's median;
+20. ``kernels_ab`` (opt-in, ``--phases kernels_ab --ab-parent DIR``): the
+   flash kernels of this checkout against those built from the checkout
+   at DIR (its own ``_build/``), in this process on the same inputs at
+   AB_SHAPES: shapes without ids must give bit-identical outputs, and
+   each kernel is timed DIR's, this, this, DIR's.
 
 Any failure raises and exits non-zero. The second-to-last line is the
 ``{"kernels": [...]}`` record; the last is
@@ -526,24 +535,30 @@ def max_abs(got, want) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
-def bound(kind: str, shape: dict, dtype_name: str, pairs: int):
+def bound(kind: str, shape: dict, dtype_name: str, pairs: int,
+          rows: int = -1, cols: int = -1):
     """(bound_ms, bound_by): the larger of the operations at the card's
     peak for the type and the bytes (each input read once, each output
     written once) at its memory rate. ``pairs`` counts the visible
-    (query, key) pairs of one head of these inputs."""
+    (query, key) pairs of one head of these inputs; ``rows`` and ``cols``
+    the q rows that see some column and the columns some row sees (all
+    by default): only their inputs need reading."""
     b, sq, sk = shape["b"], shape["sq"], shape["sk"]
     h, hkv, d = shape["h"], shape["hkv"], shape["d"]
+    rows, cols = (sq if rows < 0 else rows), (sk if cols < 0 else cols)
     es = 2 if dtype_name == "bf16" else 4
     q_bytes, kv_bytes = b * sq * h * d * es, b * sk * hkv * d * es
     stat_bytes = b * sq * h * 4
+    q_in, kv_in = q_bytes * rows / sq, kv_bytes * cols / sk
+    stat_in = stat_bytes * rows / sq
     macs_per_pair = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
     flops = 2 * macs_per_pair * d * pairs * b * h
     if kind == "fwd":   # q, k, v in; out, lse out
-        nbytes = 2 * q_bytes + 2 * kv_bytes + stat_bytes
+        nbytes = q_in + 2 * kv_in + q_bytes + stat_bytes
     elif kind == "dq":  # q, k, v, do, lse, delta in; dq out
-        nbytes = 3 * q_bytes + 2 * kv_bytes + 2 * stat_bytes
+        nbytes = 2 * q_in + 2 * kv_in + 2 * stat_in + q_bytes
     else:               # q, k, v, do, lse, delta in; dk, dv out
-        nbytes = 2 * q_bytes + 4 * kv_bytes + 2 * stat_bytes
+        nbytes = 2 * q_in + 2 * kv_in + 2 * stat_in + 2 * kv_bytes
     t_ops = flops / PEAK_FLOPS[dtype_name]
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
@@ -596,14 +611,25 @@ FLASH_SHAPES = [
                        causal=False), ("flat",)),
     ("s2s-dec", dict(b=16, sq=256, sk=256, h=8, hkv=8, d=64, dtype="bf16",
                      causal=True), ("flat",)),
+    # Unsorted ids (_shape_ids "random"): each 64 rows or columns a
+    # shuffled block, the last three +-2^30 padding ids, rows that see
+    # nothing, ragged tiles (330 and 190 rows), so every tile class
+    # appears at every tiling the bodies use.
+    ("id-random", dict(b=2, sq=330, sk=190, h=4, hkv=2, d=64, dtype="f32",
+                       causal=False, ids="random", dead="some"),
+     ("flat", "bhsd")),
+    ("id-random-bf16", dict(b=2, sq=330, sk=190, h=4, hkv=2, d=64,
+                            dtype="bf16", causal=False, ids="random",
+                            dead="some"), ("flat", "bhsd")),
 ]
 # The ring's hops in the sp phase's llama3-8b run (S=8192 on sp=2: q
 # [1, 4096, 32*128], kv [1, 4096, 8*128], bf16), each with its (layout,
 # rank, the k/v shard's rank) ids: the zigzag ring's four (rank, hop)
 # pairs (rank 0 holds chunks 0 and 3 of 4, rank 1 chunks 1 and 2: only
 # rank 0's chunk 0 on rank 1's shard sees nothing), and the contiguous
-# ring's rank 0 on rank 1's shard, where no row sees any column (out 0,
-# lse -1e30 and dq 0 exactly).
+# ring's three kinds of hop: rank 0 on rank 1's shard, where no row sees
+# any column (out 0, lse -1e30 and dq 0 exactly), rank 1 on its own shard
+# (the causal diagonal) and rank 1 on rank 0's (every pair visible).
 SP_HOP = dict(b=1, sq=4096, sk=4096, h=32, hkv=8, d=128, dtype="bf16",
               causal=False)
 SP_HOP_SEQ, SP_HOP_RANKS = 8192, 2
@@ -613,11 +639,18 @@ FLASH_SHAPES += [
           dead="some" if (rank, src) == (0, 1) else None), ("flat",))
     for rank in range(SP_HOP_RANKS) for src in range(SP_HOP_RANKS)
 ] + [("sp-contig-dead", dict(SP_HOP, ids=("contiguous", 0, 1), dead="all"),
-      ("flat",))]
+      ("flat",)),
+      ("sp-contig-diag", dict(SP_HOP, ids=("contiguous", 1, 1)), ("flat",)),
+      ("sp-contig-full", dict(SP_HOP, ids=("contiguous", 1, 0)), ("flat",))]
 # The shapes timed (kernel, plain version, SDPA) besides being checked;
-# a shape with ids is also timed without them (every tile visited).
-TIMED_SHAPES = ("llama", "bert", "vit", "s2s-cross", "sp-zigzag-r0-s0",
-                "sp-zigzag-r0-s1", "sp-contig-dead")
+# a shape with ids is also timed without them (noid_ms: no mask, every
+# tile visited).
+TIMED_SHAPES = ("llama", "bert", "vit", "s2s-cross") + tuple(
+    label for label, _, _ in FLASH_SHAPES if label.startswith("sp-"))
+# The tilings the bodies classify ids on: (q rows, k rows) of the bf16
+# forward and dq, the bf16 dk/dv, and the f32 bodies.
+ID_TILINGS = {"fwd/dq bf16": (128, 64), "dkv bf16": (64, 128),
+              "f32": (64, 64)}
 FLASH_NAMES = {
     "flat": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
     "bhsd": ("flash_bhsd_fwd", "flash_bhsd_bwd_dq", "flash_bhsd_bwd_dkv"),
@@ -628,11 +661,27 @@ FLASH_NAMES = {
 FLASH_RECORD_SHAPE = {"flat": "llama", "bhsd": "bert"}
 
 
-def _shape_ids(spec):
+def _random_ids(n: int, offset: int, pad: int, seed: int):
+    """n int32 ids: block i of 64 positions holds i * 1000 + offset + 10
+    * (a shuffle of 0..63), unsorted within a block and ordered across
+    blocks; the last three are ``pad``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.cat([i * 1000 + offset + 10 * torch.randperm(64, generator=gen)
+                     for i in range((n + 63) // 64)])[:n]
+    ids[-3:] = pad
+    return ids.to(torch.int32)
+
+
+def _shape_ids(spec, sq: int = 0, sk: int = 0):
     """(row_ids, col_ids) on the card for a FLASH_SHAPES ``ids`` entry:
-    "chunks" (two chunks each, q rows 16..39 seeing no column), or a
-    ring hop (layout, rank, the k/v shard's rank) of SP_HOP_RANKS ranks
-    over SP_HOP_SEQ positions; (None, None) without."""
+    "chunks" (two chunks each, q rows 16..39 seeing no column); "random"
+    (_random_ids over sq rows from 0 padded with -2^30 and sk columns
+    from 5 padded with +2^30: a row block sees the earlier column blocks
+    whole and its own in part; the rows of id 0 or -2^30 see nothing);
+    or a ring hop (layout, rank, the k/v shard's rank) of SP_HOP_RANKS
+    ranks over SP_HOP_SEQ positions; (None, None) without."""
     import torch
 
     from mpi_operator_tpu_torch.ops import ring_attention as ring
@@ -643,10 +692,35 @@ def _shape_ids(spec):
         row = torch.cat([torch.arange(16, 64), torch.arange(160, 208)])
         col = torch.cat([torch.arange(40, 80), torch.arange(120, 160)])
         return row.to("cuda", torch.int32), col.to("cuda", torch.int32)
+    if spec == "random":
+        pad = 2 ** 30
+        return (_random_ids(sq, 0, -pad, 11).to("cuda"),
+                _random_ids(sk, 5, pad, 12).to("cuda"))
     layout, rank, src = spec
     s_loc, zigzag = SP_HOP_SEQ // SP_HOP_RANKS, layout == "zigzag"
     return tuple(ring._shard_ids(i, SP_HOP_RANKS, s_loc, zigzag, "cuda")
                  for i in (rank, src))
+
+
+def _flash_draw(s: dict, gen) -> tuple:
+    """(q, k, v, do) of a FLASH_SHAPES shape in [B, H, S, D], drawn on
+    the card from ``gen`` in the shape's type."""
+    import torch
+
+    dtype = torch.bfloat16 if s["dtype"] == "bf16" else torch.float32
+    b, sq, sk, h, hkv, d = (s[k] for k in ("b", "sq", "sk", "h", "hkv", "d"))
+    return tuple(torch.randn(b, n, ln, d, generator=gen, device="cuda")
+                 .to(dtype) for n, ln in
+                 ((h, sq), (hkv, sk), (hkv, sk), (h, sq)))
+
+
+def _in_layout(ts, layout: str) -> list:
+    """[B, H, S, D] operands in ``layout``: flat [B, S, H*D] (copied) or
+    [B*H, S, D] (viewed)."""
+    if layout == "flat":
+        return [t.transpose(1, 2).reshape(t.shape[0], t.shape[2], -1)
+                .contiguous() for t in ts]
+    return [t.reshape(-1, *t.shape[2:]) for t in ts]
 
 
 def _flash_calls(attn, layout: str, h: int, scale: float, causal: bool,
@@ -671,8 +745,8 @@ def _flash_calls(attn, layout: str, h: int, scale: float, causal: bool,
 
 
 def _kernel_name(mangled: str) -> str:
-    """``flash::fwd_kernel_tc<64>`` from its mangled name (as far as the
-    names here need), else the mangled name."""
+    """``flash::fwd_kernel_tc<64, true>`` from its mangled name (as far as
+    the names here need), else the mangled name."""
     m = re.match(r"_ZN(\d+)(\w+)", mangled)
     if not m:
         return mangled
@@ -683,13 +757,14 @@ def _kernel_name(mangled: str) -> str:
         return mangled
     n = int(m.group(1))
     name, rest = m.group(2)[:n], m.group(2)[n:]
-    arg = re.match(r"ILi(\d+)E", rest)
+    # Template arguments: a head dim or an element type, then the IDS
+    # flag where the kernel has one.
+    arg = re.match(r"I(?:Li(\d+)E|(f)|(13__nv_bfloat16))(?:Lb([01])E)?E", rest)
     if arg:
-        name += f"<{arg.group(1)}>"
-    elif rest.startswith("IfE"):
-        name += "<float>"
-    elif rest.startswith("I13__nv_bfloat16E"):
-        name += "<bf16>"
+        first = arg.group(1) or ("float" if arg.group(2) else "bf16")
+        if arg.group(4) is not None:
+            first += ", true" if arg.group(4) == "1" else ", false"
+        name += f"<{first}>"
     return f"{ns}::{name}"
 
 
@@ -733,17 +808,21 @@ def sass_tensor_ops(name: str) -> dict:
 
 
 # The tensor-core body of each flash kernel's library (bf16), each
-# instantiated at the head dims 64 and 128.
+# instantiated at the head dims 64 and 128, without and with ids
+# (<DP, IDS>).
 TC_BODIES = ("flash::fwd_kernel_tc", "flash::bwd_dq_kernel_tc",
              "flash::bwd_dkv_kernel_tc")
 TC_HEAD_DIMS = (64, 128)
+TC_INSTANCES = sorted(f"{d}, {ids}" for d in TC_HEAD_DIMS
+                      for ids in ("false", "true"))
 
 
 def check_build() -> None:
     """Per kernel: registers and spills (ptxas) and tensor-core
     instructions (SASS). Fails if a flash kernel spills, a flash library
-    lacks a tensor-core body at one of TC_HEAD_DIMS, or a tensor-core body
-    issues no wgmma."""
+    lacks a tensor-core body at one of TC_INSTANCES (each head dim of
+    TC_HEAD_DIMS, without and with ids), or a tensor-core body issues no
+    wgmma."""
     from mpi_operator_tpu_torch.ops import _build
 
     failed = []
@@ -760,10 +839,10 @@ def check_build() -> None:
                 failed.append(f"{kernel} issues no wgmma")
         bodies = sorted(kernel for kernel, _, _ in report
                         if kernel.startswith(TC_BODIES))
-        dims = sorted(int(k[k.index("<") + 1:-1]) for k in bodies)
-        if name.startswith("flash") and dims != list(TC_HEAD_DIMS):
+        instances = sorted(k[k.index("<") + 1:-1] for k in bodies)
+        if name.startswith("flash") and instances != TC_INSTANCES:
             failed.append(f"{name} holds tensor-core bodies {bodies}, "
-                          f"want one at each head dim of {TC_HEAD_DIMS}")
+                          f"want one at each of {TC_INSTANCES}")
     if failed:
         raise AssertionError("kernel build checks failed: " + "; ".join(failed))
 
@@ -781,17 +860,21 @@ def check_kernels() -> dict:
     timed = {}  # (kernel name, shape label) -> record
     gen = torch.Generator(device="cuda").manual_seed(0)
     for label, s, layouts in FLASH_SHAPES:
-        dtype = torch.bfloat16 if s["dtype"] == "bf16" else torch.float32
-        b, sq, sk, h, hkv, d = (s[k] for k in ("b", "sq", "sk", "h", "hkv", "d"))
+        sq, sk, h, d = (s[k] for k in ("sq", "sk", "h", "d"))
         causal, scale = s["causal"], d ** -0.5
-        ids = _shape_ids(s.get("ids"))
+        ids = _shape_ids(s.get("ids"), sq, sk)
+        if ids[0] is not None:
+            # The plain classifier's dead / mixed / full tile pairs at
+            # each tiling the bodies walk these ids on.
+            counts = {}
+            for tiling, (tq, tk) in ID_TILINGS.items():
+                cls = attn.tile_classes(*ids, sq, sk, tq, tk)
+                counts[tiling] = [int((cls == c).sum()) for c in (
+                    attn.TILE_DEAD, attn.TILE_MIXED, attn.TILE_FULL)]
+            log(f"kernel tiles [{label}] dead/mixed/full: "
+                + json.dumps(counts))
 
-        def rand(*shape):
-            return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
-
-        # One draw in [B, H, S, D]; each layout views or copies it.
-        q4, k4, v4, do4 = (rand(b, n, ln, d) for n, ln in
-                           ((h, sq), (hkv, sk), (hkv, sk), (h, sq)))
+        q4, k4, v4, do4 = _flash_draw(s, gen)
         lib_ms = None
         if label in TIMED_SHAPES:
             # SDPA on the same function: the ids' mask when there are ids.
@@ -799,11 +882,7 @@ def check_kernels() -> dict:
                     ids[1][None, :] <= ids[0][:, None])
             lib_ms = _sdpa_ms(q4, k4, v4, do4, causal, mask)
         for layout in layouts:
-            if layout == "flat":
-                ops = [t.transpose(1, 2).reshape(b, t.shape[2], -1).contiguous()
-                       for t in (q4, k4, v4, do4)]
-            else:
-                ops = [t.reshape(-1, t.shape[2], d) for t in (q4, k4, v4, do4)]
+            ops = _in_layout((q4, k4, v4, do4), layout)
             qx, kx, vx, dox = ops
             kernels, plains = _flash_calls(attn, layout, h, scale, causal, ids)
             out, lse = kernels[0](qx, kx, vx)
@@ -849,14 +928,18 @@ def check_kernels() -> dict:
             if lib_ms is None:
                 continue
             # The work these inputs need: their visible pairs.
-            pairs = int(attn._mask(qx, kx, causal, *ids).sum())
+            mask = attn._mask(qx, kx, causal, *ids)
+            pairs, rows, cols = (int(mask.sum()), int(mask.any(1).sum()),
+                                 int(mask.any(0).sum()))
+            del mask
             noid = (_flash_calls(attn, layout, h, scale, causal,
                                  (None, None))[0]
                     if ids[0] is not None else None)
             for i, (name, kind) in enumerate(zip(FLASH_NAMES[layout],
                                                  ("fwd", "dq", "dkv"))):
                 args = (qx, kx, vx) if i == 0 else bwd_args
-                bound_ms, bound_by = bound(kind, s, s["dtype"], pairs)
+                bound_ms, bound_by = bound(kind, s, s["dtype"], pairs, rows,
+                                           cols)
                 rec = {
                     "ms": time_ms(lambda: kernels[i](*args), 2, 10),
                     "plain_ms": time_ms(lambda: plains[i](*args), 1, 3),
@@ -865,12 +948,16 @@ def check_kernels() -> dict:
                     "max_abs_err": errs[i][0], "norm_rel_err": errs[i][1],
                 }
                 if noid is not None:
-                    # The same kernel without ids (no mask) at this shape.
+                    # The same kernel without ids (no mask) at this shape,
+                    # and the id kernel's device time alone (ten launches
+                    # replayed from a CUDA graph: no host dispatch).
                     rec["noid_ms"] = time_ms(lambda: noid[i](*args), 2, 10)
+                    rec["graph_ms"] = _graph_ms(lambda: kernels[i](*args))
                 timed[name, label] = rec
                 log(f"kernel {name} [{label}] timing: " + json.dumps(
                     {k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms", "noid_ms")
+                                         "bound_by", "library_ms", "noid_ms",
+                                         "graph_ms")
                      if k in rec}))
             # The backward pair as the autograd backward runs it, against
             # SDPA's whole backward (dq, dk and dv in one call).
@@ -919,6 +1006,13 @@ def check_kernels() -> dict:
         "bert", name="flash_fwd_d64")
     torch.cuda.empty_cache()
     return records
+
+
+def _graph_ms(fn, launches: int = 10) -> float:
+    """Device ms a call of ``fn``: ``launches`` calls captured in one CUDA
+    graph (_captured), the replay timed by CUDA events."""
+    graph = _captured(lambda: [fn() for _ in range(launches)])
+    return time_ms(graph.replay, 1, 5) / launches
 
 
 def _kernel_record(kernel: str, replaces: str, rec: dict, shape: str,
@@ -997,6 +1091,107 @@ def check_lse_cotangent() -> None:
     if not ok:
         raise AssertionError("the lse cotangent's backward disagrees with "
                              "its plain version")
+
+
+# Phase kernels_ab (opt-in): the flash kernels of this checkout against
+# those of another (its parent, unpacked by the caller), on the same
+# inputs in one process. No-id shapes must give bit-identical outputs; the
+# id shapes' differences are printed. Each kernel is timed parent, this,
+# this, parent.
+AB_SHAPES = ("llama", "bert", "padded-gqa", "masked-rows-bf16", "vit",
+             "s2s-cross", "id-masked-bf16", "id-random", "id-random-bf16",
+             "sp-zigzag-r0-s0", "sp-zigzag-r0-s1", "sp-zigzag-r1-s0",
+             "sp-zigzag-r1-s1", "sp-contig-dead", "sp-contig-diag",
+             "sp-contig-full")
+
+
+def _checkout_kernels(root: Path) -> dict:
+    """The flash entry points of the libraries built (by its own
+    ``_build.build``, into its own ``_build/``) from the checkout at
+    ``root``, loaded with this checkout's argument types."""
+    import ctypes
+
+    from mpi_operator_tpu_torch.ops import _build
+
+    names = [n for n in _build.KERNELS if n.startswith("flash")]
+    code = ("import json\nfrom mpi_operator_tpu_torch.ops import _build\n"
+            f"_build.build({names!r})\n"
+            f"print(json.dumps({{n: str(_build.library_path(n)) "
+            f"for n in {names!r}}}))")
+    import os
+
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
+                         env={**os.environ, "PYTHONPATH": str(root)},
+                         capture_output=True, text=True, timeout=600).stdout
+    fns = {}
+    for name, path in json.loads(out.strip().splitlines()[-1]).items():
+        fn = getattr(ctypes.CDLL(path), name)
+        fn.argtypes = _build.KERNELS[name][1]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def ab_flash_kernels(parent: Path) -> None:
+    """Phase kernels_ab: see AB_SHAPES."""
+    import torch
+
+    from mpi_operator_tpu_torch.ops import _build
+    from mpi_operator_tpu_torch.ops import attention as attn
+
+    names = [n for n in _build.KERNELS if n.startswith("flash")]
+    mine = {n: _build.kernel(n) for n in names}
+    theirs = _checkout_kernels(parent)
+    shapes = {label: (s, layouts) for label, s, layouts in FLASH_SHAPES}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    failed = []
+    try:
+        for label in AB_SHAPES:
+            s, layouts = shapes[label]
+            d, h = s["d"], s["h"]
+            ids = _shape_ids(s.get("ids"), s["sq"], s["sk"])
+            drawn = _flash_draw(s, gen)
+            for layout in layouts:
+                qx, kx, vx, dox = _in_layout(drawn, layout)
+                kernels = _flash_calls(attn, layout, h, d ** -0.5,
+                                       s["causal"], ids)[0]
+                _build._entry_points.update(mine)
+                out, lse = kernels[0](qx, kx, vx)
+                delta = (dox.float() * out.float()).reshape(
+                    *lse.shape, d).sum(-1)
+                args = [(qx, kx, vx), (qx, kx, vx, dox, lse, delta)]
+                args.append(args[1])
+                outs, ms = {}, {"parent": [], "this": []}
+                for side, fns in (("parent", theirs), ("this", mine),
+                                  ("this", mine), ("parent", theirs)):
+                    _build._entry_points.update(fns)
+                    got = [kernels[i](*args[i]) for i in range(3)]
+                    torch.cuda.synchronize()
+                    outs.setdefault(side, [t for r in got for t in
+                                           (r if isinstance(r, tuple)
+                                            else (r,))])
+                    ms[side].append([time_ms(lambda: kernels[i](*args[i]),
+                                             2, 10) for i in range(3)])
+                diffs = [int((a != b).sum()) for a, b in
+                         zip(outs["parent"], outs["this"])]
+                same = not any(diffs)
+                log(f"kernels_ab {layout} [{label}]: outputs (out, lse, dq, "
+                    f"dk, dv) differing elements {diffs} -> "
+                    f"{'bit-identical' if same else 'DIFFER'}; ms "
+                    + json.dumps({side: {n: [round(t[i], 4) for t in ts]
+                                         for i, n in enumerate(
+                                             FLASH_NAMES[layout])}
+                                  for side, ts in ms.items()}))
+                if ids[0] is None and not same:
+                    failed.append(f"{layout} {label}")
+                del outs, args, out, lse, delta, qx, kx, vx, dox
+            del drawn
+            torch.cuda.empty_cache()
+    finally:
+        _build._entry_points.update(mine)
+    if failed:
+        raise AssertionError("kernels without ids differ from the parent's: "
+                             + ", ".join(failed))
 
 
 def check_bn_kernels() -> dict:
@@ -6037,7 +6232,10 @@ def main(argv=None) -> int:
                         help="comma-separated subset of kernels,model,train,"
                              "moe,decode,decode_world,world,sp,tp,pp,"
                              "operator,observe,kube,fleet,examples,entry "
-                             "and the opt-in profile and data")
+                             "and the opt-in profile, data and kernels_ab "
+                             "(with --ab-parent)")
+    parser.add_argument("--ab-parent", default="",
+                        help="the opt-in kernels_ab phase's other checkout")
     parser.add_argument("--world-child", default="", help=argparse.SUPPRESS)
     parser.add_argument("--image-check", default="", help=argparse.SUPPRESS)
     parser.add_argument("--gloo-probe", default="", help=argparse.SUPPRESS)
@@ -6100,6 +6298,8 @@ def main(argv=None) -> int:
                                 seq2seq.loss_fn)
     if "data" in phases:
         ab_data_step()
+    if "kernels_ab" in phases:
+        ab_flash_kernels(Path(args.ab_parent))
     if "train" in phases:
         t_train = time.perf_counter()
         # Each main path's own run gives its kernels' launch counts.

@@ -12,8 +12,8 @@
 //
 // Design: the body is the flat kernel's (flash_bwd_dkv.cuh): one block per
 // (k tile, kv row b*Hkv + hk), looping inside the block over the groups q
-// rows that share it, with no atomics and no expanded kv. With ids, every
-// q tile is visited.
+// rows that share it, with no atomics and no expanded kv. With ids, only
+// live q tiles are visited (flash_common.cuh:live_tiles).
 #include "flash_bwd_dkv.cuh"
 
 // q/dout [BH, q_len, D], k/v/dk/dv [BHkv, kv_len, D] (bf16 when is_bf16,

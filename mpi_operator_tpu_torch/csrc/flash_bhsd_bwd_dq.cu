@@ -11,7 +11,8 @@
 //
 // Design: the body is the flat kernel's (flash_bwd_dq.cuh), reading these
 // operands by strides, GQA by index; delta = rowsum(do * o) - dlse comes
-// from the wrapper as f32 [BH, Sq]. With ids, every k tile is visited.
+// from the wrapper as f32 [BH, Sq]. With ids, only live k tiles are
+// visited (flash_common.cuh:live_tiles).
 #include "flash_bwd_dq.cuh"
 
 // q/dout/dq [BH, q_len, D], k/v [BHkv, kv_len, D] (bf16 when is_bf16, else

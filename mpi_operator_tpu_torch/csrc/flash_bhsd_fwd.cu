@@ -13,7 +13,8 @@
 // Design: the body is the flat kernel's (flash_fwd.cuh), reading these
 // operands by strides: q row b*H + h reads kv row (b*H + h) / groups, never
 // an expanded kv. With ids, a pair is visible iff col_ids[col] <=
-// row_ids[row] and every k tile is visited.
+// row_ids[row], and only live k tiles are visited
+// (flash_common.cuh:live_tiles).
 #include "flash_fwd.cuh"
 
 // q/out [BH, q_len, D], k/v [BHkv, kv_len, D] (bf16 when is_bf16, else

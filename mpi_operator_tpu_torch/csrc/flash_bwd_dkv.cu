@@ -10,7 +10,7 @@
 //
 // Design: the body (flash_bwd_dkv.cuh) reads the [B, S, H*D] operands by
 // strides and sums each kv head over its q heads inside one block. With
-// row/col ids every q tile is visited.
+// row/col ids only live q tiles are visited (flash_common.cuh:live_tiles).
 #include "flash_bwd_dkv.cuh"
 
 // q/dout [B, q_len, H*D], k/v/dk/dv [B, kv_len, Hkv*D] (bf16 when is_bf16,

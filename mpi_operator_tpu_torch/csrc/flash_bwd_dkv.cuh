@@ -22,16 +22,21 @@
 // - S^T = K Q^T and dP^T = V dO^T: A is K or V, B is Q or dO as stored
 //   (K-major), both in swizzled shared memory;
 // - P^T = exp(scale S^T - lse) and dS^T = P^T (dP^T - delta) in registers,
-//   in f32, with the mask (visible(), skipped on tiles that need none);
+//   in f32, with the mask (skipped on tiles that need none);
 // - dV += P^T dO and dK += dS^T Q: A is the bf16 rounding of the register
 //   accumulator, B is dO or Q read MN-major.
 // The dK and dV accumulators stay in f32 registers across the whole loop;
 // dk is scaled once, at the end. K and V are loaded once; Q, dO, lse and
 // delta arrive by cp.async in a 2-stage ring, step j + 1 in flight while
-// step j is multiplied. Causal q tiles that see none of the k tile are
-// skipped (first_live_q_tile); the k tile index runs slowest on the grid,
-// from the first tile, so the heaviest tiles (every later q row sees the
-// first k columns) are launched first.
+// step j is multiplied. Q tiles that see none of the k tile are skipped:
+// causal ones (first_live_q_tile) and, with ids, those the id ranges rule
+// out (live_tiles over the q tiles: the block walks its list of live q
+// tiles for each q head, each one's row ids arriving in the ring beside
+// lse and delta, its own k rows' column ids in registers; a fully visible
+// step takes no mask, and a k tile with no live q tile writes dk = dv = 0
+// in 16-byte stores and loads nothing); the k tile index runs slowest on
+// the grid, from the first tile, so the heaviest tiles (every later q row
+// sees the first k columns) are launched first.
 //
 // Tiles and budget: BK = 128, BQ = 64 at both instantiated head dims (64
 // and 128; another D that is a multiple of 8 runs on the next one, zero-
@@ -39,9 +44,12 @@
 // bf16, lse and delta: 66 KB at DP = 64, 130 KB at DP = 128. Registers: dK
 // and dV DP / 2 each, S^T and dP^T 32 each, so 192 accumulator registers a
 // thread at DP = 128: one block of 256 threads an SM (<= 255 a thread).
+// With ids, 512 B of q row ids and the live list, 4 B a q tile;
+// instantiated without and with ids (IDS), as the forward.
 //
 // f32 (bwd_dkv_kernel_simt): f32 FMA on tiles staged in shared memory, the
-// 64 x 64 SIMT thread map of flash_common.cuh; for the f32 checks.
+// 64 x 64 SIMT thread map of flash_common.cuh, with the same tile walk;
+// for the f32 checks.
 #pragma once
 
 #include "flash_common.cuh"
@@ -64,29 +72,42 @@ struct DkvTc {
   // K, V, then per stage Q and dO, then per stage lse and delta.
   static constexpr int SMEM =
       2 * KV_BYTES + 4 * Q_BYTES + 2 * STATS_BYTES + 1024;
+  static constexpr int IDS_BYTES = 2 * BQ * 4;  // with ids: row ids
 };
 
+// Without ids, the visible bits of a step's S^T accumulator: rows are k
+// rows from krow0, columns q rows q0 + qc0 + acc_col(i).
+__device__ __forceinline__ uint32_t acc_visible_t(const Geom& g, int q0,
+                                                  int krow0, int qc0) {
+  uint32_t vis = 0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    if (visible(g, q0 + qc0 + hopper::acc_col(i), krow0 + hopper::acc_row(i)))
+      vis |= 1u << i;
+  return vis;
+}
+
 // P^T and dS^T of one step, in place of the S^T and dP^T accumulators.
-// lse_s and delta_s hold the step's q rows; lse is in natural units.
+// lse_s and delta_s hold the step's q rows; lse is in natural units. When
+// MASK, a pair whose bit of vis is clear gets p = 0.
 template <bool MASK>
 __device__ __forceinline__ void dkv_probs(float (&s)[32], float (&dp)[32],
                                           const float* lse_s,
-                                          const float* delta_s, const Geom& g,
-                                          int q0, int krow0, int qc0,
-                                          float scale_log2) {
+                                          const float* delta_s, uint32_t vis,
+                                          int qc0, float scale_log2) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int qc = qc0 + hopper::acc_col(i);
-    const bool vis =
-        !MASK || visible(g, q0 + qc, krow0 + hopper::acc_row(i));
+    const bool seen = !MASK || ((vis >> i) & 1u);
     const float p =
-        vis ? exp2f(s[i] * scale_log2 - lse_s[qc] * LOG2E) : 0.f;
+        seen ? exp2f(s[i] * scale_log2 - lse_s[qc] * LOG2E) : 0.f;
     s[i] = p;
     dp[i] = p * (dp[i] - delta_s[qc]);
   }
 }
 
-template <int DP>
+// IDS: the instantiation for launches with row/col ids.
+template <int DP, bool IDS>
 __global__ void __launch_bounds__(DkvTc<DP>::THREADS, 1)
     bwd_dkv_kernel_tc(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
@@ -106,6 +127,10 @@ __global__ void __launch_bounds__(DkvTc<DP>::THREADS, 1)
   const uint32_t sStats0 = sQ0 + 4 * T::Q_BYTES;
   const float* stats0 =
       reinterpret_cast<const float*>(smem + (sStats0 - raw));
+  // With ids: stage st's q row ids, then the live q tiles.
+  const uint32_t sRid = sStats0 + 2 * T::STATS_BYTES;
+  const int* rids = reinterpret_cast<const int*>(smem + (sRid - raw));
+  int* list = reinterpret_cast<int*>(smem + (sRid + T::IDS_BYTES - raw));
 
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x / 32) % 4;
@@ -115,16 +140,25 @@ __global__ void __launch_bounds__(DkvTc<DP>::THREADS, 1)
   const int b = blockIdx.x / g.Hkv;
   const int groups = g.H / g.Hkv;
   const float scale_log2 = g.scale * LOG2E;
+  constexpr bool ids = IDS;
 
-  const int qt_begin = first_live_q_tile<BQ>(g, k0);
-  const int per_head = (g.q_len + BQ - 1) / BQ - qt_begin;
+  // Each q head walks per_head q tiles: from the causal bound, or with
+  // ids the live list.
+  const int qt_begin = ids ? 0 : first_live_q_tile<BQ>(g, k0);
+  const int per_head = ids ? live_tiles<BK, BQ, false>(list, g, k0)
+                           : (g.q_len + BQ - 1) / BQ - qt_begin;
   const int steps = groups * per_head;
+  // Step j's list entry (with its TILE_FULL bit) and q tile.
+  auto entry = [&](int j) { return ids ? list[j % per_head] : 0; };
+  auto q_tile = [&](int j) {
+    return ids ? entry(j) >> 1 : qt_begin + j % per_head;
+  };
 
-  // Step j: q tile qt_begin + j % per_head of q head hk * groups +
-  // j / per_head, into stage j % 2.
+  // Step j: q tile q_tile(j) of q head hk * groups + j / per_head, into
+  // stage j % 2.
   auto load_step = [&](int j) {
     const int h = hk * groups + j / per_head;
-    const int q0 = (qt_begin + j % per_head) * BQ;
+    const int q0 = q_tile(j) * BQ;
     const uint32_t sQ = sQ0 + (j & 1) * 2 * T::Q_BYTES;
     load_tile_async<BQ, DP, NT>(sQ, q, g.qs, b, h, q0, g.q_len, g.D);
     load_tile_async<BQ, DP, NT>(sQ + T::Q_BYTES, dout, g.qs, b, h, q0,
@@ -136,13 +170,21 @@ __global__ void __launch_bounds__(DkvTc<DP>::THREADS, 1)
       hopper::cp_async4(sStats0 + (j & 1) * T::STATS_BYTES + threadIdx.x * 4,
                         ok ? src + g.stats.at(b, h, q0 + r) : src, ok);
     }
+    if (ids) load_ids_async(sRid + (j & 1) * BQ * 4, g.row_ids, q0, g.q_len);
     hopper::cp_async_commit();
   };
 
-  load_tile_async<BK, DP, NT>(sK, k, g.kvs, b, hk, k0, g.kv_len, g.D);
-  load_tile_async<BK, DP, NT>(sV, v, g.kvs, b, hk, k0, g.kv_len, g.D);
-  hopper::cp_async_commit();
-  if (steps > 0) load_step(0);
+  if (ids && steps == 0) {  // no row sees any of these columns: dk, dv 0
+    write_dead_rows<BK>(dk, g.kvs, b, hk, k0, g.kv_len, g.D);
+    write_dead_rows<BK>(dv, g.kvs, b, hk, k0, g.kv_len, g.D);
+    return;
+  }
+  if (steps > 0) {
+    load_tile_async<BK, DP, NT>(sK, k, g.kvs, b, hk, k0, g.kv_len, g.D);
+    load_tile_async<BK, DP, NT>(sV, v, g.kvs, b, hk, k0, g.kv_len, g.D);
+    hopper::cp_async_commit();
+    load_step(0);
+  }
 
   float dk_acc[NB][32], dv_acc[NB][32];
 #pragma unroll
@@ -152,9 +194,14 @@ __global__ void __launch_bounds__(DkvTc<DP>::THREADS, 1)
   const int krow0 = k0 + wg * 64 + warp * 16 + lane / 4;
   const int qc0 = 2 * (lane % 4);
   const uint32_t wrows = wg * 64 * 128;  // this warpgroup's 64 k rows
+  int cid[2];  // with ids, the column ids of the thread's two k rows
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    cid[hh] = ids && krow0 + 8 * hh < g.kv_len ? g.col_ids[krow0 + 8 * hh]
+                                               : 0;
 
   for (int j = 0; j < steps; ++j) {
-    const int q0 = (qt_begin + j % per_head) * BQ;
+    const int q0 = q_tile(j) * BQ;
     const uint32_t sQ = sQ0 + (j & 1) * 2 * T::Q_BYTES;
     const uint32_t sdO = sQ + T::Q_BYTES;
     const float* lse_s = stats0 + (j & 1) * 2 * BQ;
@@ -187,10 +234,14 @@ __global__ void __launch_bounds__(DkvTc<DP>::THREADS, 1)
     hopper::fence_regs(s);
     hopper::fence_regs(dp);
 
-    if (fully_visible<BQ, BK>(g, q0, k0))
-      dkv_probs<false>(s, dp, lse_s, delta_s, g, q0, krow0, qc0, scale_log2);
+    if (ids ? (entry(j) & TILE_FULL) != 0 : fully_visible<BQ, BK>(g, q0, k0))
+      dkv_probs<false>(s, dp, lse_s, delta_s, 0u, qc0, scale_log2);
     else
-      dkv_probs<true>(s, dp, lse_s, delta_s, g, q0, krow0, qc0, scale_log2);
+      dkv_probs<true>(
+          s, dp, lse_s, delta_s,
+          ids ? acc_visible_ids_t(cid, rids + (j & 1) * BQ, qc0, g.q_len - q0)
+              : acc_visible_t(g, q0, krow0, qc0),
+          qc0, scale_log2);
 
     // dV += P^T dO and dK += dS^T Q, A from registers.
     uint32_t pa[4][4], da[4][4];
@@ -224,7 +275,6 @@ __global__ void __launch_bounds__(DkvTc<DP>::THREADS, 1)
     }
     __syncthreads();  // both warpgroups are done with the stage
   }
-  hopper::cp_async_wait<0>();  // K and V, when there was no step
 
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -255,12 +305,16 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
   const int n_kt = (g.kv_len + T::BK - 1) / T::BK;
   if (n_kt > MAX_GRID_YZ || (long long)g.B * g.Hkv > 0x7fffffffLL)
     return cudaErrorInvalidValue;
+  const bool ids = g.row_ids != nullptr;
+  const auto kernel =
+      ids ? bwd_dkv_kernel_tc<DP, true> : bwd_dkv_kernel_tc<DP, false>;
+  const int smem =
+      T::SMEM + (ids ? T::IDS_BYTES + id_list_bytes(g.q_len, T::BQ) : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkv_kernel_tc<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)(g.B * g.Hkv), n_kt);
-  bwd_dkv_kernel_tc<DP><<<grid, T::THREADS, T::SMEM, stream>>>(
+  kernel<<<grid, T::THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -274,7 +328,8 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
 // f32: the SIMT body
 // ---------------------------------------------------------------------------
 
-template <typename T>
+// IDS: the instantiation for launches with row/col ids.
+template <typename T, bool IDS>
 __global__ void __launch_bounds__(THREADS)
     bwd_dkv_kernel_simt(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
@@ -292,6 +347,9 @@ __global__ void __launch_bounds__(THREADS)
   float* DSTs = PTs + BK * (BQ + 1);   // [BK][BQ + 1]: ds transposed
   float* lse_s = DSTs + BK * (BQ + 1);  // [BQ]
   float* delta_s = lse_s + BQ;          // [BQ]
+  // With ids: the q tile's row ids, then the live q tiles.
+  int* Rid = reinterpret_cast<int*>(delta_s + BQ);  // [BQ]
+  int* list = Rid + BQ;
 
   const int k0 = blockIdx.x * BK;
   const int hk = blockIdx.y;
@@ -299,27 +357,37 @@ __global__ void __launch_bounds__(THREADS)
   const int groups = g.H / g.Hkv;
   const int tr = threadIdx.x / 16;  // owns k rows tr * RPT + i
   const int tc = threadIdx.x % 16;  // owns q columns tc + 16 * j
+  constexpr bool ids = IDS;
 
   load_tile(Ks, k, g.kvs, b, hk, k0, g.kv_len, D);
   load_tile(Vs, v, g.kvs, b, hk, k0, g.kv_len, D);
 
   float dk_acc[RPT][DPT], dv_acc[RPT][DPT];
+  int cid[RPT];  // with ids, the column ids of the thread's k rows
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
+  for (int i = 0; i < RPT; ++i) {
 #pragma unroll
     for (int jd = 0; jd < DPT; ++jd) dk_acc[i][jd] = dv_acc[i][jd] = 0.f;
+    const int col = k0 + tr * RPT + i;
+    cid[i] = ids && col < g.kv_len ? g.col_ids[col] : 0;
+  }
 
+  // Each q head walks n_steps q tiles: from the causal bound, or with ids
+  // the live list (e: the entry, with its TILE_FULL bit).
   const int qt_begin = first_live_q_tile(g, k0);
-  const int n_qt = (g.q_len + BQ - 1) / BQ;
+  const int n_steps = ids ? live_tiles<BK, BQ, false>(list, g, k0)
+                          : (g.q_len + BQ - 1) / BQ - qt_begin;
   for (int gi = 0; gi < groups; ++gi) {
     const int h = hk * groups + gi;
-    for (int qt = qt_begin; qt < n_qt; ++qt) {
-      const int q0 = qt * BQ;
+    for (int it = 0; it < n_steps; ++it) {
+      const int e = ids ? list[it] : 0;
+      const int q0 = (ids ? e >> 1 : qt_begin + it) * BQ;
       __syncthreads();
       load_tile(Qs, q, g.qs, b, h, q0, g.q_len, D);
       load_tile(dOs, dout, g.qs, b, h, q0, g.q_len, D);
       load_stats(lse_s, lse, g.stats, b, h, q0, g.q_len);
       load_stats(delta_s, delta, g.stats, b, h, q0, g.q_len);
+      if (ids) load_ids(Rid, g.row_ids, q0, g.q_len);
       __syncthreads();
 
       float st[RPT][CPT], dpt[RPT][CPT];
@@ -355,7 +423,10 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int j = 0; j < CPT; ++j) {
           const int qc = tc + 16 * j;
-          const bool vis = visible(g, q0 + qc, col);
+          const bool vis =
+              ids ? (e & TILE_FULL) ||
+                        (qc < g.q_len - q0 && cid[i] <= Rid[qc])
+                  : visible(g, q0 + qc, col);
           const float p =
               expf(vis ? st[i][j] * g.scale - lse_s[qc] : NEG_INF);
           PTs[r * (BQ + 1) + qc] = p;
@@ -411,13 +482,15 @@ cudaError_t launch_dkv_simt(const void* q, const void* k, const void* v,
                             const Geom& g, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)(2 * BK + 2 * BQ) * (g.D + 1) +
-                       2 * BK * (BQ + 1) + 2 * BQ);
+                       2 * BK * (BQ + 1) + 2 * BQ) +
+      (g.row_ids != nullptr ? 4 * BQ + id_list_bytes(g.q_len, BQ) : 0);
+  const auto kernel =
+      g.row_ids != nullptr ? bwd_dkv_kernel_simt<T, true> : bwd_dkv_kernel_simt<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkv_kernel_simt<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((g.kv_len + BK - 1) / BK, g.Hkv, g.B);
-  bwd_dkv_kernel_simt<T><<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),

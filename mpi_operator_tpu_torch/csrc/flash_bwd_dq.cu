@@ -10,7 +10,8 @@
 //
 // Design: the body (flash_bwd_dq.cuh) reads the [B, S, H*D] operands by
 // strides; delta = rowsum(do * o) (less the lse cotangent) comes from the
-// wrapper as f32 [B, Sq, H]. With row/col ids every k tile is visited.
+// wrapper as f32 [B, Sq, H]. With row/col ids only live k tiles are visited
+// (flash_common.cuh:live_tiles).
 #include "flash_bwd_dq.cuh"
 
 // q/dout/dq [B, q_len, H*D], k/v [B, kv_len, Hkv*D] (bf16 when is_bf16,

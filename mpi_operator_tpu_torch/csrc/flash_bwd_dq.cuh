@@ -22,15 +22,18 @@
 // - S = Q K^T and dP = dO V^T: A is Q or dO, B is K or V as stored
 //   (K-major), all in swizzled shared memory;
 // - P = exp(scale S - lse) and dS = P (dP - delta) in registers, in f32,
-//   with the mask (visible(), skipped on tiles that need none); each
-//   thread keeps lse and delta of its two accumulator rows in registers;
+//   with the mask (skipped on tiles that need none); each thread keeps
+//   lse and delta of its two accumulator rows in registers, and with ids
+//   their ids too;
 // - dQ += dS K: A is the bf16 rounding of dS (as the reference rounds ds
 //   to the operand type), B is the same swizzled K tile read MN-major.
 // Q and dO are loaded once; K and V arrive by cp.async in a 2-stage ring,
-// tile j + 1 in flight while tile j is multiplied. Causal dead k tiles are
-// never loaded (live_k_tiles); the q tile index runs slowest on the grid,
-// from the last tile, so the heaviest causal tiles are launched first.
-// With ids every tile is visited.
+// tile j + 1 in flight while tile j is multiplied. Dead k tiles are never
+// loaded: causal ones (live_k_tiles) and, with ids, those the id ranges
+// rule out (live_tiles; each live tile's column ids arrive in the ring
+// beside K and V, and a fully visible tile takes no mask), as in the
+// forward; the q tile index runs slowest on the grid, from the last tile,
+// so the heaviest causal tiles are launched first.
 //
 // Tiles and budget: BQ = 128, BK = 64 at both instantiated head dims (64
 // and 128; another D that is a multiple of 8 runs on the next one,
@@ -38,10 +41,13 @@
 // 64 x DP in bf16: 65 KB at DP = 64 (two blocks an SM), 129 KB at DP = 128
 // (one). Registers: dQ DP / 2, S 32, dP 32 f32 accumulators a thread, so
 // 128 at DP = 128 (launch bound one block of 256 threads, <= 255 a
-// thread) and 96 at DP = 64 (two blocks, <= 128 a thread).
+// thread) and 96 at DP = 64 (two blocks, <= 128 a thread). With ids, 512
+// B of column ids and the live list, 4 B a k tile; instantiated without
+// and with ids (IDS), as the forward.
 //
 // f32 (bwd_dq_kernel_simt): f32 FMA on tiles staged in shared memory, the
-// 64 x 64 SIMT thread map of flash_common.cuh; for the f32 checks.
+// 64 x 64 SIMT thread map of flash_common.cuh, with the same tile walk;
+// for the f32 checks.
 #pragma once
 
 #include "flash_common.cuh"
@@ -63,30 +69,31 @@ struct DqTc {
   static constexpr int KV_BYTES = BK * DP * 2;  // one K or V tile
   // Q, dO, then per stage K and V.
   static constexpr int SMEM = 2 * Q_BYTES + 4 * KV_BYTES + 1024;
+  static constexpr int IDS_BYTES = 2 * BK * 4;  // with ids: column ids
 };
 
 // dS of one k tile, in place of the dP accumulator (s is spent). lse2 is
 // lse * log2 e and delta the row's delta, for accumulator rows row0 and
-// row0 + 8. An invisible pair gets p = 0 exactly, so a row that sees
-// nothing (lse = NEG_INF) gets dS = 0 and dq = 0.
+// row0 + 8. When MASK, a pair whose bit of vis is clear gets p = 0
+// exactly, so a row that sees nothing (lse = NEG_INF) gets dS = 0 and
+// dq = 0.
 template <bool MASK>
 __device__ __forceinline__ void dq_grads(const float (&s)[32],
                                          float (&dp)[32],
                                          const float (&lse2)[2],
                                          const float (&delta)[2],
-                                         const Geom& g, int row0, int col0,
-                                         float scale_log2) {
+                                         uint32_t vis, float scale_log2) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int hh = (i >> 1) & 1;
-    const bool vis = !MASK || visible(g, row0 + hopper::acc_row(i),
-                                      col0 + hopper::acc_col(i));
-    const float p = vis ? exp2f(s[i] * scale_log2 - lse2[hh]) : 0.f;
+    const bool seen = !MASK || ((vis >> i) & 1u);
+    const float p = seen ? exp2f(s[i] * scale_log2 - lse2[hh]) : 0.f;
     dp[i] = p * (dp[i] - delta[hh]);
   }
 }
 
-template <int DP>
+// IDS: the instantiation for launches with row/col ids.
+template <int DP, bool IDS>
 __global__ void __launch_bounds__(DqTc<DP>::THREADS, DqTc<DP>::MIN_BLOCKS)
     bwd_dq_kernel_tc(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
@@ -98,10 +105,15 @@ __global__ void __launch_bounds__(DqTc<DP>::THREADS, DqTc<DP>::MIN_BLOCKS)
   using T = DqTc<DP>;
   constexpr int BQ = T::BQ, BK = T::BK, NT = T::THREADS, NB = T::NB;
   extern __shared__ __align__(1024) unsigned char smem[];
-  const uint32_t sQ = (hopper::smem_addr(smem) + 1023u) & ~1023u;
+  const uint32_t raw = hopper::smem_addr(smem);
+  const uint32_t sQ = (raw + 1023u) & ~1023u;
   const uint32_t sdO = sQ + T::Q_BYTES;
   const uint32_t sKV = sdO + T::Q_BYTES;  // stage st: K, then V
   constexpr uint32_t KVB = T::KV_BYTES;
+  // With ids: stage st's column ids, then the live k tiles.
+  const uint32_t sCid = sKV + 4 * KVB;
+  const int* cids = reinterpret_cast<const int*>(smem + (sCid - raw));
+  int* list = reinterpret_cast<int*>(smem + (sCid + T::IDS_BYTES - raw));
 
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x / 32) % 4;
@@ -113,18 +125,34 @@ __global__ void __launch_bounds__(DqTc<DP>::THREADS, DqTc<DP>::MIN_BLOCKS)
   const int b = blockIdx.x / g.H;
   const int hk = h / (g.H / g.Hkv);
   const float scale_log2 = g.scale * LOG2E;
+  constexpr bool ids = IDS;
 
-  const int n_kt = live_k_tiles<BQ, BK>(g, q0);
+  // Step j walks every k tile up to the causal bound, or with ids the
+  // live list's j-th.
+  const int n_kt =
+      ids ? live_tiles<BQ, BK, true>(list, g, q0) : live_k_tiles<BQ, BK>(g, q0);
+  auto load_kv = [&](int j) {  // into stage j % 2
+    const uint32_t st = sKV + (j & 1) * 2 * KVB;
+    const int k1 = (ids ? list[j] >> 1 : j) * BK;
+    load_tile_async<BK, DP, NT>(st, k, g.kvs, b, hk, k1, g.kv_len, g.D);
+    load_tile_async<BK, DP, NT>(st + KVB, v, g.kvs, b, hk, k1, g.kv_len,
+                                g.D);
+    if (ids) load_ids_async(sCid + (j & 1) * BK * 4, g.col_ids, k1, g.kv_len);
+  };
+  if (ids && n_kt == 0) {  // no row sees any column: dq 0
+    write_dead_rows<BQ>(dq, g.qs, b, h, q0, g.q_len, g.D);
+    return;
+  }
   if (n_kt > 0) {
     load_tile_async<BQ, DP, NT>(sQ, q, g.qs, b, h, q0, g.q_len, g.D);
     load_tile_async<BQ, DP, NT>(sdO, dout, g.qs, b, h, q0, g.q_len, g.D);
-    load_tile_async<BK, DP, NT>(sKV, k, g.kvs, b, hk, 0, g.kv_len, g.D);
-    load_tile_async<BK, DP, NT>(sKV + KVB, v, g.kvs, b, hk, 0, g.kv_len, g.D);
+    load_kv(0);
     hopper::cp_async_commit();
   }
 
   const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;
   float lse2[2], dlt[2];
+  int rid[2];  // with ids, the ids of the thread's two rows
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int row = row0 + 8 * hh;
@@ -132,6 +160,7 @@ __global__ void __launch_bounds__(DqTc<DP>::THREADS, DqTc<DP>::MIN_BLOCKS)
     const size_t o = g.stats.at(b, h, ok ? row : 0);
     lse2[hh] = ok ? lse[o] * LOG2E : 0.f;
     dlt[hh] = ok ? delta[o] : 0.f;
+    rid[hh] = ids && ok ? g.row_ids[row] : 0;
   }
   float acc[NB][32];
 #pragma unroll
@@ -140,15 +169,12 @@ __global__ void __launch_bounds__(DqTc<DP>::THREADS, DqTc<DP>::MIN_BLOCKS)
     for (int i = 0; i < 32; ++i) acc[cb][i] = 0.f;
   const uint32_t wrows = wg * 64 * 128;  // this warpgroup's 64 q rows
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const uint32_t sK = sKV + (kt & 1) * 2 * KVB;
+  for (int j = 0; j < n_kt; ++j) {
+    const uint32_t sK = sKV + (j & 1) * 2 * KVB;
     const uint32_t sV = sK + KVB;
-    if (kt + 1 < n_kt) {
-      const uint32_t nK = sKV + ((kt + 1) & 1) * 2 * KVB;
-      const int k1 = (kt + 1) * BK;
-      load_tile_async<BK, DP, NT>(nK, k, g.kvs, b, hk, k1, g.kv_len, g.D);
-      load_tile_async<BK, DP, NT>(nK + KVB, v, g.kvs, b, hk, k1, g.kv_len,
-                                  g.D);
+    const int e = ids ? list[j] : 0;
+    if (j + 1 < n_kt) {
+      load_kv(j + 1);
       hopper::cp_async_commit();
       hopper::cp_async_wait<1>();
     } else {
@@ -176,12 +202,16 @@ __global__ void __launch_bounds__(DqTc<DP>::THREADS, DqTc<DP>::MIN_BLOCKS)
     hopper::fence_regs(s);
     hopper::fence_regs(dp);
 
-    const int k0 = kt * BK;
-    const int col0 = k0 + 2 * (lane % 4);
-    if (fully_visible<BQ, BK>(g, q0, k0))
-      dq_grads<false>(s, dp, lse2, dlt, g, row0, col0, scale_log2);
+    const int k0 = (ids ? e >> 1 : j) * BK;
+    if (ids ? (e & TILE_FULL) != 0 : fully_visible<BQ, BK>(g, q0, k0))
+      dq_grads<false>(s, dp, lse2, dlt, 0u, scale_log2);
     else
-      dq_grads<true>(s, dp, lse2, dlt, g, row0, col0, scale_log2);
+      dq_grads<true>(
+          s, dp, lse2, dlt,
+          ids ? acc_visible_ids(rid, cids + (j & 1) * BK, 2 * (lane % 4),
+                                g.kv_len - k0)
+              : acc_visible(g, row0, k0 + 2 * (lane % 4)),
+          scale_log2);
 
     // dQ += dS K, dS from registers, K read MN-major.
     uint32_t da[4][4];
@@ -231,12 +261,16 @@ cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
   const int n_qt = (g.q_len + T::BQ - 1) / T::BQ;
   if (n_qt > MAX_GRID_YZ || (long long)g.B * g.H > 0x7fffffffLL)
     return cudaErrorInvalidValue;
+  const bool ids = g.row_ids != nullptr;
+  const auto kernel =
+      ids ? bwd_dq_kernel_tc<DP, true> : bwd_dq_kernel_tc<DP, false>;
+  const int smem =
+      T::SMEM + (ids ? T::IDS_BYTES + id_list_bytes(g.kv_len, T::BK) : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dq_kernel_tc<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)(g.B * g.H), n_qt);
-  bwd_dq_kernel_tc<DP><<<grid, T::THREADS, T::SMEM, stream>>>(
+  kernel<<<grid, T::THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -250,7 +284,8 @@ cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
 // f32: the SIMT body
 // ---------------------------------------------------------------------------
 
-template <typename T>
+// IDS: the instantiation for launches with row/col ids.
+template <typename T, bool IDS>
 __global__ void __launch_bounds__(THREADS)
     bwd_dq_kernel_simt(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ dout,
@@ -265,6 +300,9 @@ __global__ void __launch_bounds__(THREADS)
   float* Ks = dOs + BQ * ld;   // [BK][ld]
   float* Vs = Ks + BK * ld;    // [BK][ld]
   float* DSs = Vs + BK * ld;   // [BQ][BK + 1]
+  // With ids: the k tile's column ids, then the live k tiles.
+  int* Cid = reinterpret_cast<int*>(DSs + BQ * (BK + 1));  // [BK]
+  int* list = Cid + BK;
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -272,11 +310,13 @@ __global__ void __launch_bounds__(THREADS)
   const int hk = h / (g.H / g.Hkv);
   const int tr = threadIdx.x / 16;
   const int tc = threadIdx.x % 16;
+  constexpr bool ids = IDS;
 
   load_tile(Qs, q, g.qs, b, h, q0, g.q_len, D);
   load_tile(dOs, dout, g.qs, b, h, q0, g.q_len, D);
 
   float lse_r[RPT], delta_r[RPT], acc[RPT][DPT];
+  int rid[RPT];  // with ids, the ids of the thread's rows
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int row = q0 + tr * RPT + i;
@@ -285,14 +325,20 @@ __global__ void __launch_bounds__(THREADS)
     delta_r[i] = row < g.q_len ? delta[o] : 0.f;
 #pragma unroll
     for (int jd = 0; jd < DPT; ++jd) acc[i][jd] = 0.f;
+    rid[i] = ids && row < g.q_len ? g.row_ids[row] : 0;
   }
 
-  const int n_kt = live_k_tiles(g, q0);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
+  // Step it walks every k tile up to the causal bound, or with ids the
+  // live list's it-th (e: the entry, with its TILE_FULL bit).
+  const int n_kt = ids ? live_tiles<BQ, BK, true>(list, g, q0)
+                       : live_k_tiles(g, q0);
+  for (int it = 0; it < n_kt; ++it) {
+    const int e = ids ? list[it] : 0;
+    const int k0 = (ids ? e >> 1 : it) * BK;
     __syncthreads();
     load_tile(Ks, k, g.kvs, b, hk, k0, g.kv_len, D);
     load_tile(Vs, v, g.kvs, b, hk, k0, g.kv_len, D);
+    if (ids) load_ids(Cid, g.col_ids, k0, g.kv_len);
     __syncthreads();
 
     float s[RPT][CPT], dp[RPT][CPT];
@@ -327,7 +373,10 @@ __global__ void __launch_bounds__(THREADS)
       const int row = q0 + r;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
-        const bool vis = visible(g, row, k0 + tc + 16 * j);
+        const int c = tc + 16 * j;
+        const bool vis =
+            ids ? (e & TILE_FULL) || (c < g.kv_len - k0 && Cid[c] <= rid[i])
+                : visible(g, row, k0 + c);
         const float p = expf(vis ? s[i][j] * g.scale - lse_r[i] : NEG_INF);
         DSs[r * (BK + 1) + tc + 16 * j] = p * (dp[i][j] - delta_r[i]);
       }
@@ -369,13 +418,15 @@ cudaError_t launch_dq_simt(const void* q, const void* k, const void* v,
                            const void* delta, void* dq, const Geom& g,
                            cudaStream_t stream) {
   const size_t smem =
-      sizeof(float) * ((size_t)(2 * BQ + 2 * BK) * (g.D + 1) + BQ * (BK + 1));
+      sizeof(float) * ((size_t)(2 * BQ + 2 * BK) * (g.D + 1) + BQ * (BK + 1)) +
+      (g.row_ids != nullptr ? 4 * BK + id_list_bytes(g.kv_len, BK) : 0);
+  const auto kernel =
+      g.row_ids != nullptr ? bwd_dq_kernel_simt<T, true> : bwd_dq_kernel_simt<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dq_kernel_simt<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((g.q_len + BQ - 1) / BQ, g.H, g.B);
-  bwd_dq_kernel_simt<T><<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),

@@ -15,8 +15,9 @@
 // inside the program; the body (flash_fwd.cuh) reads the [B, S, H*D]
 // operands by strides, so no transpose surrounds it. With row/col ids (a
 // ring attention hop: the global positions of its q rows and k columns) a
-// pair is visible iff col_ids[col] <= row_ids[row], and every k tile is
-// visited.
+// pair is visible iff col_ids[col] <= row_ids[row]; the id ranges of
+// each pair of tiles skip the dead ones and unmask the fully visible ones
+// (flash_common.cuh:live_tiles).
 #include "flash_fwd.cuh"
 
 // q [B, q_len, H*D], k/v [B, kv_len, Hkv*D] (bf16 when is_bf16, else f32),

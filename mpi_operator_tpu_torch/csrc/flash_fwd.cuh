@@ -17,25 +17,35 @@
 // bf16 design (fwd_kernel_tc): one block per (q tile of 128 rows, q head,
 // batch), 256 threads = two warpgroups of 64 q rows that share each k / v
 // tile. S = Q K^T is a wgmma with both operands in swizzled shared memory
-// (K as stored is the K-major B operand); the mask (visible(), skipped on
-// tiles that need none), the running max m, the sum l and the [64, D] O
+// (K as stored is the K-major B operand); the mask (skipped on tiles that
+// need none), the running max m, the sum l and the [64, D] O
 // accumulator stay in registers in f32; P, rounded to bf16, is the register
 // A operand of O += P V, with V read MN-major (no transpose pass). K and V
 // arrive by 16-byte cp.async into a 2-stage ring, tile j + 1 in flight
-// while tile j is multiplied. Causal dead k tiles are never loaded
-// (live_k_tiles), the last (heaviest) q tiles are launched first, and GQA
-// shares kv heads by index, never by copy.
+// while tile j is multiplied. Dead k tiles are never loaded: causal ones
+// past the diagonal (live_k_tiles) and, with ids, those the id ranges
+// rule out (live_tiles: the block walks its list of live k tiles, each
+// one's column ids arriving in the ring beside K and V, its rows' ids in
+// registers; a fully visible tile takes the unmasked softmax; a q tile
+// with no live k tile writes its zeros in 16-byte stores). The last
+// (heaviest) q tiles are launched first, and GQA shares kv heads by
+// index, never by copy.
 //
 // Tiles and budget: BQ = 128, BK = 64 at both instantiated head dims (64
 // and 128; another D that is a multiple of 8 runs on the next one with its
 // columns past D zero-filled). Shared memory Q 128 x DP + 2 stages x (K +
 // V) 64 x DP in bf16: 49 KB at DP = 64, 97 KB at DP = 128, so two blocks
-// fit an SM's 228 KB; registers (launch bound 2 blocks of 256 threads,
-// <= 128 a thread): O DP / 2, S 32, m and l 4, P 16 (reusing S).
+// fit an SM's 228 KB; with ids 512 B of column ids and the live list, 4 B
+// a k tile, more; registers (launch bound 2 blocks of 256 threads, <= 128
+// a thread): O DP / 2, S 32, m and l 4, P 16 (reusing S). Each body is
+// instantiated without and with ids (IDS), so that neither carries the
+// other's state: the no-id one is the design above unchanged, and at
+// DP = 128 it sits at the 128-register bound.
 //
 // f32 (fwd_kernel_simt): f32 FMA on tiles staged in shared memory, the
-// 64 x 64 SIMT thread map of flash_common.cuh. It is for checks that hold
-// f32 to 2e-5; f32 has no tensor-core path of that precision.
+// 64 x 64 SIMT thread map of flash_common.cuh, with the same tile walk (its
+// ids classified on 64 x 64 tiles). It is for checks that hold f32 to
+// 2e-5; f32 has no tensor-core path of that precision.
 #pragma once
 
 #include "flash_common.cuh"
@@ -55,26 +65,18 @@ struct FwdTc {
   static constexpr int Q_BYTES = BQ * DP * 2;
   static constexpr int KV_BYTES = BK * DP * 2;  // one K or V tile
   static constexpr int SMEM = Q_BYTES + 4 * KV_BYTES + 1024;  // + alignment
+  static constexpr int IDS_BYTES = 2 * BK * 4;  // with ids: column ids
 };
 
 // One k tile's online-softmax step on a warpgroup's S accumulator: s
-// becomes p = exp(scale * s - m_new) (0 where not visible), and l and o
-// are rescaled to the new running max. m is kept in the log2 domain
-// (m * log2 e), so p is one exp2f per element.
+// becomes p = exp(scale * s - m_new) (0 where bit i of vis is clear, when
+// MASK), and l and o are rescaled to the new running max. m is kept in
+// the log2 domain (m * log2 e), so p is one exp2f per element.
 template <bool MASK, int NB>
 __device__ __forceinline__ void fwd_softmax(float (&s)[32], float (&m)[2],
                                             float (&l)[2],
-                                            float (&o)[NB][32],
-                                            const Geom& g, int row0, int col0,
+                                            float (&o)[NB][32], uint32_t vis,
                                             float scale_log2) {
-  uint32_t vis = 0xffffffffu;
-  if (MASK) {
-    vis = 0;
-#pragma unroll
-    for (int i = 0; i < 32; ++i)
-      if (visible(g, row0 + hopper::acc_row(i), col0 + hopper::acc_col(i)))
-        vis |= 1u << i;
-  }
   float mc[2] = {NEG_INF, NEG_INF};
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
@@ -105,7 +107,9 @@ __device__ __forceinline__ void fwd_softmax(float (&s)[32], float (&m)[2],
     for (int i = 0; i < 32; ++i) o[cb][i] *= corr[(i >> 1) & 1];
 }
 
-template <int DP>
+// IDS: the instantiation for launches with row/col ids (the other never
+// reads them), so neither carries the other's state in registers.
+template <int DP, bool IDS>
 __global__ void __launch_bounds__(FwdTc<DP>::THREADS, 2)
     fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -115,9 +119,14 @@ __global__ void __launch_bounds__(FwdTc<DP>::THREADS, 2)
   using T = FwdTc<DP>;
   constexpr int BQ = T::BQ, BK = T::BK, NT = T::THREADS, NB = T::NB;
   extern __shared__ __align__(1024) unsigned char smem[];
-  const uint32_t sQ = (hopper::smem_addr(smem) + 1023u) & ~1023u;
+  const uint32_t raw = hopper::smem_addr(smem);
+  const uint32_t sQ = (raw + 1023u) & ~1023u;
   const uint32_t sKV = sQ + T::Q_BYTES;  // stage st: K, then V
   constexpr uint32_t KVB = T::KV_BYTES;
+  // With ids: stage st's column ids, then the live k tiles.
+  const uint32_t sCid = sKV + 4 * KVB;
+  const int* cids = reinterpret_cast<const int*>(smem + (sCid - raw));
+  int* list = reinterpret_cast<int*>(smem + (sCid + T::IDS_BYTES - raw));
 
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x / 32) % 4;
@@ -130,11 +139,22 @@ __global__ void __launch_bounds__(FwdTc<DP>::THREADS, 2)
   const int hk = h / (g.H / g.Hkv);
   const float scale_log2 = g.scale * LOG2E;
 
-  const int n_kt = live_k_tiles<BQ, BK>(g, q0);
+  // Step kt walks every k tile up to the causal bound, or with ids the
+  // live list's kt-th.
+  const int n_kt =
+      IDS ? live_tiles<BQ, BK, true>(list, g, q0) : live_k_tiles<BQ, BK>(g, q0);
+  if (IDS && n_kt == 0) {  // no row sees any column: out 0, lse NEG_INF
+    write_dead_rows<BQ>(out, g.qs, b, h, q0, g.q_len, g.D, lse, g.stats,
+                        NEG_INF);
+    return;
+  }
   if (n_kt > 0) {
+    const int k1 = IDS ? (list[0] >> 1) * BK : 0;
     load_tile_async<BQ, DP, NT>(sQ, q, g.qs, b, h, q0, g.q_len, g.D);
-    load_tile_async<BK, DP, NT>(sKV, k, g.kvs, b, hk, 0, g.kv_len, g.D);
-    load_tile_async<BK, DP, NT>(sKV + KVB, v, g.kvs, b, hk, 0, g.kv_len, g.D);
+    load_tile_async<BK, DP, NT>(sKV, k, g.kvs, b, hk, k1, g.kv_len, g.D);
+    load_tile_async<BK, DP, NT>(sKV + KVB, v, g.kvs, b, hk, k1, g.kv_len,
+                                g.D);
+    if constexpr (IDS) load_ids_async(sCid, g.col_ids, k1, g.kv_len);
     hopper::cp_async_commit();
   }
 
@@ -145,6 +165,12 @@ __global__ void __launch_bounds__(FwdTc<DP>::THREADS, 2)
     for (int i = 0; i < 32; ++i) o[cb][i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;
+  int rid[2];  // with ids, the ids of the thread's two rows
+  if constexpr (IDS) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      rid[hh] = row0 + 8 * hh < g.q_len ? g.row_ids[row0 + 8 * hh] : 0;
+  }
   const uint32_t sQw = sQ + wg * 64 * 128;  // this warpgroup's 64 rows
 
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -152,10 +178,13 @@ __global__ void __launch_bounds__(FwdTc<DP>::THREADS, 2)
     const uint32_t sV = sK + KVB;
     if (kt + 1 < n_kt) {
       const uint32_t nK = sKV + ((kt + 1) & 1) * 2 * KVB;
-      const int k1 = (kt + 1) * BK;
+      const int k1 = (IDS ? list[kt + 1] >> 1 : kt + 1) * BK;
       load_tile_async<BK, DP, NT>(nK, k, g.kvs, b, hk, k1, g.kv_len, g.D);
       load_tile_async<BK, DP, NT>(nK + KVB, v, g.kvs, b, hk, k1, g.kv_len,
                                   g.D);
+      if constexpr (IDS)
+        load_ids_async(sCid + ((kt + 1) & 1) * BK * 4, g.col_ids, k1,
+                       g.kv_len);
       hopper::cp_async_commit();
       hopper::cp_async_wait<1>();
     } else {
@@ -179,12 +208,18 @@ __global__ void __launch_bounds__(FwdTc<DP>::THREADS, 2)
     hopper::wgmma_wait<0>();
     hopper::fence_regs(s);
 
-    const int k0 = kt * BK;
+    const int e = IDS ? list[kt] : 0;  // with ids: the tile, TILE_FULL
+    const int k0 = (IDS ? e >> 1 : kt) * BK;
     const int col0 = k0 + 2 * (lane % 4);
-    if (fully_visible<BQ, BK>(g, q0, k0))
-      fwd_softmax<false, NB>(s, m, l, o, g, row0, col0, scale_log2);
+    if (IDS ? (e & TILE_FULL) != 0 : fully_visible<BQ, BK>(g, q0, k0))
+      fwd_softmax<false, NB>(s, m, l, o, 0u, scale_log2);
     else
-      fwd_softmax<true, NB>(s, m, l, o, g, row0, col0, scale_log2);
+      fwd_softmax<true, NB>(
+          s, m, l, o,
+          IDS ? acc_visible_ids(rid, cids + (kt & 1) * BK, col0 - k0,
+                                g.kv_len - k0)
+              : acc_visible(g, row0, col0),
+          scale_log2);
 
     // O += P V, P from registers.
     uint32_t pa[4][4];
@@ -237,12 +272,15 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
   const int n_qt = (g.q_len + T::BQ - 1) / T::BQ;
   if (n_qt > MAX_GRID_YZ || (long long)g.B * g.H > 0x7fffffffLL)
     return cudaErrorInvalidValue;
+  const bool ids = g.row_ids != nullptr;
+  const auto kernel = ids ? fwd_kernel_tc<DP, true> : fwd_kernel_tc<DP, false>;
+  const int smem =
+      T::SMEM + (ids ? T::IDS_BYTES + id_list_bytes(g.kv_len, T::BK) : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel_tc<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)(g.B * g.H), n_qt);
-  fwd_kernel_tc<DP><<<grid, T::THREADS, T::SMEM, stream>>>(
+  kernel<<<grid, T::THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
@@ -254,7 +292,8 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
 // f32: the SIMT body
 // ---------------------------------------------------------------------------
 
-template <typename T>
+// IDS: the instantiation for launches with row/col ids.
+template <typename T, bool IDS>
 __global__ void __launch_bounds__(THREADS)
     fwd_kernel_simt(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ out,
@@ -266,6 +305,9 @@ __global__ void __launch_bounds__(THREADS)
   float* Ks = Qs + BQ * ld;   // [BK][ld]
   float* Vs = Ks + BK * ld;   // [BK][ld]
   float* Ps = Vs + BK * ld;   // [BQ][BK + 1]
+  // With ids: the k tile's column ids, then the live k tiles.
+  int* Cid = reinterpret_cast<int*>(Ps + BQ * (BK + 1));  // [BK]
+  int* list = Cid + BK;
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -273,24 +315,33 @@ __global__ void __launch_bounds__(THREADS)
   const int hk = h / (g.H / g.Hkv);
   const int tr = threadIdx.x / 16;
   const int tc = threadIdx.x % 16;
+  constexpr bool ids = IDS;
 
   load_tile(Qs, q, g.qs, b, h, q0, g.q_len, D);
 
   float m[RPT], l[RPT], acc[RPT][DPT];
+  int rid[RPT];  // with ids, the ids of the thread's rows
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
     for (int jd = 0; jd < DPT; ++jd) acc[i][jd] = 0.f;
+    const int row = q0 + tr * RPT + i;
+    rid[i] = ids && row < g.q_len ? g.row_ids[row] : 0;
   }
 
-  const int n_kt = live_k_tiles(g, q0);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
+  // Step it walks every k tile up to the causal bound, or with ids the
+  // live list's it-th (e: the entry, with its TILE_FULL bit).
+  const int n_kt = ids ? live_tiles<BQ, BK, true>(list, g, q0)
+                       : live_k_tiles(g, q0);
+  for (int it = 0; it < n_kt; ++it) {
+    const int e = ids ? list[it] : 0;
+    const int k0 = (ids ? e >> 1 : it) * BK;
     __syncthreads();  // the previous tile's readers are done
     load_tile(Ks, k, g.kvs, b, hk, k0, g.kv_len, D);
     load_tile(Vs, v, g.kvs, b, hk, k0, g.kv_len, D);
+    if (ids) load_ids(Cid, g.col_ids, k0, g.kv_len);
     __syncthreads();
 
     float s[RPT][CPT];
@@ -318,7 +369,10 @@ __global__ void __launch_bounds__(THREADS)
       float mc = NEG_INF;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
-        vis[j] = visible(g, row, k0 + tc + 16 * j);
+        const int c = tc + 16 * j;
+        vis[j] = ids ? (e & TILE_FULL) ||
+                           (c < g.kv_len - k0 && Cid[c] <= rid[i])
+                     : visible(g, row, k0 + c);
         s[i][j] *= g.scale;
         if (vis[j]) mc = fmaxf(mc, s[i][j]);
       }
@@ -376,13 +430,15 @@ cudaError_t launch_fwd_simt(const void* q, const void* k, const void* v,
                             void* out, void* lse, const Geom& g,
                             cudaStream_t stream) {
   const size_t smem =
-      sizeof(float) * ((size_t)(BQ + 2 * BK) * (g.D + 1) + BQ * (BK + 1));
+      sizeof(float) * ((size_t)(BQ + 2 * BK) * (g.D + 1) + BQ * (BK + 1)) +
+      (g.row_ids != nullptr ? 4 * BK + id_list_bytes(g.kv_len, BK) : 0);
+  const auto kernel =
+      g.row_ids != nullptr ? fwd_kernel_simt<T, true> : fwd_kernel_simt<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel_simt<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((g.q_len + BQ - 1) / BQ, g.H, g.B);
-  fwd_kernel_simt<T><<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
       static_cast<float*>(lse), g);

@@ -144,6 +144,37 @@ def _mask(q, k, causal, row_ids, col_ids):
     return _visible(q.shape[1], k.shape[1], causal, q.device)
 
 
+# The kernels' classes of a (q tile, k tile) pair under ids
+# (csrc/flash_common.cuh:live_tiles): no pair visible, some, every one.
+TILE_DEAD, TILE_MIXED, TILE_FULL = 0, 1, 2
+
+
+def tile_classes(row_ids, col_ids, q_len: int, kv_len: int, tq: int,
+                 tk: int) -> torch.Tensor:
+    """Plain version of the kernels' tile classification: int8
+    ``[ceil(q_len / tq), ceil(kv_len / tk)]``. Over a q tile's rows inside
+    ``q_len`` (ids ``rmin..rmax``) and a k tile's columns inside
+    ``kv_len`` (``cmin..cmax``) the pair is ``TILE_DEAD`` iff ``cmin >
+    rmax``, ``TILE_FULL`` iff ``cmax <= rmin`` and both tiles lie inside
+    their sequences, else ``TILE_MIXED``. Exact for any ids: a dead pair
+    has no visible (row, col), a full one no masked one."""
+    def ranges(ids, n, t):
+        # Past n: 2^32 (above any int32 id) for the minimum, -2^32 for
+        # the maximum.
+        x = ids[:n].to(torch.int64)
+        pad = torch.full(((-n) % t,), 2 ** 32, dtype=torch.int64)
+        lo, hi = torch.cat([x, pad]), torch.cat([x, -pad])
+        inside = torch.arange(1, lo.numel() // t + 1) * t <= n
+        return lo.view(-1, t).amin(1), hi.view(-1, t).amax(1), inside
+
+    rmin, rmax, q_in = ranges(row_ids.cpu(), q_len, tq)
+    cmin, cmax, k_in = ranges(col_ids.cpu(), kv_len, tk)
+    live = cmin[None, :] <= rmax[:, None]
+    full = (cmax[None, :] <= rmin[:, None]) & q_in[:, None] & k_in[None, :]
+    return torch.where(full, TILE_FULL,
+                       torch.where(live, TILE_MIXED, TILE_DEAD)).to(torch.int8)
+
+
 def flash_fwd_plain(qf, kf, vf, h: int, sm_scale: float, causal: bool,
                     row_ids=None, col_ids=None):
     """Plain version of the forward kernel: (out [B, Sq, H*D] like q,
