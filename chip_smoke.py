@@ -12,8 +12,8 @@ Phases, in order:
    each, all started together; each kernel's registers and spills from
    ptxas (a flash kernel that spills fails the run) and, from
    ``cuobjdump -sass``, its tensor-core instructions (the bf16 forward,
-   dq and dk/dv bodies must be there at both head dims and issue wgmma,
-   HGMMA in SASS);
+   dq and dk/dv bodies must be there at all three head dims, 64, 128 and
+   256, without and with ids, and issue wgmma, HGMMA in SASS);
 2. ``kernels``: each kernel against its plain version on the card, with
    times by CUDA events beside the bound and one PyTorch library call:
    - the six flash kernels, flat ([B, S, H*D]) and [B*H, S, D], at the
@@ -25,8 +25,19 @@ Phases, in order:
      (their out, lse and dq must be exactly 0, -1e30 and 0) and an
      unsorted-id shape (shuffled blocks, +-2^30 padding ids, ragged
      tiles, every tile class at every tiling), in both layouts, each id
-     shape's dead/mixed/full tile pairs logged (``tile_classes``); the
-     flat kernels with the ids of the sp phase's ring hops (q [1, 4096,
+     shape's dead/mixed/full tile pairs logged (``tile_classes``); at
+     head dim 256 (Qwen3-Next's full-attention heads, 16 q / 2 kv): the
+     ``qwen3next`` shape (B=2, S=2048, causal, bf16; timed in both
+     layouts, beside SDPA with each fused backend pinned in turn), the
+     padded-GQA, masked-row and unsorted-id shapes above in
+     f32 and bf16, and the flat kernels at a zigzag ring hop (q [1, 4096,
+     16*256], kv [1, 4096, 2*256]); bf16 at head dim 192 (run on the 256
+     bodies) and at 100 and 12, which the wrappers pad with zero columns
+     to a multiple of 8, and at a training size (d=100, Qwen3-Next's
+     heads) each wrapper's time with the pad beside its time on inputs
+     already padded; a head dim of 257 must be refused, the error naming
+     the limit; the flat kernels with the ids of the sp phase's ring hops
+     (q [1, 4096,
      32*128], kv [1, 4096, 8*128], bf16: the zigzag ring's four (rank,
      hop) pairs on sp=2 over S=8192, and the contiguous ring's hops in
      which no row sees any column, the causal diagonal and every pair
@@ -52,7 +63,11 @@ Phases, in order:
    run of steps each);
 3. ``model``: llama3-8b at full width, 2 layers: loss and every gradient
    through the flat kernels and through the [B*H, S, D] kernels
-   (``flash-bhsd``) against the dense oracle; ResNet-101 at full width
+   (``flash-bhsd``) against the dense oracle; the same with Qwen3-Next's
+   attention heads (``config_for("llama3-8b", n_heads=16, n_kv_heads=2)``:
+   16 q / 2 kv heads of 256), and 6 AdamW steps of it through the
+   trainer (B=2, S=2048: loss finite and falling, launches 24/12/12);
+   ResNet-101 at full width
    and depth, B=8: loss, every gradient and the running statistics
    through the BN kernels against the plain-op BN route; ResNet-101's
    two TPU-shaped options through the BN kernels against the plain
@@ -621,6 +636,28 @@ FLASH_SHAPES = [
     ("id-random-bf16", dict(b=2, sq=330, sk=190, h=4, hkv=2, d=64,
                             dtype="bf16", causal=False, ids="random",
                             dead="some"), ("flat", "bhsd")),
+    # Head dim 256 (Qwen3-Next's full-attention layers: 16 q / 2 kv heads
+    # of 256) at the Llama training shape's batch and length: the bf16
+    # bodies' 256 instantiations (dq on 64 q rows a block, dk/dv split
+    # across its warpgroups) and, timed, beside SDPA.
+    ("qwen3next", dict(b=2, sq=2048, sk=2048, h=16, hkv=2, d=256,
+                       dtype="bf16", causal=True), ("flat", "bhsd")),
+]
+# The edge shapes above at head dim 256, in f32 (the SIMT bodies at width
+# 256) and bf16; head dims that run on a wider body (192 on 256) or that
+# the wrapper pads to a multiple of 8 (100 to 104 on 128, 12 to 16 on 64).
+FLASH_SHAPES += [
+    (f"{label}-d256{suffix}", dict(s, d=256, dtype=dtype), layouts)
+    for label, s, layouts in FLASH_SHAPES
+    if label in ("padded-gqa", "masked-rows", "id-random")
+    for dtype, suffix in (("f32", ""), ("bf16", "-bf16"))
+] + [
+    ("d192-bf16", dict(b=2, sq=150, sk=150, h=4, hkv=2, d=192, dtype="bf16",
+                       causal=True), ("flat", "bhsd")),
+    ("d100-bf16", dict(b=2, sq=150, sk=150, h=4, hkv=2, d=100, dtype="bf16",
+                       causal=True), ("flat", "bhsd")),
+    ("d12-bf16", dict(b=2, sq=100, sk=130, h=4, hkv=4, d=12, dtype="bf16",
+                      causal=True), ("flat", "bhsd")),
 ]
 # The ring's hops in the sp phase's llama3-8b run (S=8192 on sp=2: q
 # [1, 4096, 32*128], kv [1, 4096, 8*128], bf16), each with its (layout,
@@ -645,12 +682,22 @@ FLASH_SHAPES += [
 # The shapes timed (kernel, plain version, SDPA) besides being checked;
 # a shape with ids is also timed without them (noid_ms: no mask, every
 # tile visited).
-TIMED_SHAPES = ("llama", "bert", "vit", "s2s-cross") + tuple(
+TIMED_SHAPES = ("llama", "bert", "vit", "s2s-cross", "qwen3next") + tuple(
     label for label, _, _ in FLASH_SHAPES if label.startswith("sp-"))
+# Timed shapes whose SDPA yardstick is each of its backends pinned in turn
+# (the fastest that takes the inputs, by direction): SDPA's own choice has
+# moved its backward by 3x from call to call at L.
+PINNED_SDPA = ("qwen3next",)
+# The zigzag hop of a Qwen3-Next-headed model on the same ring (q [1, 4096,
+# 16*256], kv [1, 4096, 2*256]): the 256-wide bodies with ids. Checked, not
+# timed.
+FLASH_SHAPES.append(("sp-zigzag-r0-s0-d256",
+                     dict(SP_HOP, h=16, hkv=2, d=256, ids=("zigzag", 0, 0)),
+                     ("flat",)))
 # The tilings the bodies classify ids on: (q rows, k rows) of the bf16
 # forward and dq, the bf16 dk/dv, and the f32 bodies.
 ID_TILINGS = {"fwd/dq bf16": (128, 64), "dkv bf16": (64, 128),
-              "f32": (64, 64)}
+              "f32, dq and dk/dv bf16 at 256": (64, 64)}
 FLASH_NAMES = {
     "flat": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
     "bhsd": ("flash_bhsd_fwd", "flash_bhsd_bwd_dq", "flash_bhsd_bwd_dkv"),
@@ -757,13 +804,16 @@ def _kernel_name(mangled: str) -> str:
         return mangled
     n = int(m.group(1))
     name, rest = m.group(2)[:n], m.group(2)[n:]
-    # Template arguments: a head dim or an element type, then the IDS
-    # flag where the kernel has one.
-    arg = re.match(r"I(?:Li(\d+)E|(f)|(13__nv_bfloat16))(?:Lb([01])E)?E", rest)
+    # Template arguments: a head dim or an element type (then the SIMT
+    # bodies' width), then the IDS flag where the kernel has one.
+    arg = re.match(r"I(?:Li(\d+)E|(f)|(13__nv_bfloat16))(?:Li(\d+)E)?"
+                   r"(?:Lb([01])E)?E", rest)
     if arg:
         first = arg.group(1) or ("float" if arg.group(2) else "bf16")
         if arg.group(4) is not None:
-            first += ", true" if arg.group(4) == "1" else ", false"
+            first += f", {arg.group(4)}"
+        if arg.group(5) is not None:
+            first += ", true" if arg.group(5) == "1" else ", false"
         name += f"<{first}>"
     return f"{ns}::{name}"
 
@@ -808,11 +858,11 @@ def sass_tensor_ops(name: str) -> dict:
 
 
 # The tensor-core body of each flash kernel's library (bf16), each
-# instantiated at the head dims 64 and 128, without and with ids
-# (<DP, IDS>).
+# instantiated at the head dims 64, 128 and 256, without and with ids
+# (<DP, IDS>; dk/dv's 256 body is bwd_dkv_kernel_tc_split).
 TC_BODIES = ("flash::fwd_kernel_tc", "flash::bwd_dq_kernel_tc",
              "flash::bwd_dkv_kernel_tc")
-TC_HEAD_DIMS = (64, 128)
+TC_HEAD_DIMS = (64, 128, 256)
 TC_INSTANCES = sorted(f"{d}, {ids}" for d in TC_HEAD_DIMS
                       for ids in ("false", "true"))
 
@@ -880,7 +930,9 @@ def check_kernels() -> dict:
             # SDPA on the same function: the ids' mask when there are ids.
             mask = (None if ids[0] is None else
                     ids[1][None, :] <= ids[0][:, None])
-            lib_ms = _sdpa_ms(q4, k4, v4, do4, causal, mask)
+            lib_ms = (_pinned_sdpa_ms(label, q4, k4, v4, do4, causal)
+                      if label in PINNED_SDPA else
+                      _sdpa_ms(q4, k4, v4, do4, causal, mask))
         for layout in layouts:
             ops = _in_layout((q4, k4, v4, do4), layout)
             qx, kx, vx, dox = ops
@@ -947,6 +999,9 @@ def check_kernels() -> dict:
                     "library_ms": lib_ms["fwd" if kind == "fwd" else "bwd"],
                     "max_abs_err": errs[i][0], "norm_rel_err": errs[i][1],
                 }
+                if "backend" in lib_ms:  # PINNED_SDPA: the backend timed
+                    rec["library_backend"] = lib_ms["backend"][
+                        "fwd" if kind == "fwd" else "bwd"]
                 if noid is not None:
                     # The same kernel without ids (no mask) at this shape,
                     # and the id kernel's device time alone (ten launches
@@ -956,7 +1011,8 @@ def check_kernels() -> dict:
                 timed[name, label] = rec
                 log(f"kernel {name} [{label}] timing: " + json.dumps(
                     {k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms", "noid_ms",
+                                         "bound_by", "library_ms",
+                                         "library_backend", "noid_ms",
                                          "graph_ms")
                      if k in rec}))
             # The backward pair as the autograd backward runs it, against
@@ -973,12 +1029,13 @@ def check_kernels() -> dict:
         del q4, k4, v4, do4
         torch.cuda.empty_cache()
     # A CUDA tensor the kernels do not take raises; it never falls back
-    # to the plain version.
+    # to the plain version: fp16, and a head dim past the widest body (257)
+    # in either type, whose error names the limit.
     x16 = torch.zeros(1, 64, 2 * 128, device="cuda", dtype=torch.float16)
-    x256 = torch.zeros(1, 64, 2 * 256, device="cuda")
-    # bf16 rows are read in 16-byte chunks: a head dim of 20 is refused.
-    x20 = torch.zeros(1, 64, 2 * 20, device="cuda", dtype=torch.bfloat16)
-    for bad, err in ((x16, TypeError), (x256, ValueError), (x20, ValueError)):
+    x257 = torch.zeros(1, 64, 2 * 257, device="cuda")
+    limit = f"<= {attn._KERNEL_MAX_D}"
+    for bad, err, says in ((x16, TypeError, ""), (x257, ValueError, limit),
+                           (x257.bfloat16(), ValueError, limit)):
         for fn in (lambda x: attn.flash_fwd(x, x, x, 2, 0.1, True),
                    lambda x: attn.flash_bhsd_fwd(
                        x.reshape(2, 64, -1), x.reshape(2, 64, -1),
@@ -986,11 +1043,15 @@ def check_kernels() -> dict:
             try:
                 fn(bad)
             except err as e:
+                if says not in str(e):
+                    raise AssertionError(f"the refusal {e!r} does not name "
+                                         f"the limit {says!r}") from e
                 log(f"kernel flash refuses {bad.dtype} d={bad.shape[2] // 2}: "
                     f"{type(e).__name__}: {e}")
             else:
                 raise AssertionError("a flash kernel accepted operands it "
                                      "cannot take")
+    timed.update(time_head_pad())
 
     records = {}
     for layout, names in FLASH_NAMES.items():
@@ -1008,6 +1069,52 @@ def check_kernels() -> dict:
     return records
 
 
+# A ragged bf16 head dim at a training size: Qwen3-Next's heads at d=100,
+# which the wrappers pad to 104 (and run on the 128 bodies).
+PAD_SHAPE = dict(b=2, sq=2048, sk=2048, h=16, hkv=2, d=100, dtype="bf16",
+                 causal=True)
+
+
+def time_head_pad() -> dict:
+    """The cost of the wrappers' zero padding of a ragged bf16 head dim:
+    each flat kernel's wrapper at PAD_SHAPE (q, k, v and do padded from
+    100 to 104 columns a head, out, dq, dk and dv cut back) against the
+    same wrapper on inputs already 104 wide (no copy), with the same
+    scale. The two forwards' outputs must agree bit for bit on the first
+    100 columns. Returns {(kernel, "pad-d100"): {"ms", "unpadded_ms",
+    "pad_ms"}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from mpi_operator_tpu_torch.ops import attention as attn
+
+    s = PAD_SHAPE
+    d, h, scale = s["d"], s["h"], s["d"] ** -0.5
+    drawn = _flash_draw(s, torch.Generator(device="cuda").manual_seed(5))
+    times, outs = {}, {}
+    for tag, ts in (("ms", drawn),
+                    ("unpadded_ms", [F.pad(t, (0, 104 - d)) for t in drawn])):
+        qx, kx, vx, dox = _in_layout(ts, "flat")
+        kernels = _flash_calls(attn, "flat", h, scale, True, (None, None))[0]
+        out, lse = kernels[0](qx, kx, vx)
+        outs[tag] = out.reshape(*lse.shape, -1)[..., :d]
+        delta = attn.flat_delta(dox, out, h)
+        args = ((qx, kx, vx), (qx, kx, vx, dox, lse, delta))
+        for i, name in enumerate(FLASH_NAMES["flat"]):
+            times.setdefault(name, {})[tag] = time_ms(
+                lambda: kernels[i](*args[min(i, 1)]), 2, 10)
+    same = torch.equal(outs["ms"], outs["unpadded_ms"])
+    for name, t in times.items():
+        t["pad_ms"] = t["ms"] - t["unpadded_ms"]
+        log(f"kernel {name} [pad-d100 {s}] timing: " + json.dumps(t))
+    log(f"kernel flash_fwd [pad-d100]: padded and 104-wide outputs "
+        f"{'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("the padded forward differs from the kernel on "
+                             "104-wide inputs")
+    return {(name, "pad-d100"): t for name, t in times.items()}
+
+
 def _graph_ms(fn, launches: int = 10) -> float:
     """Device ms a call of ``fn``: ``launches`` calls captured in one CUDA
     graph (_captured), the replay timed by CUDA events."""
@@ -1022,6 +1129,31 @@ def _kernel_record(kernel: str, replaces: str, rec: dict, shape: str,
     source = "mpi_operator_tpu_torch/csrc/" + _build.KERNELS[kernel][0]
     return {"name": name or kernel, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0, "shape": shape, **rec}
+
+
+def _pinned_sdpa_ms(label: str, q, k, v, do, causal: bool) -> dict:
+    """_sdpa_ms under each fused SDPA backend pinned in turn; the fastest
+    forward and the fastest backward among those that take the inputs,
+    with the backend each came from under ``backend``."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    best: dict = {"backend": {}}
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel([backend]):
+                ms = _sdpa_ms(q, k, v, do, causal)
+        except RuntimeError as e:
+            log(f"kernel sdpa [{label}] {backend.name} refuses the inputs: "
+                f"{str(e).splitlines()[0][:160]}")
+            continue
+        log(f"kernel sdpa [{label}] {backend.name} pinned: " + json.dumps(ms))
+        for way in ("fwd", "bwd"):
+            if way not in best or ms[way] < best[way]:
+                best[way], best["backend"][way] = ms[way], backend.name
+    if "fwd" not in best:
+        raise AssertionError(f"no SDPA backend takes the {label} inputs")
+    return best
 
 
 def _sdpa_ms(q, k, v, do, causal: bool, mask=None) -> dict:
@@ -1387,18 +1519,29 @@ def check_head() -> dict:
     return rec
 
 
-def check_model() -> None:
-    """llama3-8b, full width, 2 layers, B=1, S=256: loss and gradients
-    through the flat kernels (``flash``) and the [B*H, S, D] kernels
-    behind transposes (``flash-bhsd``) against the dense oracle on the
-    same weights; each route's launch counters show its own kernels and
-    no others."""
+# Qwen3-Next's attention heads (its full-attention layers: 16 q and 2 kv
+# heads of 256) on llama3-8b's width, through config_for's overrides as in
+# the JAX package: dim 4096 = 16 x 256, so the attention's cost per token
+# is llama3-8b's.
+WIDE_HEADS = dict(n_heads=16, n_kv_heads=2)
+
+
+def check_model(label: str = "llama3-8b/2 layers", **overrides) -> None:
+    """llama3-8b (with ``overrides``), full width, 2 layers, B=1, S=256:
+    loss and gradients through the flat kernels (``flash``) and the
+    [B*H, S, D] kernels behind transposes (``flash-bhsd``) against the
+    dense oracle on the same weights; each route's launch counters show
+    its own kernels and no others."""
     import torch
 
     from mpi_operator_tpu_torch.models import llama as lib
     from mpi_operator_tpu_torch.ops import attention as attn
 
-    cfg = lib.llama3_8b(n_layers=2, xent_chunk=128)
+    def config(**kw):
+        return lib.config_for("llama3-8b", n_layers=2, xent_chunk=128,
+                              **overrides, **kw)
+
+    cfg = config()
     tokens = torch.randint(
         0, cfg.vocab_size, (1, 256), device="cuda",
         generator=torch.Generator(device="cuda").manual_seed(1),
@@ -1406,8 +1549,7 @@ def check_model() -> None:
     results = {}
     state = None
     for impl in ("flash", "flash-bhsd", "dense"):
-        model = lib.Llama(lib.llama3_8b(n_layers=2, xent_chunk=128,
-                                        attention_impl=impl), device="cuda")
+        model = lib.Llama(config(attention_impl=impl), device="cuda")
         if state is None:
             lib.init_params(model, torch.Generator(device="cuda").manual_seed(0))
             state = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -1431,7 +1573,8 @@ def check_model() -> None:
         launches_ok = all((n > 0) == (k in own) for k, n in launches.items())
         ok = (math.isfinite(lf) and loss_rel <= MODEL_LOSS_REL_TOL
               and worst[0] <= MODEL_GRAD_NORM_REL_TOL and launches_ok)
-        log(f"model llama3-8b/2 layers B=1 S=256 {impl}: loss kernel={lf:.6f} "
+        log(f"model {label} (head dim {cfg.head_dim}) B=1 S=256 {impl}: "
+            f"loss kernel={lf:.6f} "
             f"oracle={ld:.6f} rel={loss_rel:.3e} (tol "
             f"{MODEL_LOSS_REL_TOL:.0e}); worst grad norm_rel={worst[0]:.3e} "
             f"at {worst[1]} (tol {MODEL_GRAD_NORM_REL_TOL:.0e}); kernel "
@@ -2092,7 +2235,29 @@ def run_resnet_train() -> tuple[dict, dict]:
     return summary, launches
 
 
-def run_train(argv=TRAIN_ARGS) -> tuple[dict, dict]:
+@contextlib.contextmanager
+def _llama3_8b_with(**overrides):
+    """``--model llama3-8b`` of the trainer built with ``overrides`` to
+    its config (cmd.train has no flag for them, as the JAX CLI has none)."""
+    from mpi_operator_tpu_torch.models import llama as lib
+
+    saved = lib.CONFIGS["llama3-8b"]
+    lib.CONFIGS["llama3-8b"] = lambda **kw: saved(**overrides, **kw)
+    try:
+        yield
+    finally:
+        lib.CONFIGS["llama3-8b"] = saved
+
+
+def run_wide_llama_train() -> dict:
+    """The trainer's Llama run (TRAIN_ARGS: 2 layers, B=2, S=2048, 6
+    AdamW steps) with WIDE_HEADS, through the 256-wide flash bodies: loss
+    finite and falling, launches 24/12/12. Returns the launch counts."""
+    with _llama3_8b_with(**WIDE_HEADS):
+        return run_train(label="llama3-8b 16/2 heads of 256")[1]
+
+
+def run_train(argv=TRAIN_ARGS, label: str = "llama3-8b") -> tuple[dict, dict]:
     """The trainer's own entry point; returns (summary with each step's
     loss under ``curve``, launch counts)."""
     from mpi_operator_tpu_torch.cmd import train
@@ -2106,7 +2271,7 @@ def run_train(argv=TRAIN_ARGS) -> tuple[dict, dict]:
     # per token, against the bf16 dense peak.
     from mpi_operator_tpu_torch.models import llama as lib
 
-    cfg = lib.llama3_8b(n_layers=2)
+    cfg = lib.config_for("llama3-8b", n_layers=2)
     hd, seq = cfg.head_dim, 2048
     per_layer = (cfg.dim * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
                  + cfg.n_heads * hd * cfg.dim + 3 * cfg.dim * cfg.ffn_dim)
@@ -2114,7 +2279,7 @@ def run_train(argv=TRAIN_ARGS) -> tuple[dict, dict]:
     flops_per_token = 6 * n_matmul + 6 * cfg.n_layers * cfg.dim * seq
     summary["mfu_bf16_peak"] = (
         summary["tokens_per_sec"] * flops_per_token / PEAK_FLOPS["bf16"])
-    log("train summary: " + json.dumps(summary))
+    log(f"train {label} summary: " + json.dumps(summary))
     layers, steps = 2, summary["steps"]
     # Under remat 'full' each layer's forward runs again in the backward;
     # 'dots' keeps the flash forward's (out, lse).
@@ -2124,7 +2289,7 @@ def run_train(argv=TRAIN_ARGS) -> tuple[dict, dict]:
                            "flash_bwd_dkv": layers * steps})
     ok = (steps == 6 and math.isfinite(summary["loss"])
           and summary["loss"] < summary["first_loss"] and launches == want)
-    log(f"train launches {launches} (want {want}); loss "
+    log(f"train {label} launches {launches} (want {want}); loss "
         f"{summary['first_loss']:.4f} -> {summary['loss']:.4f} -> "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -6277,10 +6442,12 @@ def main(argv=None) -> int:
         check_head()
         log(f"card: {card}; kernels phase done in "
             f"{time.perf_counter() - t0:.1f} s")
-    bn_paths = {}
+    bn_paths, wide_launches = {}, {}
     if "model" in phases:
         t0 = time.perf_counter()
         check_model()
+        check_model("llama3-8b/2 layers, 16/2 heads", **WIDE_HEADS)
+        wide_launches = run_wide_llama_train()
         check_resnet_model()
         bn_paths = check_resnet_options()
         check_bert_model()
@@ -6337,6 +6504,9 @@ def main(argv=None) -> int:
                     **{k: c[name] for k, (_, c) in flat_runs.items()},
                     "llama3-8b --data": d_launches[name],
                     "eval": e_launches[name]}
+                if wide_launches:
+                    rec["launches_by_path"]["llama3-8b 16/2 heads of 256"] = (
+                        wide_launches[name])
         log(f"card: {card}; train llama tokens/s "
             f"{summary.get('tokens_per_sec')} step_ms {summary['step_ms']}; "
             f"train resnet101 images/s {r_summary['examples_per_sec']} "

@@ -15,7 +15,8 @@
 //
 // bf16 design (bwd_dq_kernel_tc): one block per (q tile of 128 rows, q
 // head, batch), 256 threads = two warpgroups of 64 q rows that share each
-// k / v tile; the k tiles are a loop inside the block with the dQ
+// k / v tile (at DP = 256: 64 rows, one warpgroup; see the budget below);
+// the k tiles are a loop inside the block with the dQ
 // accumulator in f32 registers, so dq is scaled and written once, with no
 // atomics and no expanded kv (GQA by index). Every product is a wgmma, and
 // no tile is ever transposed:
@@ -35,19 +36,26 @@
 // forward; the q tile index runs slowest on the grid, from the last tile,
 // so the heaviest causal tiles are launched first.
 //
-// Tiles and budget: BQ = 128, BK = 64 at both instantiated head dims (64
-// and 128; another D that is a multiple of 8 runs on the next one,
-// zero-filled). Shared memory Q + dO 128 x DP and 2 stages x (K + V)
-// 64 x DP in bf16: 65 KB at DP = 64 (two blocks an SM), 129 KB at DP = 128
-// (one). Registers: dQ DP / 2, S 32, dP 32 f32 accumulators a thread, so
-// 128 at DP = 128 (launch bound one block of 256 threads, <= 255 a
-// thread) and 96 at DP = 64 (two blocks, <= 128 a thread). With ids, 512
-// B of column ids and the live list, 4 B a k tile; instantiated without
-// and with ids (IDS), as the forward.
+// Tiles and budget: BK = 64 at the three instantiated head dims (64, 128
+// and 256; another D that is a multiple of 8 runs on the next one,
+// zero-filled), BQ = 128 at DP <= 128. Shared memory Q + dO BQ x DP and 2
+// stages x (K + V) 64 x DP in bf16: 65 KB at DP = 64 (two blocks an SM),
+// 129 KB at DP = 128 (one). At DP = 256 that layout would take 256 KB,
+// over the 227 KB a block may have, so the block holds BQ = 64 q rows, one
+// warpgroup of 128 threads, and keeps the 2-stage ring: 193 KB (one block
+// an SM). Registers: dQ DP / 2, S 32, dP 32 f32 accumulators a thread, so
+// 128 at DP = 128 (launch bound one block, <= 255 a thread), 96 at DP = 64
+// (two blocks, <= 128 a thread) and 192 at DP = 256 (one block of 128
+// threads, <= 255 a thread). With ids, 512 B of column ids and the live
+// list, 4 B a k tile; instantiated without and with ids (IDS), as the
+// forward.
 //
 // f32 (bwd_dq_kernel_simt): f32 FMA on tiles staged in shared memory, the
-// 64 x 64 SIMT thread map of flash_common.cuh, with the same tile walk;
-// for the f32 checks.
+// 64 x 64 SIMT thread map of flash_common.cuh, with the same tile walk, at
+// width W = 128 or 256; for the f32 checks. At W = 256, Q, dO, K and V in
+// f32 would take 263 KB, so K and V share one buffer: V is staged for
+// dP = dO V^T, then K for S = Q K^T and dQ += dS K (each read once, as
+// before), 214 KB at D = 256.
 #pragma once
 
 #include "flash_common.cuh"
@@ -60,9 +68,10 @@ namespace flash {
 
 template <int DP>
 struct DqTc {
-  static constexpr int BQ = 128;       // two warpgroups of 64 q rows
+  // Two warpgroups of 64 q rows, or one at DP = 256 (shared memory).
+  static constexpr int BQ = DP <= 128 ? 128 : 64;
   static constexpr int BK = 64;        // k / v rows per ring stage
-  static constexpr int THREADS = 256;
+  static constexpr int THREADS = 2 * BQ;
   static constexpr int MIN_BLOCKS = DP <= 64 ? 2 : 1;  // blocks an SM
   static constexpr int NB = DP / 64;   // 64-column blocks of the head dim
   static constexpr int Q_BYTES = BQ * DP * 2;   // Q or dO
@@ -284,8 +293,9 @@ cudaError_t launch_dq_tc(const void* q, const void* k, const void* v,
 // f32: the SIMT body
 // ---------------------------------------------------------------------------
 
-// IDS: the instantiation for launches with row/col ids.
-template <typename T, bool IDS>
+// W: the body's width (D <= W; at 256 K and V share one buffer); IDS:
+// the instantiation for launches with row/col ids.
+template <typename T, int W, bool IDS>
 __global__ void __launch_bounds__(THREADS)
     bwd_dq_kernel_simt(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ dout,
@@ -293,12 +303,14 @@ __global__ void __launch_bounds__(THREADS)
                        const float* __restrict__ delta, T* __restrict__ dq,
                        const Geom g) {
   extern __shared__ float smem_f[];
+  constexpr bool ONE_KV = W > SIMT_NARROW;  // K and V share one buffer
+  constexpr int DPT = W / 16;  // head-dim columns per thread
   const int D = g.D;
   const int ld = D + 1;
   float* Qs = smem_f;          // [BQ][ld]
   float* dOs = Qs + BQ * ld;   // [BQ][ld]
   float* Ks = dOs + BQ * ld;   // [BK][ld]
-  float* Vs = Ks + BK * ld;    // [BK][ld]
+  float* Vs = ONE_KV ? Ks : Ks + BK * ld;  // [BK][ld]
   float* DSs = Vs + BK * ld;   // [BQ][BK + 1]
   // With ids: the k tile's column ids, then the live k tiles.
   int* Cid = reinterpret_cast<int*>(DSs + BQ * (BK + 1));  // [BK]
@@ -335,36 +347,68 @@ __global__ void __launch_bounds__(THREADS)
   for (int it = 0; it < n_kt; ++it) {
     const int e = ids ? list[it] : 0;
     const int k0 = (ids ? e >> 1 : it) * BK;
-    __syncthreads();
-    load_tile(Ks, k, g.kvs, b, hk, k0, g.kv_len, D);
-    load_tile(Vs, v, g.kvs, b, hk, k0, g.kv_len, D);
-    if (ids) load_ids(Cid, g.col_ids, k0, g.kv_len);
-    __syncthreads();
-
     float s[RPT][CPT], dp[RPT][CPT];
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
       for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[RPT], dov[RPT], kv[CPT], vv[CPT];
+    __syncthreads();
+    if constexpr (ONE_KV) {
+      // dP = dO V^T with V in the shared buffer, then K takes its place.
+      load_tile(Vs, v, g.kvs, b, hk, k0, g.kv_len, D);
+      if (ids) load_ids(Cid, g.col_ids, k0, g.kv_len);
+      __syncthreads();
+      for (int d = 0; d < D; ++d) {
+        float dov[RPT], vv[CPT];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        qv[i] = Qs[(tr * RPT + i) * ld + d];
-        dov[i] = dOs[(tr * RPT + i) * ld + d];
+        for (int i = 0; i < RPT; ++i) dov[i] = dOs[(tr * RPT + i) * ld + d];
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) vv[j] = Vs[(tc + 16 * j) * ld + d];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
       }
+      __syncthreads();
+      load_tile(Ks, k, g.kvs, b, hk, k0, g.kv_len, D);
+      __syncthreads();
+      for (int d = 0; d < D; ++d) {
+        float qv[RPT], kv[CPT];
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        kv[j] = Ks[(tc + 16 * j) * ld + d];
-        vv[j] = Vs[(tc + 16 * j) * ld + d];
+        for (int i = 0; i < RPT; ++i) qv[i] = Qs[(tr * RPT + i) * ld + d];
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) kv[j] = Ks[(tc + 16 * j) * ld + d];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
       }
+    } else {
+      load_tile(Ks, k, g.kvs, b, hk, k0, g.kv_len, D);
+      load_tile(Vs, v, g.kvs, b, hk, k0, g.kv_len, D);
+      if (ids) load_ids(Cid, g.col_ids, k0, g.kv_len);
+      __syncthreads();
+
+      for (int d = 0; d < D; ++d) {
+        float qv[RPT], dov[RPT], kv[CPT], vv[CPT];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
+        for (int i = 0; i < RPT; ++i) {
+          qv[i] = Qs[(tr * RPT + i) * ld + d];
+          dov[i] = dOs[(tr * RPT + i) * ld + d];
+        }
 #pragma unroll
         for (int j = 0; j < CPT; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+          kv[j] = Ks[(tc + 16 * j) * ld + d];
+          vv[j] = Vs[(tc + 16 * j) * ld + d];
         }
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) {
+            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+            dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+          }
+      }
     }
 
 #pragma unroll
@@ -412,16 +456,18 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T>
+template <typename T, int W>
 cudaError_t launch_dq_simt(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse,
                            const void* delta, void* dq, const Geom& g,
                            cudaStream_t stream) {
+  const int kv_tiles = W > SIMT_NARROW ? 1 : 2;  // K and V, or one buffer
   const size_t smem =
-      sizeof(float) * ((size_t)(2 * BQ + 2 * BK) * (g.D + 1) + BQ * (BK + 1)) +
+      sizeof(float) * ((size_t)(2 * BQ + kv_tiles * BK) * (g.D + 1) +
+                       BQ * (BK + 1)) +
       (g.row_ids != nullptr ? 4 * BK + id_list_bytes(g.kv_len, BK) : 0);
-  const auto kernel =
-      g.row_ids != nullptr ? bwd_dq_kernel_simt<T, true> : bwd_dq_kernel_simt<T, false>;
+  const auto kernel = g.row_ids != nullptr ? bwd_dq_kernel_simt<T, W, true>
+                                            : bwd_dq_kernel_simt<T, W, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -443,11 +489,17 @@ inline int bwd_dq(const void* q, const void* k, const void* v,
   if (bad_shape(g)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!is_bf16)
-    return (int)launch_dq_simt<float>(q, k, v, dout, lse, delta, dq, g, s);
+    return (int)(g.D <= SIMT_NARROW
+                     ? launch_dq_simt<float, SIMT_NARROW>(q, k, v, dout, lse,
+                                                          delta, dq, g, s)
+                     : launch_dq_simt<float, MAX_D>(q, k, v, dout, lse, delta,
+                                                    dq, g, s));
   if (bad_tc_operands(g, {q, k, v, dout, dq})) return (int)cudaErrorInvalidValue;
   return (int)(g.D <= 64
                    ? launch_dq_tc<64>(q, k, v, dout, lse, delta, dq, g, s)
-                   : launch_dq_tc<128>(q, k, v, dout, lse, delta, dq, g, s));
+               : g.D <= 128
+                   ? launch_dq_tc<128>(q, k, v, dout, lse, delta, dq, g, s)
+                   : launch_dq_tc<256>(q, k, v, dout, lse, delta, dq, g, s));
 }
 
 }  // namespace flash

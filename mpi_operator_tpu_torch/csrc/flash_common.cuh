@@ -27,8 +27,10 @@
 // SIMT tiles: 64 rows of q by 64 rows of k, 256 threads. Thread t owns tile
 // rows 4 * (t / 16) + i (i < 4) and tile columns (t % 16) + 16 * j (j < 4);
 // for the [rows, D] accumulators it owns head-dim columns (t % 16) + 16 * j
-// (j < 8, so D <= 128). The 16 threads that share a row are one half of a
-// warp, so row max / row sum are four xor-shuffles.
+// (j < W / 16). Each SIMT body is instantiated at two widths W, 128 for
+// D <= 128 (SIMT_NARROW) and 256 above (MAX_D), so that D <= 128 keeps its
+// registers. The 16 threads that share a row are one half of a warp, so
+// row max / row sum are four xor-shuffles.
 //
 // Masking follows the JAX kernels exactly:
 // finite NEG_INF = -1e30 (never -inf, so inf - inf never makes a NaN),
@@ -71,8 +73,8 @@ static_assert(BQ == 64 && BK == 64, "the thread map assumes 64 x 64 tiles");
 constexpr int THREADS = 256;
 constexpr int RPT = 4;        // tile rows per thread (64 rows / 16 row groups)
 constexpr int CPT = 4;        // tile columns per thread (64 columns / 16 lanes)
-constexpr int MAX_D = 128;
-constexpr int DPT = MAX_D / 16;  // head-dim columns per thread
+constexpr int MAX_D = 256;        // the widest head dim any body takes
+constexpr int SIMT_NARROW = 128;  // the SIMT bodies' width for D <= 128
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;  // exp(x) = exp2(x * LOG2E)
 constexpr float LN2 = 0.6931471805599453f;
@@ -442,7 +444,8 @@ __device__ __forceinline__ uint32_t acc_visible_ids_t(const int (&cid)[2],
 }
 
 // The bf16 tensor-core bodies read 16-byte chunks of rows: the head dim
-// must be a multiple of 8 and every operand 16-byte aligned.
+// must be a multiple of 8 and every operand 16-byte aligned (the wrappers
+// pad another head dim with zero columns to the next multiple of 8).
 inline bool bad_tc_operands(const Geom& g,
                             std::initializer_list<const void*> ptrs) {
   if (g.D % 8 != 0) return true;

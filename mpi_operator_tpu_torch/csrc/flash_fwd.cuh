@@ -31,21 +31,25 @@
 // (heaviest) q tiles are launched first, and GQA shares kv heads by
 // index, never by copy.
 //
-// Tiles and budget: BQ = 128, BK = 64 at both instantiated head dims (64
-// and 128; another D that is a multiple of 8 runs on the next one with its
-// columns past D zero-filled). Shared memory Q 128 x DP + 2 stages x (K +
-// V) 64 x DP in bf16: 49 KB at DP = 64, 97 KB at DP = 128, so two blocks
-// fit an SM's 228 KB; with ids 512 B of column ids and the live list, 4 B
-// a k tile, more; registers (launch bound 2 blocks of 256 threads, <= 128
-// a thread): O DP / 2, S 32, m and l 4, P 16 (reusing S). Each body is
+// Tiles and budget: BQ = 128, BK = 64 at the three instantiated head dims
+// (64, 128 and 256; another D that is a multiple of 8 runs on the next one
+// with its columns past D zero-filled, and the wrapper pads any other D
+// with zero columns to a multiple of 8). Shared memory Q 128 x DP + 2
+// stages x (K + V) 64 x DP in bf16: 49 KB at DP = 64, 97 KB at DP = 128,
+// so two blocks fit an SM's 228 KB, and 193 KB at DP = 256, one block;
+// with ids 512 B of column ids and the live list, 4 B a k tile, more.
+// Registers: O DP / 2, S 32, m and l 4, P 16 (reusing S): under the launch
+// bound of 2 blocks of 256 threads (<= 128 a thread) at DP <= 128, and of
+// one block (<= 255) at DP = 256, where O alone takes 128. Each body is
 // instantiated without and with ids (IDS), so that neither carries the
 // other's state: the no-id one is the design above unchanged, and at
 // DP = 128 it sits at the 128-register bound.
 //
 // f32 (fwd_kernel_simt): f32 FMA on tiles staged in shared memory, the
 // 64 x 64 SIMT thread map of flash_common.cuh, with the same tile walk (its
-// ids classified on 64 x 64 tiles). It is for checks that hold f32 to
-// 2e-5; f32 has no tensor-core path of that precision.
+// ids classified on 64 x 64 tiles), at width W = 128 or 256: Q 64 x D and
+// K and V 64 x D in f32 with P 64 x 64, 214 KB at D = 256. It is for checks
+// that hold f32 to 2e-5; f32 has no tensor-core path of that precision.
 #pragma once
 
 #include "flash_common.cuh"
@@ -61,6 +65,7 @@ struct FwdTc {
   static constexpr int BQ = 128;       // two warpgroups of 64 q rows
   static constexpr int BK = 64;        // k / v rows per ring stage
   static constexpr int THREADS = 256;
+  static constexpr int MIN_BLOCKS = DP <= 128 ? 2 : 1;  // blocks an SM
   static constexpr int NB = DP / 64;   // 64-column blocks of the head dim
   static constexpr int Q_BYTES = BQ * DP * 2;
   static constexpr int KV_BYTES = BK * DP * 2;  // one K or V tile
@@ -110,7 +115,7 @@ __device__ __forceinline__ void fwd_softmax(float (&s)[32], float (&m)[2],
 // IDS: the instantiation for launches with row/col ids (the other never
 // reads them), so neither carries the other's state in registers.
 template <int DP, bool IDS>
-__global__ void __launch_bounds__(FwdTc<DP>::THREADS, 2)
+__global__ void __launch_bounds__(FwdTc<DP>::THREADS, FwdTc<DP>::MIN_BLOCKS)
     fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
@@ -292,8 +297,9 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
 // f32: the SIMT body
 // ---------------------------------------------------------------------------
 
-// IDS: the instantiation for launches with row/col ids.
-template <typename T, bool IDS>
+// W: the body's width (the accumulators' head-dim columns, D <= W); IDS:
+// the instantiation for launches with row/col ids.
+template <typename T, int W, bool IDS>
 __global__ void __launch_bounds__(THREADS)
     fwd_kernel_simt(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ out,
@@ -316,6 +322,7 @@ __global__ void __launch_bounds__(THREADS)
   const int tr = threadIdx.x / 16;
   const int tc = threadIdx.x % 16;
   constexpr bool ids = IDS;
+  constexpr int DPT = W / 16;  // head-dim columns per thread
 
   load_tile(Qs, q, g.qs, b, h, q0, g.q_len, D);
 
@@ -425,15 +432,15 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T>
+template <typename T, int W>
 cudaError_t launch_fwd_simt(const void* q, const void* k, const void* v,
                             void* out, void* lse, const Geom& g,
                             cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)(BQ + 2 * BK) * (g.D + 1) + BQ * (BK + 1)) +
       (g.row_ids != nullptr ? 4 * BK + id_list_bytes(g.kv_len, BK) : 0);
-  const auto kernel =
-      g.row_ids != nullptr ? fwd_kernel_simt<T, true> : fwd_kernel_simt<T, false>;
+  const auto kernel = g.row_ids != nullptr ? fwd_kernel_simt<T, W, true>
+                                            : fwd_kernel_simt<T, W, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -447,15 +454,21 @@ cudaError_t launch_fwd_simt(const void* q, const void* k, const void* v,
 
 // Checks the geometry and launches: bf16 operands (is_bf16) on the
 // tensor-core body at the instantiated head dim that covers D, f32 on the
-// SIMT body. Returns a cudaError_t (0 = launched).
+// SIMT body of the width that covers it. Returns a cudaError_t (0 =
+// launched).
 inline int fwd(const void* q, const void* k, const void* v, void* out,
                void* lse, const Geom& g, int is_bf16, void* stream) {
   if (bad_shape(g)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!is_bf16) return (int)launch_fwd_simt<float>(q, k, v, out, lse, g, s);
+  if (!is_bf16)
+    return (int)(g.D <= SIMT_NARROW
+                     ? launch_fwd_simt<float, SIMT_NARROW>(q, k, v, out, lse,
+                                                           g, s)
+                     : launch_fwd_simt<float, MAX_D>(q, k, v, out, lse, g, s));
   if (bad_tc_operands(g, {q, k, v, out})) return (int)cudaErrorInvalidValue;
-  return (int)(g.D <= 64 ? launch_fwd_tc<64>(q, k, v, out, lse, g, s)
-                         : launch_fwd_tc<128>(q, k, v, out, lse, g, s));
+  return (int)(g.D <= 64    ? launch_fwd_tc<64>(q, k, v, out, lse, g, s)
+               : g.D <= 128 ? launch_fwd_tc<128>(q, k, v, out, lse, g, s)
+                            : launch_fwd_tc<256>(q, k, v, out, lse, g, s));
 }
 
 }  // namespace flash

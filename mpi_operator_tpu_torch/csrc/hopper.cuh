@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the tensor-core flash bodies
 // (flash_fwd.cuh, flash_bwd_dq.cuh, flash_bwd_dkv.cuh): 16-byte cp.async
-// with zero fill, the 128-byte swizzle of shared-memory tiles, wgmma
-// matrix descriptors, and the one wgmma shape the bodies issue, m64n64k16
-// (bf16 in, f32 accumulate), with A from shared memory or from registers.
+// with zero fill, the 128-byte swizzle of shared-memory tiles, named and
+// cluster barriers, distributed shared memory, wgmma matrix descriptors,
+// and the one wgmma shape the bodies issue, m64n64k16 (bf16 in, f32
+// accumulate), with A from shared memory or from registers.
 //
 // Shared-memory tiles. An operand tile of R rows by W bf16 columns (W a
 // multiple of 64) is stored as W / 64 column blocks, each R rows of 128
@@ -62,6 +63,45 @@ __device__ __forceinline__ void cp_async_wait() {
 // reads shared memory through the async proxy. Then a barrier.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads') over n threads: the
+// producers of a hand-over arrive without waiting, its consumers wait.
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Thread block clusters: this block's rank in its cluster, the shared
+// address of `addr` in the block of rank `rank` (distributed shared
+// memory), a 16-byte store there, and a barrier over every thread of the
+// cluster that orders the shared-memory writes before it (release) with
+// the reads after it (acquire).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
 }
 
 // wgmma matrix descriptor, SWIZZLE_128B: start address, leading and

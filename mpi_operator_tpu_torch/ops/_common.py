@@ -11,39 +11,48 @@ import torch
 #   rings; csrc/flash_fwd.cuh, csrc/flash_bwd_dq.cuh and
 #   csrc/flash_bwd_dkv.cuh hold their tiles): the forward and dq 128 q
 #   rows a block (two warpgroups of 64) by 64-row k/v tiles, dk/dv 128 k
-#   rows a block by 64-row q tiles. They are instantiated at head dims 64
-#   and 128; another head dim that is a multiple of 8 runs on the next
-#   one up with its extra columns zero-filled in shared memory
-#   (flash_tc_head_dim).
+#   rows a block by 64-row q tiles. They are instantiated at head dims 64,
+#   128 and 256 (at 256 dq holds 64 q rows a block and dk/dv 64 k rows,
+#   its two warpgroups splitting dK from dV, to fit shared memory and
+#   registers); another head dim runs on the next one up with its extra
+#   columns zero-filled in shared memory (flash_tc_head_dim), after the
+#   wrapper pads one that is not a multiple of 8 with zero columns to the
+#   next multiple (flash_padded_head_dim: the bodies load rows in 16-byte
+#   chunks).
 # - f32 forward, dq and dk/dv keep the SIMT thread map below (256
 #   threads; each thread owns 4 rows x 4 columns of a 64 x 64 score tile
-#   and 4 rows x 8 head-dim columns of the accumulators): f32 FMA on f32
-#   tiles in shared memory. ops/_build.py passes these to nvcc as -D
-#   defines; the kernels' static_assert refuses any other value.
+#   and 4 rows x W/16 head-dim columns of the accumulators, W = 128 or
+#   256): f32 FMA on f32 tiles in shared memory. ops/_build.py passes these
+#   to nvcc as -D defines; the kernels' static_assert refuses any other
+#   value.
 # ----------------------------------------------------------------------
 
 DEFAULT_BLOCK_Q = 64   # SIMT flash q-tile (rows per block)
 DEFAULT_BLOCK_K = 64   # SIMT flash k-tile (rows per inner step)
-FLASH_TC_HEAD_DIMS = (64, 128)  # head dims of the bf16 tensor-core bodies
+# Head dims of the bf16 tensor-core bodies; the last is every flash
+# kernel's widest (csrc/flash_common.cuh MAX_D).
+FLASH_TC_HEAD_DIMS = (64, 128, 256)
+
+
+def flash_padded_head_dim(head_dim: int) -> int:
+    """The head dim a bf16 flash launch hands the kernel: ``head_dim``
+    rounded up to a multiple of 8 (the bodies load rows in 16-byte
+    chunks), the columns past ``head_dim`` zeros that the wrapper adds to
+    q, k, v and do and slices off out, dq, dk and dv."""
+    return -(-head_dim // 8) * 8
 
 
 def flash_tc_head_dim(head_dim: int) -> int:
     """The head dim a bf16 flash launch at ``head_dim`` runs at: the
     smallest of FLASH_TC_HEAD_DIMS that covers it (the columns past
-    ``head_dim`` are zero-filled in shared memory and never stored).
-    Raises ValueError for a head dim those bodies cannot take: one that
-    is not a multiple of 8 (they load rows in 16-byte chunks) or wider
-    than the widest."""
-    if head_dim < 1 or head_dim % 8:
-        raise ValueError(
-            f"the bf16 flash kernels take head_dim a multiple of 8 (they "
-            f"load rows in 16-byte chunks), got {head_dim}")
-    for width in FLASH_TC_HEAD_DIMS:
-        if head_dim <= width:
-            return width
+    ``head_dim``, or past its padded width, are zero-filled in shared
+    memory and never stored). Raises ValueError for a head dim those
+    bodies cannot take: below 1 or wider than the widest."""
+    if 1 <= head_dim <= FLASH_TC_HEAD_DIMS[-1]:
+        return next(w for w in FLASH_TC_HEAD_DIMS if head_dim <= w)
     raise ValueError(
-        f"the bf16 flash kernels take head_dim <= {FLASH_TC_HEAD_DIMS[-1]}, "
-        f"got {head_dim}")
+        f"the bf16 flash kernels take head_dim between 1 and "
+        f"{FLASH_TC_HEAD_DIMS[-1]}, got {head_dim}")
 
 # ----------------------------------------------------------------------
 # BN reductions (csrc/bn_stats.cu, csrc/bn_grads.cu) over an [M, C]

@@ -29,9 +29,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
-from ._common import flash_tc_head_dim
+from ._common import FLASH_TC_HEAD_DIMS, flash_padded_head_dim
 
 NEG_INF = -1e30  # safe "minus infinity": avoids inf-inf -> nan in masking
 
@@ -44,7 +45,7 @@ LAUNCHES = {
 }
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-_KERNEL_MAX_D = 128  # csrc/flash_common.cuh MAX_D
+_KERNEL_MAX_D = FLASH_TC_HEAD_DIMS[-1]  # csrc/flash_common.cuh MAX_D
 
 
 # The flat kernels' launches since the last reset_launch_counts(), by
@@ -307,9 +308,30 @@ def _kernel_device(same_type, others, head_dim: int):
                 f"the flash kernels take head_dim <= {_KERNEL_MAX_D}, got "
                 f"{head_dim}"
             )
-        if tensors[0].dtype == torch.bfloat16:
-            flash_tc_head_dim(head_dim)  # raises for a width bf16 cannot take
     return device
+
+
+def _launch_head_dim(dtype, d: int) -> int:
+    """The head dim a launch hands the kernel: ``d``, or in bf16 ``d``
+    rounded up to a multiple of 8 (flash_padded_head_dim)."""
+    return flash_padded_head_dim(d) if dtype == torch.bfloat16 else d
+
+
+def _pad_head_dim(x: torch.Tensor, d: int, dp: int) -> torch.Tensor:
+    """[..., n*d] -> [..., n*dp]: each head's d columns, then dp - d
+    zeros, which add nothing to q k^T, p v or any gradient (a copy only
+    when dp > d)."""
+    if dp == d:
+        return x
+    return F.pad(x.unflatten(-1, (-1, d)), (0, dp - d)).flatten(-2)
+
+
+def _cut_head_dim(x: torch.Tensor, dp: int, d: int) -> torch.Tensor:
+    """The inverse of :func:`_pad_head_dim` on an output: [..., n*dp] ->
+    [..., n*d]."""
+    if dp == d:
+        return x
+    return x.unflatten(-1, (-1, dp))[..., :d].flatten(-2)
 
 
 def _dense(t: torch.Tensor) -> torch.Tensor:
@@ -395,18 +417,19 @@ def _flash_fwd_op(qf, kf, vf, row_ids, col_ids, h, sm_scale, causal):
     if device.type == "cpu":
         return flash_fwd_plain(qf, kf, vf, h, sm_scale, causal, row_ids,
                                col_ids)
-    qf, kf, vf = (_dense(t) for t in (qf, kf, vf))
     b, q_len, kv_len, d, h_kv = _geometry(qf, kf, h)
+    dp = _launch_head_dim(qf.dtype, d)
+    qf, kf, vf = (_dense(_pad_head_dim(t, d, dp)) for t in (qf, kf, vf))
     out = torch.empty_like(qf)
     lse = torch.empty(b, q_len, h, dtype=torch.float32, device=device)
     id_ptrs, _ids = _id_pointers(row_ids, col_ids)
     _launch(
         "flash_fwd", device, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), *id_ptrs, b, q_len, kv_len, h, h_kv, d,
+        lse.data_ptr(), *id_ptrs, b, q_len, kv_len, h, h_kv, dp,
         float(sm_scale), int(causal), int(qf.dtype == torch.bfloat16),
         heads=(h, h_kv),
     )
-    return out, lse
+    return _cut_head_dim(out, dp, d), lse
 
 
 @_flash_fwd_op.register_fake
@@ -424,10 +447,13 @@ def flash_fwd(qf, kf, vf, h: int, sm_scale: float, causal: bool,
                          float(sm_scale), bool(causal))
 
 
-def _bwd_operands(qf, kf, vf, do, lse, delta):
+def _bwd_operands(qf, kf, vf, do, lse, delta, d: int):
+    """The backward kernels' operands, q, k, v and do padded to the
+    launch's head dim (returned last)."""
+    dp = _launch_head_dim(qf.dtype, d)
     return (
-        _dense(qf), _dense(kf), _dense(vf), _dense(do),
-        lse.float().contiguous(), delta.float().contiguous(),
+        *(_dense(_pad_head_dim(t, d, dp)) for t in (qf, kf, vf, do)),
+        lse.float().contiguous(), delta.float().contiguous(), dp,
     )
 
 
@@ -438,17 +464,18 @@ def flash_bwd_dq(qf, kf, vf, do, lse, delta, h: int, sm_scale: float,
     if device.type == "cpu":
         return flash_bwd_dq_plain(qf, kf, vf, do, lse, delta, h, sm_scale,
                                   causal, row_ids, col_ids)
-    qf, kf, vf, do, lse, delta = _bwd_operands(qf, kf, vf, do, lse, delta)
     b, q_len, kv_len, d, h_kv = _geometry(qf, kf, h)
+    qf, kf, vf, do, lse, delta, dp = _bwd_operands(qf, kf, vf, do, lse,
+                                                   delta, d)
     dq = torch.empty_like(qf)
     id_ptrs, _ids = _id_pointers(row_ids, col_ids)
     _launch(
         "flash_bwd_dq", device, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *id_ptrs, b, q_len,
-        kv_len, h, h_kv, d, float(sm_scale), int(causal),
+        kv_len, h, h_kv, dp, float(sm_scale), int(causal),
         int(qf.dtype == torch.bfloat16), heads=(h, h_kv),
     )
-    return dq
+    return _cut_head_dim(dq, dp, d)
 
 
 def flash_bwd_dkv(qf, kf, vf, do, lse, delta, h: int, sm_scale: float,
@@ -458,18 +485,19 @@ def flash_bwd_dkv(qf, kf, vf, do, lse, delta, h: int, sm_scale: float,
     if device.type == "cpu":
         return flash_bwd_dkv_plain(qf, kf, vf, do, lse, delta, h, sm_scale,
                                    causal, row_ids, col_ids)
-    qf, kf, vf, do, lse, delta = _bwd_operands(qf, kf, vf, do, lse, delta)
     b, q_len, kv_len, d, h_kv = _geometry(qf, kf, h)
+    qf, kf, vf, do, lse, delta, dp = _bwd_operands(qf, kf, vf, do, lse,
+                                                   delta, d)
     dk = torch.empty_like(kf)
     dv = torch.empty_like(vf)
     id_ptrs, _ids = _id_pointers(row_ids, col_ids)
     _launch(
         "flash_bwd_dkv", device, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *id_ptrs, b,
-        q_len, kv_len, h, h_kv, d, float(sm_scale), int(causal),
+        q_len, kv_len, h, h_kv, dp, float(sm_scale), int(causal),
         int(qf.dtype == torch.bfloat16), heads=(h, h_kv),
     )
-    return dk, dv
+    return _cut_head_dim(dk, dp, d), _cut_head_dim(dv, dp, d)
 
 
 def _id_pointers(row_ids, col_ids):
@@ -492,17 +520,19 @@ def _flash_bhsd_fwd_op(q, k, v, row_ids, col_ids, sm_scale, causal):
     if device.type == "cpu":
         return flash_bhsd_fwd_plain(q, k, v, sm_scale, causal, row_ids,
                                     col_ids)
-    q, k, v = (_dense(t) for t in (q, k, v))
+    d = q.shape[2]
+    dp = _launch_head_dim(q.dtype, d)
+    q, k, v = (_dense(_pad_head_dim(t, d, dp)) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=device)
     id_ptrs, _ids = _id_pointers(row_ids, col_ids)
     _launch(
         "flash_bhsd_fwd", device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), lse.data_ptr(), *id_ptrs, q.shape[0], k.shape[0],
-        q.shape[1], k.shape[1], q.shape[2], float(sm_scale), int(causal),
+        q.shape[1], k.shape[1], dp, float(sm_scale), int(causal),
         int(q.dtype == torch.bfloat16),
     )
-    return out, lse
+    return _cut_head_dim(out, dp, d), lse
 
 
 @_flash_bhsd_fwd_op.register_fake
@@ -533,16 +563,17 @@ def flash_bhsd_bwd_dq(q, k, v, do, lse, delta, sm_scale: float,
     if device.type == "cpu":
         return flash_bhsd_bwd_dq_plain(q, k, v, do, lse, delta, sm_scale,
                                        causal, row_ids, col_ids)
-    q, k, v, do, lse, delta = _bwd_operands(q, k, v, do, lse, delta)
+    d = q.shape[2]
+    q, k, v, do, lse, delta, dp = _bwd_operands(q, k, v, do, lse, delta, d)
     dq = torch.empty_like(q)
     id_ptrs, _ids = _id_pointers(row_ids, col_ids)
     _launch(
         "flash_bhsd_bwd_dq", device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *id_ptrs, q.shape[0], k.shape[0], q.shape[1], k.shape[1], q.shape[2],
+        *id_ptrs, q.shape[0], k.shape[0], q.shape[1], k.shape[1], dp,
         float(sm_scale), int(causal), int(q.dtype == torch.bfloat16),
     )
-    return dq
+    return _cut_head_dim(dq, dp, d)
 
 
 def flash_bhsd_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float,
@@ -552,7 +583,8 @@ def flash_bhsd_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float,
     if device.type == "cpu":
         return flash_bhsd_bwd_dkv_plain(q, k, v, do, lse, delta, sm_scale,
                                         causal, row_ids, col_ids)
-    q, k, v, do, lse, delta = _bwd_operands(q, k, v, do, lse, delta)
+    d = q.shape[2]
+    q, k, v, do, lse, delta, dp = _bwd_operands(q, k, v, do, lse, delta, d)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     id_ptrs, _ids = _id_pointers(row_ids, col_ids)
@@ -560,10 +592,10 @@ def flash_bhsd_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float,
         "flash_bhsd_bwd_dkv", device, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), *id_ptrs, q.shape[0], k.shape[0],
-        q.shape[1], k.shape[1], q.shape[2], float(sm_scale), int(causal),
+        q.shape[1], k.shape[1], dp, float(sm_scale), int(causal),
         int(q.dtype == torch.bfloat16),
     )
-    return dk, dv
+    return _cut_head_dim(dk, dp, d), _cut_head_dim(dv, dp, d)
 
 
 # ---------------------------------------------------------------------------
@@ -663,8 +695,9 @@ def flash_attention_bshd(
 
     Differentiable: the backward runs the dq and dkv kernels. Tensors on
     a CUDA device go through the kernels (bfloat16 or float32, head_dim
-    <= 128, in bfloat16 a multiple of 8); tensors on the CPU through the
-    plain versions.
+    <= 256; in bfloat16 a head dim that is not a multiple of 8 is padded
+    with zero columns around the launch); tensors on the CPU through the
+    plain versions, at any head dim.
     """
     qf, kf, vf = _flat_views(q, k, v, "flash_attention_bshd")
     if sm_scale is None:
@@ -764,8 +797,9 @@ def flash_attention(q, k, v, *, causal: bool = False,
     Causal masking is bottom-right aligned; a row that sees no key gives
     0. Differentiable: the backward runs the dq and dkv kernels. Tensors
     on a CUDA device go through the [B*H, S, D] kernels (bfloat16 or
-    float32, head_dim <= 128, in bfloat16 a multiple of 8); tensors on
-    the CPU through their plain versions."""
+    float32, head_dim <= 256; in bfloat16 a head dim that is not a
+    multiple of 8 is padded with zero columns around the launch); tensors
+    on the CPU through their plain versions, at any head dim."""
     qr, kr, vr = _bhsd_rows(q, k, v)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5

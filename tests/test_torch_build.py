@@ -73,15 +73,21 @@ def test_editing_a_source_rebuilds_only_its_library(csrc):
     assert all(after[n] == before[n] for n in before if n != "flash_fwd")
 
 
+# A head dim that is not a multiple of 8 (12, 20, 100) runs padded with
+# zero columns to the next multiple (flash_padded_head_dim), on the body
+# that covers it; 129..256 run on the 256 body.
 @pytest.mark.parametrize("head_dim,width", [
-    (8, 64), (16, 64), (32, 64), (64, 64),
-    (72, 128), (80, 128), (96, 128), (128, 128),
+    (8, 64), (12, 64), (16, 64), (20, 64), (32, 64), (64, 64),
+    (72, 128), (80, 128), (96, 128), (100, 128), (128, 128),
+    (130, 256), (136, 256), (256, 256),
 ])
 def test_bf16_head_dims_run_on_the_next_instantiated_width(head_dim, width):
     assert _common.flash_tc_head_dim(head_dim) == width
+    assert _common.flash_tc_head_dim(
+        _common.flash_padded_head_dim(head_dim)) == width
 
 
-@pytest.mark.parametrize("head_dim", [0, 12, 20, 100, 130, 136, 256])
+@pytest.mark.parametrize("head_dim", [0, 257, 264, 512])
 def test_bf16_head_dims_the_bodies_cannot_take_raise(head_dim):
     with pytest.raises(ValueError, match="bf16 flash kernels take head_dim"):
         _common.flash_tc_head_dim(head_dim)
