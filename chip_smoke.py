@@ -35,8 +35,15 @@ Phases, in order:
      bodies) and at 100 and 12, which the wrappers pad with zero columns
      to a multiple of 8, and at a training size (d=100, Qwen3-Next's
      heads) each wrapper's time with the pad beside its time on inputs
-     already padded; a head dim of 257 must be refused, the error naming
-     the limit; the flat kernels with the ids of the sp phase's ring hops
+     already padded; past head dim 256, where each head's columns split
+     across a cluster of ceil(D / 256) blocks: DeepSeek-V4-Flash's
+     attention, ``deepseek-v4`` (B=2, S=2048, 8 q / 1 kv heads of 512,
+     causal, bf16; timed in both layouts, beside SDPA's fastest backend
+     that takes the inputs), the padded-GQA, masked-row and unsorted-id
+     shapes at head dims 384, 576 and 1024 in f32 and bf16, bf16 at 300
+     (padded to 304) and a zigzag hop at 512 (q [1, 4096, 8*512]); a head
+     dim of 1025 must be refused, the error naming the limit; the flat
+     kernels with the ids of the sp phase's ring hops
      (q [1, 4096,
      32*128], kv [1, 4096, 8*128], bf16: the zigzag ring's four (rank,
      hop) pairs on sp=2 over S=8192, and the contiguous ring's hops in
@@ -65,8 +72,10 @@ Phases, in order:
    through the flat kernels and through the [B*H, S, D] kernels
    (``flash-bhsd``) against the dense oracle; the same with Qwen3-Next's
    attention heads (``config_for("llama3-8b", n_heads=16, n_kv_heads=2)``:
-   16 q / 2 kv heads of 256), and 6 AdamW steps of it through the
-   trainer (B=2, S=2048: loss finite and falling, launches 24/12/12);
+   16 q / 2 kv heads of 256) and with DeepSeek-V4-Flash's (``n_heads=8,
+   n_kv_heads=1``: 8 q / 1 kv heads of 512, split across clusters), and 3
+   AdamW steps of each through the trainer (B=2, S=2048: loss finite and
+   falling, launches 12/6/6);
    ResNet-101 at full width
    and depth, B=8: loss, every gradient and the running statistics
    through the BN kernels against the plain-op BN route; ResNet-101's
@@ -679,20 +688,48 @@ FLASH_SHAPES += [
       ("flat",)),
       ("sp-contig-diag", dict(SP_HOP, ids=("contiguous", 1, 1)), ("flat",)),
       ("sp-contig-full", dict(SP_HOP, ids=("contiguous", 1, 0)), ("flat",))]
+# Head dims past 256, each head's columns split across a cluster of
+# ceil(D / 256) blocks (ops/_common.py:flash_split_plan): DeepSeek-V4-Flash's
+# attention (8 q heads of 512 over its one kv head, here at the Llama
+# shape's batch and length, H * D = 4096 as at L and Q; timed), and the
+# edge shapes above at 384 (two blocks, the second half empty), 576
+# (sarvam-105b's absorbed MLA: three) and 1024 (four, the widest) in f32 and
+# bf16, and a bf16 width past 256 that is not a multiple of 8 (300, padded
+# to 304).
+FLASH_SHAPES += [
+    ("deepseek-v4", dict(b=2, sq=2048, sk=2048, h=8, hkv=1, d=512,
+                         dtype="bf16", causal=True), ("flat", "bhsd")),
+] + [
+    (f"{label}-d{d}{suffix}", dict(s, d=d, dtype=dtype), layouts)
+    for d in (384, 576, 1024)
+    for label, s, layouts in FLASH_SHAPES
+    if label in ("padded-gqa", "masked-rows", "id-random")
+    for dtype, suffix in (("f32", ""), ("bf16", "-bf16"))
+] + [
+    ("d300-bf16", dict(b=2, sq=150, sk=150, h=4, hkv=2, d=300, dtype="bf16",
+                       causal=True), ("flat", "bhsd")),
+]
 # The shapes timed (kernel, plain version, SDPA) besides being checked;
 # a shape with ids is also timed without them (noid_ms: no mask, every
 # tile visited).
-TIMED_SHAPES = ("llama", "bert", "vit", "s2s-cross", "qwen3next") + tuple(
+TIMED_SHAPES = ("llama", "bert", "vit", "s2s-cross", "qwen3next",
+                "deepseek-v4") + tuple(
     label for label, _, _ in FLASH_SHAPES if label.startswith("sp-"))
 # Timed shapes whose SDPA yardstick is each of its backends pinned in turn
 # (the fastest that takes the inputs, by direction): SDPA's own choice has
-# moved its backward by 3x from call to call at L.
-PINNED_SDPA = ("qwen3next",)
+# moved its backward by 3x from call to call at L. Where no fused backend
+# takes the inputs (D past 256 with GQA), the math backend is timed.
+PINNED_SDPA = ("qwen3next", "deepseek-v4")
 # The zigzag hop of a Qwen3-Next-headed model on the same ring (q [1, 4096,
 # 16*256], kv [1, 4096, 2*256]): the 256-wide bodies with ids. Checked, not
 # timed.
 FLASH_SHAPES.append(("sp-zigzag-r0-s0-d256",
                      dict(SP_HOP, h=16, hkv=2, d=256, ids=("zigzag", 0, 0)),
+                     ("flat",)))
+# The same hop with DeepSeek-V4-Flash's heads (q [1, 4096, 8*512], kv
+# [1, 4096, 512]): the column split with ids. Checked, not timed.
+FLASH_SHAPES.append(("sp-zigzag-r0-s0-d512",
+                     dict(SP_HOP, h=8, hkv=1, d=512, ids=("zigzag", 0, 0)),
                      ("flat",)))
 # The tilings the bodies classify ids on: (q rows, k rows) of the bf16
 # forward and dq, the bf16 dk/dv, and the f32 bodies.
@@ -805,16 +842,17 @@ def _kernel_name(mangled: str) -> str:
     n = int(m.group(1))
     name, rest = m.group(2)[:n], m.group(2)[n:]
     # Template arguments: a head dim or an element type (then the SIMT
-    # bodies' width), then the IDS flag where the kernel has one.
-    arg = re.match(r"I(?:Li(\d+)E|(f)|(13__nv_bfloat16))(?:Li(\d+)E)?"
-                   r"(?:Lb([01])E)?E", rest)
+    # bodies' width), then the kernel's flags (IDS, and SPLIT or COLS where
+    # it has one).
+    arg = re.match(r"I(?:Li(\d+)E|(f)|(13__nv_bfloat16))?(?:Li(\d+)E)?"
+                   r"((?:Lb[01]E)*)E", rest)
     if arg:
-        first = arg.group(1) or ("float" if arg.group(2) else "bf16")
-        if arg.group(4) is not None:
-            first += f", {arg.group(4)}"
-        if arg.group(5) is not None:
-            first += ", true" if arg.group(5) == "1" else ", false"
-        name += f"<{first}>"
+        args = [arg.group(1) or ("float" if arg.group(2) else "bf16")
+                if any(arg.group(i) for i in (1, 2, 3)) else None,
+                arg.group(4)]
+        args += ["true" if flag == "1" else "false"
+                 for flag in re.findall(r"Lb([01])E", arg.group(5))]
+        name += "<" + ", ".join(a for a in args if a is not None) + ">"
     return f"{ns}::{name}"
 
 
@@ -858,21 +896,40 @@ def sass_tensor_ops(name: str) -> dict:
 
 
 # The tensor-core body of each flash kernel's library (bf16), each
-# instantiated at the head dims 64, 128 and 256, without and with ids
-# (<DP, IDS>; dk/dv's 256 body is bwd_dkv_kernel_tc_split).
+# instantiated at the head dims 64, 128 and 256 and, for head dims past
+# 256, at 256 split across a cluster, without and with ids: the forward's
+# <DP, IDS, SPLIT>; dq's <DP, IDS> and bwd_dq_kernel_tc_split<IDS>; dk/dv's
+# <DP, IDS> at 64 and 128 and bwd_dkv_kernel_tc_split<256, IDS, COLS>.
 TC_BODIES = ("flash::fwd_kernel_tc", "flash::bwd_dq_kernel_tc",
              "flash::bwd_dkv_kernel_tc")
 TC_HEAD_DIMS = (64, 128, 256)
-TC_INSTANCES = sorted(f"{d}, {ids}" for d in TC_HEAD_DIMS
-                      for ids in ("false", "true"))
+
+
+def tc_instances(library: str) -> list:
+    """The tensor-core bodies the flash library ``library`` must hold."""
+    kind = library.split("_")[-1]  # fwd, dq or dkv
+    ids = ("false", "true")
+    if kind == "dkv":
+        return sorted([f"flash::bwd_dkv_kernel_tc<{d}, {i}>"
+                       for d in TC_HEAD_DIMS[:2] for i in ids]
+                      + [f"flash::bwd_dkv_kernel_tc_split<256, {i}, {c}>"
+                         for i in ids for c in ("false", "true")])
+    if kind == "dq":
+        return sorted([f"flash::bwd_dq_kernel_tc<{d}, {i}>"
+                       for d in TC_HEAD_DIMS for i in ids]
+                      + [f"flash::bwd_dq_kernel_tc_split<{i}>" for i in ids])
+    return sorted(f"flash::fwd_kernel_tc<{d}, {i}, {split}>"
+                  for d, split in ((64, "false"), (128, "false"),
+                                   (256, "false"), (256, "true"))
+                  for i in ids)
 
 
 def check_build() -> None:
     """Per kernel: registers and spills (ptxas) and tensor-core
     instructions (SASS). Fails if a flash kernel spills, a flash library
-    lacks a tensor-core body at one of TC_INSTANCES (each head dim of
-    TC_HEAD_DIMS, without and with ids), or a tensor-core body issues no
-    wgmma."""
+    lacks one of its tensor-core bodies (tc_instances: each head dim of
+    TC_HEAD_DIMS and the 256 body split across a cluster, without and with
+    ids), or a tensor-core body issues no wgmma."""
     from mpi_operator_tpu_torch.ops import _build
 
     failed = []
@@ -889,10 +946,9 @@ def check_build() -> None:
                 failed.append(f"{kernel} issues no wgmma")
         bodies = sorted(kernel for kernel, _, _ in report
                         if kernel.startswith(TC_BODIES))
-        instances = sorted(k[k.index("<") + 1:-1] for k in bodies)
-        if name.startswith("flash") and instances != TC_INSTANCES:
+        if name.startswith("flash") and bodies != tc_instances(name):
             failed.append(f"{name} holds tensor-core bodies {bodies}, "
-                          f"want one at each of {TC_INSTANCES}")
+                          f"want {tc_instances(name)}")
     if failed:
         raise AssertionError("kernel build checks failed: " + "; ".join(failed))
 
@@ -904,7 +960,7 @@ def check_kernels() -> dict:
     hack/headdim_probe.py's packed d=64 kernel."""
     import torch
 
-    from mpi_operator_tpu_torch.ops import _build
+    from mpi_operator_tpu_torch.ops import _common
     from mpi_operator_tpu_torch.ops import attention as attn
 
     timed = {}  # (kernel name, shape label) -> record
@@ -913,6 +969,10 @@ def check_kernels() -> dict:
         sq, sk, h, d = (s[k] for k in ("sq", "sk", "h", "d"))
         causal, scale = s["causal"], d ** -0.5
         ids = _shape_ids(s.get("ids"), sq, sk)
+        # The launch's cluster: blocks that share each head's columns and
+        # the width each runs at (of the padded width, in bf16).
+        plan = list(_common.flash_split_plan(
+            _common.flash_padded_head_dim(d) if s["dtype"] == "bf16" else d))
         if ids[0] is not None:
             # The plain classifier's dead / mixed / full tile pairs at
             # each tiling the bodies walk these ids on.
@@ -970,13 +1030,18 @@ def check_kernels() -> dict:
             for name, (mabs, nrel, lse_err) in zip(FLASH_NAMES[layout], errs):
                 ok = (nrel <= tol and lse_err <= LSE_ABS_TOL[s["dtype"]]
                       and math.isfinite(mabs) and dead_rows_ok)
-                log(f"kernel {name} [{label} {s}]: max_abs_err={mabs:.3e} "
-                    f"norm_rel_err={nrel:.3e} (tol {tol:.0e}) lse_abs_err="
-                    f"{lse_err:.3e} masked_rows_ok={dead_rows_ok} -> "
-                    f"{'ok' if ok else 'FAIL'}")
+                log(f"kernel {name} [{label} {s}] plan {plan}: max_abs_err="
+                    f"{mabs:.3e} norm_rel_err={nrel:.3e} (tol {tol:.0e}) "
+                    f"lse_abs_err={lse_err:.3e} masked_rows_ok="
+                    f"{dead_rows_ok} -> {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"{name} disagrees with its plain "
                                          f"version at {label}")
+                if lib_ms is None and plan[0] > 1:
+                    # A split shape checked, not timed: its record rides
+                    # along with its errors.
+                    timed[name, label] = {"max_abs_err": mabs,
+                                          "norm_rel_err": nrel, "plan": plan}
             if lib_ms is None:
                 continue
             # The work these inputs need: their visible pairs.
@@ -998,6 +1063,7 @@ def check_kernels() -> dict:
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": lib_ms["fwd" if kind == "fwd" else "bwd"],
                     "max_abs_err": errs[i][0], "norm_rel_err": errs[i][1],
+                    "plan": plan,
                 }
                 if "backend" in lib_ms:  # PINNED_SDPA: the backend timed
                     rec["library_backend"] = lib_ms["backend"][
@@ -1029,13 +1095,13 @@ def check_kernels() -> dict:
         del q4, k4, v4, do4
         torch.cuda.empty_cache()
     # A CUDA tensor the kernels do not take raises; it never falls back
-    # to the plain version: fp16, and a head dim past the widest body (257)
-    # in either type, whose error names the limit.
+    # to the plain version: fp16, and a head dim past the widest cluster
+    # (1025) in either type, whose error names the limit.
     x16 = torch.zeros(1, 64, 2 * 128, device="cuda", dtype=torch.float16)
-    x257 = torch.zeros(1, 64, 2 * 257, device="cuda")
+    x1025 = torch.zeros(1, 64, 2 * 1025, device="cuda")
     limit = f"<= {attn._KERNEL_MAX_D}"
-    for bad, err, says in ((x16, TypeError, ""), (x257, ValueError, limit),
-                           (x257.bfloat16(), ValueError, limit)):
+    for bad, err, says in ((x16, TypeError, ""), (x1025, ValueError, limit),
+                           (x1025.bfloat16(), ValueError, limit)):
         for fn in (lambda x: attn.flash_fwd(x, x, x, 2, 0.1, True),
                    lambda x: attn.flash_bhsd_fwd(
                        x.reshape(2, 64, -1), x.reshape(2, 64, -1),
@@ -1139,7 +1205,9 @@ def _pinned_sdpa_ms(label: str, q, k, v, do, causal: bool) -> dict:
 
     best: dict = {"backend": {}}
     for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
-                    SDPBackend.EFFICIENT_ATTENTION):
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        if backend == SDPBackend.MATH and "fwd" in best:
+            break  # the unfused backend only where no fused one takes them
         try:
             with sdpa_kernel([backend]):
                 ms = _sdpa_ms(q, k, v, do, causal)
@@ -1234,7 +1302,9 @@ AB_SHAPES = ("llama", "bert", "padded-gqa", "masked-rows-bf16", "vit",
              "s2s-cross", "id-masked-bf16", "id-random", "id-random-bf16",
              "sp-zigzag-r0-s0", "sp-zigzag-r0-s1", "sp-zigzag-r1-s0",
              "sp-zigzag-r1-s1", "sp-contig-dead", "sp-contig-diag",
-             "sp-contig-full")
+             "sp-contig-full", "qwen3next", "padded-gqa-d256",
+             "masked-rows-d256-bf16", "id-random-d256-bf16", "d192-bf16",
+             "d100-bf16", "sp-zigzag-r0-s0-d256")
 
 
 def _checkout_kernels(root: Path) -> dict:
@@ -1524,14 +1594,22 @@ def check_head() -> dict:
 # the JAX package: dim 4096 = 16 x 256, so the attention's cost per token
 # is llama3-8b's.
 WIDE_HEADS = dict(n_heads=16, n_kv_heads=2)
+# DeepSeek-V4-Flash's attention heads (8 q heads of 512 over one kv head,
+# its config's num_key_value_heads: 1) on llama3-8b's width: dim 4096 = 8 x
+# 512, each head's columns split across a cluster of two blocks.
+DEEP_HEADS = dict(n_heads=8, n_kv_heads=1)
+# Trainer steps of each of the two runs above (6 until the D=512 run
+# joined the model phase).
+HEADS_TRAIN_STEPS = 3
 
 
-def check_model(label: str = "llama3-8b/2 layers", **overrides) -> None:
+def check_model(label: str = "llama3-8b/2 layers", **overrides) -> dict:
     """llama3-8b (with ``overrides``), full width, 2 layers, B=1, S=256:
     loss and gradients through the flat kernels (``flash``) and the
     [B*H, S, D] kernels behind transposes (``flash-bhsd``) against the
     dense oracle on the same weights; each route's launch counters show
-    its own kernels and no others."""
+    its own kernels and no others. Returns each kernel route's launch
+    counts."""
     import torch
 
     from mpi_operator_tpu_torch.models import llama as lib
@@ -1584,8 +1662,10 @@ def check_model(label: str = "llama3-8b/2 layers", **overrides) -> None:
     if failed:
         raise AssertionError(f"kernel routes {failed} disagree with the "
                              f"dense oracle")
+    launches = {impl: results[impl][2] for impl in ("flash", "flash-bhsd")}
     del results, gd, state
     torch.cuda.empty_cache()
+    return launches
 
 
 def _grad_errors(got: dict, want: dict, tiny: float = 0.0) -> dict:
@@ -2249,12 +2329,14 @@ def _llama3_8b_with(**overrides):
         lib.CONFIGS["llama3-8b"] = saved
 
 
-def run_wide_llama_train() -> dict:
-    """The trainer's Llama run (TRAIN_ARGS: 2 layers, B=2, S=2048, 6
-    AdamW steps) with WIDE_HEADS, through the 256-wide flash bodies: loss
-    finite and falling, launches 24/12/12. Returns the launch counts."""
-    with _llama3_8b_with(**WIDE_HEADS):
-        return run_train(label="llama3-8b 16/2 heads of 256")[1]
+def run_heads_llama_train(label: str, heads: dict) -> dict:
+    """The trainer's Llama run (TRAIN_ARGS: 2 layers, B=2, S=2048) with
+    ``heads`` (WIDE_HEADS: the 256-wide flash bodies; DEEP_HEADS: the
+    column split), HEADS_TRAIN_STEPS AdamW steps: loss finite and falling,
+    launches 4/2/2 a step. Returns the launch counts."""
+    with _llama3_8b_with(**heads):
+        return run_train(_with_steps(TRAIN_ARGS, HEADS_TRAIN_STEPS),
+                         label=label)[1]
 
 
 def run_train(argv=TRAIN_ARGS, label: str = "llama3-8b") -> tuple[dict, dict]:
@@ -2287,7 +2369,8 @@ def run_train(argv=TRAIN_ARGS, label: str = "llama3-8b") -> tuple[dict, dict]:
     want = _want_launches({"flash_fwd": forwards * layers * steps,
                            "flash_bwd_dq": layers * steps,
                            "flash_bwd_dkv": layers * steps})
-    ok = (steps == 6 and math.isfinite(summary["loss"])
+    ok = (steps == int(argv[argv.index("--steps") + 1])
+          and math.isfinite(summary["loss"])
           and summary["loss"] < summary["first_loss"] and launches == want)
     log(f"train {label} launches {launches} (want {want}); loss "
         f"{summary['first_loss']:.4f} -> {summary['loss']:.4f} -> "
@@ -6442,12 +6525,18 @@ def main(argv=None) -> int:
         check_head()
         log(f"card: {card}; kernels phase done in "
             f"{time.perf_counter() - t0:.1f} s")
-    bn_paths, wide_launches = {}, {}
+    bn_paths, heads_launches, check_launches = {}, {}, {}
     if "model" in phases:
         t0 = time.perf_counter()
         check_model()
         check_model("llama3-8b/2 layers, 16/2 heads", **WIDE_HEADS)
-        wide_launches = run_wide_llama_train()
+        check_launches = check_model("llama3-8b/2 layers, 8/1 heads",
+                                     **DEEP_HEADS)
+        for label, heads in (("llama3-8b 16/2 heads of 256", WIDE_HEADS),
+                             ("llama3-8b 8/1 heads of 512", DEEP_HEADS)):
+            heads_launches[label] = run_heads_llama_train(label, heads)
+        log(f"card: {card}; the 8/1 heads of 512 through the column split: "
+            f"model check launches {json.dumps(check_launches)}")
         check_resnet_model()
         bn_paths = check_resnet_options()
         check_bert_model()
@@ -6504,9 +6593,14 @@ def main(argv=None) -> int:
                     **{k: c[name] for k, (_, c) in flat_runs.items()},
                     "llama3-8b --data": d_launches[name],
                     "eval": e_launches[name]}
-                if wide_launches:
-                    rec["launches_by_path"]["llama3-8b 16/2 heads of 256"] = (
-                        wide_launches[name])
+                for label, counts in heads_launches.items():
+                    rec["launches_by_path"][label] = counts[name]
+            if name in FLASH_NAMES["bhsd"] and check_launches:
+                # The model phase's check at heads of 512 on flash-bhsd.
+                rec["launches_by_path"] = {
+                    "flash-bhsd train steps": bhsd_launches[name],
+                    "llama3-8b 8/1 heads of 512 check":
+                        check_launches["flash-bhsd"][name]}
         log(f"card: {card}; train llama tokens/s "
             f"{summary.get('tokens_per_sec')} step_ms {summary['step_ms']}; "
             f"train resnet101 images/s {r_summary['examples_per_sec']} "

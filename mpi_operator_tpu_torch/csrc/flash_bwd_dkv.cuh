@@ -50,13 +50,16 @@
 //
 // bf16 at DP = 256 (bwd_dkv_kernel_tc_split): dK and dV do not fit one
 // thread map, so the two warpgroups split them over 64 k rows, and a
-// cluster of two blocks splits each k tile's walk; its note below says
-// how.
+// cluster of two blocks splits each k tile's walk; past 256 each of those
+// is a cluster of ceil(D / 256) blocks that split the columns. Its note
+// below says how.
 //
 // f32 (bwd_dkv_kernel_simt): f32 FMA on tiles staged in shared memory, the
 // 64 x 64 SIMT thread map of flash_common.cuh, with the same tile walk, at
 // width W = 128 or 256 (one buffer for Q and dO, and one for P^T and dS^T,
-// at 256: 210 KB at D = 256); for the f32 checks.
+// at 256: 210 KB at D = 256); for the f32 checks. Past 256 it splits the
+// same way at W = 256, the partial S^T crossing through P^T's buffer
+// before P^T takes it and the partial dP^T after the dV product.
 #pragma once
 
 #include "flash_common.cuh"
@@ -369,6 +372,17 @@ cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v,
 // distributed shared memory, and the first adds them to its own and
 // writes: the sum over the group stays in the kernel, with no atomics and
 // no second pass.
+//
+// Past DP = 256 (COLS) each of those blocks is itself a column split of
+// n = split_blocks(D) blocks (flash_common.cuh), so a k tile is a cluster
+// of 2n (at most 8, the portable limit): rank = part * n + col, part the
+// walk's half, col the block's 256 columns. Both warpgroups then need the
+// whole S^T, and there is no room for a second 16 KB buffer beside the
+// P^T one, so the partials cross in two rounds through the P^T buffer:
+// warpgroup 0's S^T partials, from which both warpgroups form the same
+// P^T (no hand-over), then warpgroup 1's dP^T partials. Every block of the
+// cluster walks `half` steps (the second part's last one idle when the
+// walk is odd), so all pass the same cluster barriers.
 
 template <int DP>
 struct DkvSplit {
@@ -388,12 +402,28 @@ struct DkvSplit {
   static constexpr int CLUSTER = 2;   // blocks that split a k tile's walk
   // The second block's partial sums, 128 floats a thread, fit the ring.
   static_assert(NB * 32 * THREADS * 4 <= 4 * Q_BYTES, "sums fit the ring");
+  // A warpgroup's partial S^T or dP^T, 32 floats a thread, fits P^T's.
+  static_assert(32 * 128 * 4 == P_BYTES, "partials fit the P^T buffer");
 };
 
-// IDS: the instantiation for launches with row/col ids.
-template <int DP, bool IDS>
-__global__ void __cluster_dims__(DkvSplit<DP>::CLUSTER, 1, 1)
-    __launch_bounds__(DkvSplit<DP>::THREADS, 1) bwd_dkv_kernel_tc_split(const __nv_bfloat16* __restrict__ q,
+// P^T = exp(scale S^T - lse) of one step in place of the S^T accumulator,
+// 0 where bit i of vis is clear.
+__device__ __forceinline__ void dkv_p(float (&s)[32], const float* lse_s,
+                                      uint32_t vis, int qc0,
+                                      float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int qc = qc0 + hopper::acc_col(i);
+    s[i] = ((vis >> i) & 1u) ? exp2f(s[i] * scale_log2 - lse_s[qc] * LOG2E)
+                             : 0.f;
+  }
+}
+
+// IDS: the instantiation for launches with row/col ids; COLS: for head
+// dims past DP = SPLIT_W, the column split above.
+template <int DP, bool IDS, bool COLS>
+__global__ void __launch_bounds__(DkvSplit<DP>::THREADS, 1)
+    bwd_dkv_kernel_tc_split(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
                             const __nv_bfloat16* __restrict__ dout,
@@ -403,6 +433,7 @@ __global__ void __cluster_dims__(DkvSplit<DP>::CLUSTER, 1, 1)
                             __nv_bfloat16* __restrict__ dv, const Geom g) {
   using T = DkvSplit<DP>;
   constexpr int BQ = T::BQ, BK = T::BK, NT = T::THREADS, NB = T::NB;
+  static_assert(!COLS || DP == SPLIT_W, "a split block holds SPLIT_W columns");
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t raw = hopper::smem_addr(smem);
   const uint32_t sK = (raw + 1023u) & ~1023u;
@@ -423,21 +454,26 @@ __global__ void __cluster_dims__(DkvSplit<DP>::CLUSTER, 1, 1)
   const int warp = t / 32;
   const int lane = threadIdx.x % 32;
   const int k0 = blockIdx.y * BK;
-  const int rank = (int)hopper::cluster_rank();  // blockIdx.x % CLUSTER
-  const int hk = blockIdx.x / T::CLUSTER % g.Hkv;
-  const int b = blockIdx.x / T::CLUSTER / g.Hkv;
+  // The cluster along x: CLUSTER parts of the walk, each (with COLS) ncol
+  // blocks of SPLIT_W columns; rank = part * ncol + col.
+  const int ncol = COLS ? (int)hopper::cluster_size() / T::CLUSTER : 1;
+  const int rank = (int)hopper::cluster_rank();
+  const int part = rank / ncol, col = rank % ncol;
+  const int c0 = col * DP;  // this block's first column
+  const int hk = blockIdx.x / (T::CLUSTER * ncol) % g.Hkv;
+  const int b = blockIdx.x / (T::CLUSTER * ncol) / g.Hkv;
   const int groups = g.H / g.Hkv;
   const float scale_log2 = g.scale * LOG2E;
   constexpr bool ids = IDS;
 
   // The walk of the body above: per_head q tiles for each q head; this
-  // block takes steps [j0, j1) of it, the cluster's other block the rest.
+  // block takes steps [j0, j1) of it, the other part the rest.
   const int qt_begin = ids ? 0 : first_live_q_tile<BQ>(g, k0);
   const int per_head = ids ? live_tiles<BK, BQ, false>(list, g, k0)
                            : (g.q_len + BQ - 1) / BQ - qt_begin;
   const int steps = groups * per_head;
   const int half = (steps + 1) / 2;
-  const int j0 = rank == 0 ? 0 : half, j1 = rank == 0 ? half : steps;
+  const int j0 = part == 0 ? 0 : half, j1 = part == 0 ? half : steps;
   auto entry = [&](int j) { return ids ? list[j % per_head] : 0; };
   auto q_tile = [&](int j) {
     return ids ? entry(j) >> 1 : qt_begin + j % per_head;
@@ -446,9 +482,9 @@ __global__ void __cluster_dims__(DkvSplit<DP>::CLUSTER, 1, 1)
     const int h = hk * groups + j / per_head;
     const int q0 = q_tile(j) * BQ;
     const uint32_t sQ = sQ0 + (j & 1) * 2 * T::Q_BYTES;
-    load_tile_async<BQ, DP, NT>(sQ, q, g.qs, b, h, q0, g.q_len, g.D);
+    load_tile_async<BQ, DP, NT>(sQ, q, g.qs, b, h, q0, g.q_len, g.D, c0);
     load_tile_async<BQ, DP, NT>(sQ + T::Q_BYTES, dout, g.qs, b, h, q0,
-                                g.q_len, g.D);
+                                g.q_len, g.D, c0);
     if (threadIdx.x < 2 * BQ) {  // lse by the first BQ threads, delta next
       const int r = threadIdx.x % BQ;
       const float* src = threadIdx.x < BQ ? lse : delta;
@@ -461,15 +497,15 @@ __global__ void __cluster_dims__(DkvSplit<DP>::CLUSTER, 1, 1)
   };
 
   if (ids && steps == 0) {  // no row sees any of these columns: dk, dv 0
-    if (rank == 0) {  // both blocks of the cluster return here
+    if (rank == 0) {  // every block of the cluster returns here
       write_dead_rows<BK>(dk, g.kvs, b, hk, k0, g.kv_len, g.D);
       write_dead_rows<BK>(dv, g.kvs, b, hk, k0, g.kv_len, g.D);
     }
     return;
   }
   if (j0 < j1) {
-    load_tile_async<BK, DP, NT>(sK, k, g.kvs, b, hk, k0, g.kv_len, g.D);
-    load_tile_async<BK, DP, NT>(sV, v, g.kvs, b, hk, k0, g.kv_len, g.D);
+    load_tile_async<BK, DP, NT>(sK, k, g.kvs, b, hk, k0, g.kv_len, g.D, c0);
+    load_tile_async<BK, DP, NT>(sV, v, g.kvs, b, hk, k0, g.kv_len, g.D, c0);
     hopper::cp_async_commit();
     load_step(j0);
   }
@@ -488,54 +524,78 @@ __global__ void __cluster_dims__(DkvSplit<DP>::CLUSTER, 1, 1)
                                                : 0;
   const uint32_t sA = wg == 0 ? sK : sV;  // A of S^T or dP^T
 
-  for (int j = j0; j < j1; ++j) {
-    const int q0 = q_tile(j) * BQ;
+  const int n_iter = COLS ? half : j1 - j0;
+  for (int it = 0; it < n_iter; ++it) {
+    const int j = j0 + it;
+    const bool live = !COLS || j < j1;  // else only the cluster barriers
+    const int q0 = live ? q_tile(j) * BQ : 0;
     const uint32_t sQ = sQ0 + (j & 1) * 2 * T::Q_BYTES;
     const uint32_t sdO = sQ + T::Q_BYTES;
     const float* lse_s = stats0 + (j & 1) * 2 * BQ;
     const float* delta_s = lse_s + BQ;
-    if (j + 1 < j1) {
-      load_step(j + 1);
-      hopper::cp_async_wait<1>();
-    } else {
-      hopper::cp_async_wait<0>();
-    }
-    hopper::fence_proxy_async();
-    __syncthreads();
-
-    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1) over the
-    // head dim.
-    const uint32_t sB = wg == 0 ? sQ : sdO;
+    // Every block has read the previous step's dP^T partials.
+    if (COLS && it > 0) hopper::cluster_wait();
     float s[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = 0.f;
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      hopper::mma_ss(s,
-                     hopper::k_major(sA + (kk / 4) * BK * 128 + (kk % 4) * 32),
-                     hopper::k_major(sB + (kk / 4) * BQ * 128 + (kk % 4) * 32),
-                     kk > 0);
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(s);
-
-    if (wg == 0) {
-      // P^T in place of S^T (p = 0 where masked), handed to warpgroup 1.
-      const bool full = ids ? (entry(j) & TILE_FULL) != 0
-                            : fully_visible<BQ, BK>(g, q0, k0);
-      const uint32_t vis =
-          full ? 0xffffffffu
-          : ids ? acc_visible_ids_t(cid, rids + (j & 1) * BQ, qc0,
-                                    g.q_len - q0)
-                : acc_visible_t(g, q0, krow0, qc0);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int qc = qc0 + hopper::acc_col(i);
-        s[i] = ((vis >> i) & 1u)
-                   ? exp2f(s[i] * scale_log2 - lse_s[qc] * LOG2E)
-                   : 0.f;
+    if (live) {
+      if (j + 1 < j1) {
+        load_step(j + 1);
+        hopper::cp_async_wait<1>();
+      } else {
+        hopper::cp_async_wait<0>();
       }
+      hopper::fence_proxy_async();
+      __syncthreads();
+
+      // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1) over the
+      // head dim.
+      const uint32_t sB = wg == 0 ? sQ : sdO;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        hopper::mma_ss(
+            s, hopper::k_major(sA + (kk / 4) * BK * 128 + (kk % 4) * 32),
+            hopper::k_major(sB + (kk / 4) * BQ * 128 + (kk % 4) * 32),
+            kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+    }
+
+    const bool full = ids ? (entry(j) & TILE_FULL) != 0
+                          : fully_visible<BQ, BK>(g, q0, k0);
+    auto vis = [&]() {
+      return full ? 0xffffffffu
+             : ids ? acc_visible_ids_t(cid, rids + (j & 1) * BQ, qc0,
+                                       g.q_len - q0)
+                   : acc_visible_t(g, q0, krow0, qc0);
+    };
+    if constexpr (COLS) {
+      // Round 1: warpgroup 0's partial S^T, summed by both warpgroups of
+      // every block of this part; both form P^T from it.
+      if (live && wg == 0) stash_partial(sP, s, t, 128);
+      hopper::cluster_sync();
+      float p[32];
+      if (live) sum_partials<2>(p, sP, t, 128, part * ncol, ncol, rank);
+      hopper::cluster_arrive();
+      if (live) dkv_p(p, lse_s, vis(), qc0, scale_log2);
+      hopper::cluster_wait();
+      // Round 2: warpgroup 1's partial dP^T, and dS^T = P^T (dP^T - delta).
+      if (live && wg == 1) stash_partial(sP, s, t, 128);
+      hopper::cluster_sync();
+      if (live && wg == 1)
+        sum_partials<2>(s, sP, t, 128, part * ncol, ncol, rank);
+      hopper::cluster_arrive();  // read; the wait is the next step's
+      if (live) {
+#pragma unroll
+        for (int n = 0; n < 32; ++n)
+          s[n] = wg == 0 ? p[n]
+                         : p[n] * (s[n] - delta_s[qc0 + hopper::acc_col(n)]);
+      }
+    } else if (wg == 0) {
+      // P^T in place of S^T (p = 0 where masked), handed to warpgroup 1.
+      dkv_p(s, lse_s, vis(), qc0, scale_log2);
 #pragma unroll
       for (int i = 0; i < 8; ++i)
         pt[i * 128 + t] =
@@ -555,6 +615,7 @@ __global__ void __cluster_dims__(DkvSplit<DP>::CLUSTER, 1, 1)
         }
       }
     }
+    if (!live) continue;
 
     // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1), A from
     // registers, B read MN-major.
@@ -578,13 +639,15 @@ __global__ void __cluster_dims__(DkvSplit<DP>::CLUSTER, 1, 1)
     for (int kk = 0; kk < 4; ++kk) hopper::fence_regs(fa[kk]);
     __syncthreads();  // the stage and P^T are free
   }
+  if (COLS && n_iter > 0) hopper::cluster_wait();
 
-  // Block 1 hands its partial sums to block 0 through block 0's ring;
-  // block 0 adds them to its own.
+  // The second part hands its partial sums to the first (the block of the
+  // same columns) through that block's ring; the first adds them to its
+  // own.
   const float4* sums = reinterpret_cast<const float4*>(smem + (sQ0 - raw));
-  hopper::cluster_sync();  // both blocks are done with their rings
-  if (rank != 0) {
-    const uint32_t peer = hopper::map_to_rank(sQ0, 0);
+  hopper::cluster_sync();  // every block is done with its ring
+  if (part != 0) {
+    const uint32_t peer = hopper::map_to_rank(sQ0, (uint32_t)col);
 #pragma unroll
     for (int cb = 0; cb < NB; ++cb)
 #pragma unroll
@@ -594,8 +657,8 @@ __global__ void __cluster_dims__(DkvSplit<DP>::CLUSTER, 1, 1)
             make_float4(acc[cb][4 * i], acc[cb][4 * i + 1],
                         acc[cb][4 * i + 2], acc[cb][4 * i + 3]));
   }
-  hopper::cluster_sync();  // block 1's sums have landed
-  if (rank != 0) return;
+  hopper::cluster_sync();  // the second part's sums have landed
+  if (part != 0) return;
 #pragma unroll
   for (int cb = 0; cb < NB; ++cb)
 #pragma unroll
@@ -613,48 +676,48 @@ __global__ void __cluster_dims__(DkvSplit<DP>::CLUSTER, 1, 1)
   for (int hh = 0; hh < 2; ++hh) {
     const int row = krow0 + 8 * hh;
     if (row >= g.kv_len) continue;
-    const size_t o = g.kvs.at(b, hk, row);
+    const size_t o = g.kvs.at(b, hk, row) + c0;
 #pragma unroll
     for (int cb = 0; cb < NB; ++cb)
 #pragma unroll
       for (int jc = 0; jc < 8; ++jc) {
-        const int col = cb * 64 + 8 * jc + qc0;
-        if (col >= g.D) continue;
+        const int cl = cb * 64 + 8 * jc + qc0;
+        if (c0 + cl >= g.D) continue;
         const int i = 4 * jc + 2 * hh;
-        *reinterpret_cast<uint32_t*>(out + o + col) =
+        *reinterpret_cast<uint32_t*>(out + o + cl) =
             hopper::pack_bf16(mul * acc[cb][i], mul * acc[cb][i + 1]);
       }
   }
 }
 
-template <int DP>
-cudaError_t launch_dkv_tc_split(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* delta, void* dk, void* dv,
-                                const Geom& g, cudaStream_t stream) {
-  using T = DkvSplit<DP>;
+// Clusters of CLUSTER blocks (each, past SPLIT_W, of split_blocks(D)
+// blocks of SPLIT_W columns) along x: (b, kv head) = x / the cluster.
+inline cudaError_t launch_dkv_tc_split(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* lse, const void* delta,
+                                       void* dk, void* dv, const Geom& g,
+                                       cudaStream_t stream) {
+  using T = DkvSplit<SPLIT_W>;
+  const int cluster = T::CLUSTER * split_blocks(g.D);
   const int n_kt = (g.kv_len + T::BK - 1) / T::BK;
-  if (n_kt > MAX_GRID_YZ ||
-      (long long)T::CLUSTER * g.B * g.Hkv > 0x7fffffffLL)
+  if (n_kt > MAX_GRID_YZ || (long long)cluster * g.B * g.Hkv > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const bool ids = g.row_ids != nullptr;
-  const auto kernel = ids ? bwd_dkv_kernel_tc_split<DP, true>
-                          : bwd_dkv_kernel_tc_split<DP, false>;
+  const bool ids = g.row_ids != nullptr, cols = g.D > SPLIT_W;
+  const auto kernel =
+      cols ? (ids ? bwd_dkv_kernel_tc_split<SPLIT_W, true, true>
+                  : bwd_dkv_kernel_tc_split<SPLIT_W, false, true>)
+           : (ids ? bwd_dkv_kernel_tc_split<SPLIT_W, true, false>
+                  : bwd_dkv_kernel_tc_split<SPLIT_W, false, false>);
   const int smem =
       T::SMEM + (ids ? T::IDS_BYTES + id_list_bytes(g.q_len, T::BQ) : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  // Clusters of CLUSTER blocks along x: (b, kv head) = x / CLUSTER.
-  const dim3 grid((unsigned)(T::CLUSTER * g.B * g.Hkv), n_kt);
-  kernel<<<grid, T::THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
+  return launch_cluster(
+      kernel, dim3((unsigned)(cluster * g.B * g.Hkv), n_kt), T::THREADS, smem,
+      cluster, stream, static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const __nv_bfloat16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), g);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -662,8 +725,11 @@ cudaError_t launch_dkv_tc_split(const void* q, const void* k, const void* v,
 // ---------------------------------------------------------------------------
 
 // W: the body's width (D <= W; at 256 Q and dO share one buffer, as do
-// P^T and dS^T); IDS: the instantiation for launches with row/col ids.
-template <typename T, int W, bool IDS>
+// P^T and dS^T); IDS: the instantiation for launches with row/col ids;
+// SPLIT: for head dims past W = SPLIT_W, on clusters whose blocks split
+// the columns (flash_common.cuh), the partial S^T exchanged through PTs
+// before P^T takes it, and the partial dP^T after the dV product.
+template <typename T, int W, bool IDS, bool SPLIT>
 __global__ void __launch_bounds__(THREADS)
     bwd_dkv_kernel_simt(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
@@ -675,8 +741,12 @@ __global__ void __launch_bounds__(THREADS)
   // dS^T in place: K, V, Q, dO, P^T and dS^T in f32 would take 296 KB.
   constexpr bool ONE_Q = W > SIMT_NARROW;
   constexpr int DPT = W / 16;  // head-dim columns per thread
-  const int D = g.D;
-  const int ld = D + 1;
+  const int ncol = SPLIT ? (int)hopper::cluster_size() : 1;
+  const int crank = SPLIT ? (int)hopper::cluster_rank() : 0;
+  const int c0 = crank * W;  // this block's first column
+  // The block's columns, and a row stride the same in every block.
+  const int D = SPLIT ? min(W, g.D - c0) : g.D;
+  const int ld = SPLIT ? W + 1 : D + 1;
   float* Ks = smem_f;            // [BK][ld]
   float* Vs = Ks + BK * ld;      // [BK][ld]
   float* Qs = Vs + BK * ld;      // [BQ][ld]
@@ -688,8 +758,9 @@ __global__ void __launch_bounds__(THREADS)
   // With ids: the q tile's row ids, then the live q tiles.
   int* Rid = reinterpret_cast<int*>(delta_s + BQ);  // [BQ]
   int* list = Rid + BQ;
+  const uint32_t xbuf = (uint32_t)__cvta_generic_to_shared(PTs);
 
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x / ncol * BK;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int groups = g.H / g.Hkv;
@@ -697,8 +768,8 @@ __global__ void __launch_bounds__(THREADS)
   const int tc = threadIdx.x % 16;  // owns q columns tc + 16 * j
   constexpr bool ids = IDS;
 
-  load_tile(Ks, k, g.kvs, b, hk, k0, g.kv_len, D);
-  load_tile(Vs, v, g.kvs, b, hk, k0, g.kv_len, D);
+  load_tile(Ks, k, g.kvs, b, hk, k0, g.kv_len, D, ld, c0);
+  load_tile(Vs, v, g.kvs, b, hk, k0, g.kv_len, D, ld, c0);
 
   float dk_acc[RPT][DPT], dv_acc[RPT][DPT];
   int cid[RPT];  // with ids, the column ids of the thread's k rows
@@ -724,7 +795,7 @@ __global__ void __launch_bounds__(THREADS)
         // S^T = K Q^T, P^T staged; dP^T = V dO^T and dV += P^T dO; then
         // dS^T over P^T in place and dK += dS^T Q, Q loaded again.
         __syncthreads();
-        load_tile(Qs, q, g.qs, b, h, q0, g.q_len, D);
+        load_tile(Qs, q, g.qs, b, h, q0, g.q_len, D, ld, c0);
         load_stats(lse_s, lse, g.stats, b, h, q0, g.q_len);
         load_stats(delta_s, delta, g.stats, b, h, q0, g.q_len);
         if (ids) load_ids(Rid, g.row_ids, q0, g.q_len);
@@ -747,6 +818,8 @@ __global__ void __launch_bounds__(THREADS)
             for (int j = 0; j < CPT; ++j)
               st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
         }
+        // The cluster's S^T, summed in rank order, through PTs.
+        if constexpr (SPLIT) exchange_partials(st, xbuf, ncol);
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
           const int r = tr * RPT + i;
@@ -763,7 +836,7 @@ __global__ void __launch_bounds__(THREADS)
           }
         }
         __syncthreads();
-        load_tile(dOs, dout, g.qs, b, h, q0, g.q_len, D);
+        load_tile(dOs, dout, g.qs, b, h, q0, g.q_len, D, ld, c0);
         __syncthreads();
 
         for (int d = 0; d < D; ++d) {
@@ -795,6 +868,9 @@ __global__ void __launch_bounds__(THREADS)
           }
         }
         __syncthreads();
+        // The cluster's dP^T, summed in rank order, through PTs (P^T is
+        // spent: each thread keeps its own in st).
+        if constexpr (SPLIT) exchange_partials(dpt, xbuf, ncol);
 #pragma unroll
         for (int i = 0; i < RPT; ++i)
 #pragma unroll
@@ -803,7 +879,7 @@ __global__ void __launch_bounds__(THREADS)
             DSTs[(tr * RPT + i) * (BQ + 1) + qc] =
                 st[i][j] * (dpt[i][j] - delta_s[qc]);
           }
-        load_tile(Qs, q, g.qs, b, h, q0, g.q_len, D);
+        load_tile(Qs, q, g.qs, b, h, q0, g.q_len, D, ld, c0);
         __syncthreads();
 
         for (int qq = 0; qq < BQ; ++qq) {
@@ -824,8 +900,8 @@ __global__ void __launch_bounds__(THREADS)
         }
       } else {
         __syncthreads();
-        load_tile(Qs, q, g.qs, b, h, q0, g.q_len, D);
-        load_tile(dOs, dout, g.qs, b, h, q0, g.q_len, D);
+        load_tile(Qs, q, g.qs, b, h, q0, g.q_len, D, ld, c0);
+        load_tile(dOs, dout, g.qs, b, h, q0, g.q_len, D, ld, c0);
         load_stats(lse_s, lse, g.stats, b, h, q0, g.q_len);
         load_stats(delta_s, delta, g.stats, b, h, q0, g.q_len);
         if (ids) load_ids(Rid, g.row_ids, q0, g.q_len);
@@ -905,7 +981,7 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = 0; i < RPT; ++i) {
     const int row = k0 + tr * RPT + i;
     if (row >= g.kv_len) continue;
-    const size_t o = g.kvs.at(b, hk, row);
+    const size_t o = g.kvs.at(b, hk, row) + c0;
 #pragma unroll
     for (int jd = 0; jd < DPT; ++jd) {
       const int c = tc + 16 * jd;
@@ -917,22 +993,37 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// W: the body's width; past SPLIT_W, clusters of split_blocks(D) blocks
+// of width SPLIT_W side by side on the grid's x.
 template <typename T, int W>
 cudaError_t launch_dkv_simt(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dk, void* dv,
                             const Geom& g, cudaStream_t stream) {
+  const int n = split_blocks(g.D);
   const int shared = W > SIMT_NARROW ? 1 : 2;  // Q and dO, P^T and dS^T
   const size_t smem =
-      sizeof(float) * ((size_t)(2 * BK + shared * BQ) * (g.D + 1) +
+      sizeof(float) * ((size_t)(2 * BK + shared * BQ) * (min(g.D, W) + 1) +
                        shared * BK * (BQ + 1) + 2 * BQ) +
       (g.row_ids != nullptr ? 4 * BQ + id_list_bytes(g.q_len, BQ) : 0);
-  const auto kernel = g.row_ids != nullptr ? bwd_dkv_kernel_simt<T, W, true>
-                                            : bwd_dkv_kernel_simt<T, W, false>;
+  const dim3 grid(n * ((g.kv_len + BK - 1) / BK), g.Hkv, g.B);
+  if constexpr (W == SPLIT_W) {
+    if (n > 1)
+      return launch_cluster(
+          g.row_ids != nullptr ? bwd_dkv_kernel_simt<T, W, true, true>
+                               : bwd_dkv_kernel_simt<T, W, false, true>,
+          grid, THREADS, (int)smem, n, stream, static_cast<const T*>(q),
+          static_cast<const T*>(k), static_cast<const T*>(v),
+          static_cast<const T*>(dout), static_cast<const float*>(lse),
+          static_cast<const float*>(delta), static_cast<T*>(dk),
+          static_cast<T*>(dv), g);
+  }
+  const auto kernel = g.row_ids != nullptr
+                          ? bwd_dkv_kernel_simt<T, W, true, false>
+                          : bwd_dkv_kernel_simt<T, W, false, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((g.kv_len + BK - 1) / BK, g.Hkv, g.B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -955,8 +1046,8 @@ inline int bwd_dkv(const void* q, const void* k, const void* v,
     return (int)(g.D <= SIMT_NARROW
                      ? launch_dkv_simt<float, SIMT_NARROW>(
                            q, k, v, dout, lse, delta, dk, dv, g, s)
-                     : launch_dkv_simt<float, MAX_D>(q, k, v, dout, lse, delta,
-                                                     dk, dv, g, s));
+                     : launch_dkv_simt<float, SPLIT_W>(q, k, v, dout, lse,
+                                                       delta, dk, dv, g, s));
   if (bad_tc_operands(g, {q, k, v, dout, dk, dv}))
     return (int)cudaErrorInvalidValue;
   return (int)(g.D <= 64 ? launch_dkv_tc<64>(q, k, v, dout, lse, delta, dk,
@@ -964,8 +1055,8 @@ inline int bwd_dkv(const void* q, const void* k, const void* v,
                : g.D <= 128
                    ? launch_dkv_tc<128>(q, k, v, dout, lse, delta, dk, dv, g,
                                         s)
-                   : launch_dkv_tc_split<256>(q, k, v, dout, lse, delta, dk,
-                                              dv, g, s));
+                   : launch_dkv_tc_split(q, k, v, dout, lse, delta, dk, dv,
+                                         g, s));
 }
 
 }  // namespace flash

@@ -28,7 +28,7 @@
 // rows 4 * (t / 16) + i (i < 4) and tile columns (t % 16) + 16 * j (j < 4);
 // for the [rows, D] accumulators it owns head-dim columns (t % 16) + 16 * j
 // (j < W / 16). Each SIMT body is instantiated at two widths W, 128 for
-// D <= 128 (SIMT_NARROW) and 256 above (MAX_D), so that D <= 128 keeps its
+// D <= 128 (SIMT_NARROW) and 256 above (SPLIT_W), so that D <= 128 keeps its
 // registers. The 16 threads that share a row are one half of a warp, so
 // row max / row sum are four xor-shuffles.
 //
@@ -40,6 +40,22 @@
 // is visible iff col_ids[col] <= row_ids[row], whatever causal says. The
 // bound checks row < q_len, col < kv_len take the place of JAX's +-2^30
 // padding ids.
+//
+// Head dims past SPLIT_W (256) up to MAX_D (1024) split each head's
+// columns across a thread-block cluster (ops/_common.py:flash_split_plan
+// is the same plan in Python): n = ceil(D / SPLIT_W) blocks share one
+// tile, block r holding columns [r SPLIT_W, (r + 1) SPLIT_W) of q, k, v
+// and do (past D zero-filled) and running the SPLIT_W-wide body on them.
+// Every score product (S = q k^T, dP = do v^T, or their transposes) is
+// then a partial sum over the block's columns: each block stores its
+// partial in its own shared memory, and after a cluster barrier every
+// block reads all n partials by distributed shared memory and adds them
+// in cluster-rank order (stash_partial, sum_partials), so every block
+// holds the same bits of S and dP, and so the same m, l and p. Each block
+// then stores only its own columns of out, dq, dk and dv; rank 0 writes
+// lse. The buffer a partial lands in is free for the next step's partial
+// once every block has passed the barrier's second half (cluster_arrive
+// after its reads, cluster_wait before the buffer is written again).
 //
 // Ids (a ring attention hop's global positions, or any int32 values,
 // sorted or not) are handled by tile, not by element (live_tiles below):
@@ -73,7 +89,11 @@ static_assert(BQ == 64 && BK == 64, "the thread map assumes 64 x 64 tiles");
 constexpr int THREADS = 256;
 constexpr int RPT = 4;        // tile rows per thread (64 rows / 16 row groups)
 constexpr int CPT = 4;        // tile columns per thread (64 columns / 16 lanes)
-constexpr int MAX_D = 256;        // the widest head dim any body takes
+constexpr int SPLIT_W = 256;      // the widest body; past it, a cluster
+constexpr int MAX_D = 1024;       // the widest head dim any launch takes
+// dk/dv's cluster, two walk halves of MAX_D / SPLIT_W blocks each, stays
+// within the 8 blocks a portable cluster may hold.
+static_assert(2 * (MAX_D / SPLIT_W) <= 8, "portable clusters");
 constexpr int SIMT_NARROW = 128;  // the SIMT bodies' width for D <= 128
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;  // exp(x) = exp2(x * LOG2E)
@@ -148,33 +168,34 @@ inline bool bad_shape(const Geom& g) {
          (g.row_ids == nullptr) != (g.col_ids == nullptr);
 }
 
-// 64 rows of one head into shared memory as f32 [64][D + 1] (the +1 keeps
-// column walks free of bank conflicts). Rows at or past seq_len read as
-// zero.
+// 64 rows of one head into shared memory as f32 [64][ld], ld = D + 1 by
+// default (the +1 keeps column walks free of bank conflicts): D columns
+// from col0. Rows at or past seq_len read as zero.
 template <typename T>
 __device__ void load_tile(float* dst, const T* __restrict__ src,
                           const Strides& s, int b, int head, int row0,
-                          int seq_len, int D) {
-  const int ld = D + 1;
+                          int seq_len, int D, int ld = 0, int col0 = 0) {
+  if (ld == 0) ld = D + 1;
   for (int idx = threadIdx.x; idx < 64 * D; idx += THREADS) {
     const int r = idx / D;
     const int c = idx - r * D;
     const int row = row0 + r;
     float x = 0.f;
-    if (row < seq_len) x = to_f(src[s.at(b, head, row) + c]);
+    if (row < seq_len) x = to_f(src[s.at(b, head, row) + col0 + c]);
     dst[r * ld + c] = x;
   }
 }
 
 // ROWS rows of one head (from row0) of a bf16 operand into a swizzled
-// shared tile DP columns wide (hopper.cuh), by 16-byte cp.async from the
-// NT threads of the block; the caller commits. Rows at or past seq_len and
-// columns at or past D (D a multiple of 8) are zero-filled, so they add
-// nothing to any product.
+// shared tile DP columns wide (hopper.cuh), the head's columns from col0
+// (a multiple of 8), by 16-byte cp.async from the NT threads of the
+// block; the caller commits. Rows at or past seq_len and columns at or
+// past D (D a multiple of 8) are zero-filled, so they add nothing to any
+// product.
 template <int ROWS, int DP, int NT>
 __device__ __forceinline__ void load_tile_async(
     uint32_t dst, const __nv_bfloat16* __restrict__ src, const Strides& s,
-    int b, int head, int row0, int seq_len, int D) {
+    int b, int head, int row0, int seq_len, int D, int col0 = 0) {
   constexpr int CPR = DP / 8;  // 16-byte chunks per row
   static_assert((ROWS * CPR) % NT == 0, "whole chunks per thread");
 #pragma unroll
@@ -183,9 +204,10 @@ __device__ __forceinline__ void load_tile_async(
     const int r = idx / CPR;
     const int c = idx % CPR;
     const int row = row0 + r;
-    const bool ok = row < seq_len && c * 8 < D;
+    const bool ok = row < seq_len && col0 + c * 8 < D;
     hopper::cp_async16(dst + hopper::swizzled(ROWS, r, c),
-                       ok ? src + s.at(b, head, row) + c * 8 : src, ok);
+                       ok ? src + s.at(b, head, row) + col0 + c * 8 : src,
+                       ok);
   }
 }
 
@@ -442,6 +464,121 @@ __device__ __forceinline__ uint32_t acc_visible_ids_t(const int (&cid)[2],
   }
   return vis;
 }
+
+// ---------------------------------------------------------------------------
+// Head dims past SPLIT_W: the cluster's partial sums
+// ---------------------------------------------------------------------------
+
+// Stores a thread's N partial sums (N a multiple of 4) at slot `slot` of
+// `slots` in the exchange buffer at shared address buf: float4 i at
+// (i * slots + slot) * 16, so a warp's stores and loads are contiguous.
+template <int N>
+__device__ __forceinline__ void stash_partial(uint32_t buf,
+                                              const float (&x)[N], int slot,
+                                              int slots) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i)
+    hopper::st_shared(buf + (i * slots + slot) * 16,
+                      make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2],
+                                  x[4 * i + 3]));
+}
+
+// x = the sum of the partials that the blocks of cluster ranks rank0,
+// rank0 + 1, ..., rank0 + n - 1 stashed at the same slot of the same
+// buffer, added in that order, so every block gets the same bits; own is
+// this block's rank, whose partial it reads from its own shared memory
+// (the others by distributed shared memory). G float4s of a block are
+// read at a time: 8 G registers of loads in flight, N / (4 G) round trips
+// a block.
+template <int G, int N>
+__device__ __forceinline__ void sum_partials(float (&x)[N], uint32_t buf,
+                                             int slot, int slots, int rank0,
+                                             int n, int own) {
+  static_assert((N / 4) % G == 0, "whole groups of float4s");
+  auto load = [&](int rank, int i) {
+    const uint32_t off = (i * slots + slot) * 16;
+    return rank == own
+               ? hopper::ld_shared(buf + off)
+               : hopper::ld_cluster(
+                     hopper::map_to_rank(buf, (uint32_t)rank) + off);
+  };
+#pragma unroll
+  for (int i0 = 0; i0 < N / 4; i0 += G) {
+    float4 a[G];
+#pragma unroll
+    for (int i = 0; i < G; ++i) a[i] = load(rank0, i0 + i);
+#pragma unroll 1
+    for (int c = 1; c < n; ++c) {
+      float4 p[G];
+#pragma unroll
+      for (int i = 0; i < G; ++i) p[i] = load(rank0 + c, i0 + i);
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        a[i].x += p[i].x;
+        a[i].y += p[i].y;
+        a[i].z += p[i].z;
+        a[i].w += p[i].w;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      x[4 * (i0 + i)] = a[i].x;
+      x[4 * (i0 + i) + 1] = a[i].y;
+      x[4 * (i0 + i) + 2] = a[i].z;
+      x[4 * (i0 + i) + 3] = a[i].w;
+    }
+  }
+}
+
+// A SIMT thread's [RPT][CPT] score tile exchanged whole: stash, a cluster
+// barrier, the sum, and a second barrier after which the buffer is free
+// again.
+__device__ __forceinline__ void exchange_partials(float (&x)[RPT][CPT],
+                                                  uint32_t buf, int n) {
+  float f[RPT * CPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) f[i * CPT + j] = x[i][j];
+  stash_partial(buf, f, (int)threadIdx.x, THREADS);
+  hopper::cluster_sync();  // every block's partial has landed
+  sum_partials<1>(f, buf, (int)threadIdx.x, THREADS, 0, n,
+                  (int)hopper::cluster_rank());
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) x[i][j] = f[i * CPT + j];
+  hopper::cluster_sync();  // every block has read them
+}
+
+// Launches `kernel` on clusters of `cluster` blocks along x (grid.x a
+// multiple of it) with `smem` bytes of dynamic shared memory.
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, int threads,
+                           int smem, int cluster, cudaStream_t stream,
+                           Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Blocks a cluster splits a head of D columns into (1 up to MAX_D /
+// SPLIT_W).
+inline int split_blocks(int D) { return (D + SPLIT_W - 1) / SPLIT_W; }
 
 // The bf16 tensor-core bodies read 16-byte chunks of rows: the head dim
 // must be a multiple of 8 and every operand 16-byte aligned (the wrappers

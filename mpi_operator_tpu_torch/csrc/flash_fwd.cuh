@@ -45,11 +45,24 @@
 // other's state: the no-id one is the design above unchanged, and at
 // DP = 128 it sits at the 128-register bound.
 //
+// Past D = 256 (SPLIT): a cluster of n = ceil(D / 256) blocks takes each
+// (q tile, head, batch), block r running the 256 body on columns
+// [256 r, 256 r + 256) (flash_common.cuh). After each S product the
+// block's partial S goes into the step's K slot (K is spent once both
+// warpgroups' products are done: 32 KB, 32 floats a thread), a cluster
+// barrier, and every block adds the n partials in rank order, so all hold
+// the same S, m, l and P; each then accumulates and stores its own 256
+// columns of O, and rank 0 writes lse. The next load into that stage
+// waits for every block's reads (the barrier's second half), so the
+// shared memory stays 193 KB and the ring keeps one tile in flight.
+//
 // f32 (fwd_kernel_simt): f32 FMA on tiles staged in shared memory, the
 // 64 x 64 SIMT thread map of flash_common.cuh, with the same tile walk (its
 // ids classified on 64 x 64 tiles), at width W = 128 or 256: Q 64 x D and
 // K and V 64 x D in f32 with P 64 x 64, 214 KB at D = 256. It is for checks
 // that hold f32 to 2e-5; f32 has no tensor-core path of that precision.
+// Past 256 it splits the same way at W = 256, the partial S crossing
+// through P's buffer before P takes it.
 #pragma once
 
 #include "flash_common.cuh"
@@ -114,7 +127,12 @@ __device__ __forceinline__ void fwd_softmax(float (&s)[32], float (&m)[2],
 
 // IDS: the instantiation for launches with row/col ids (the other never
 // reads them), so neither carries the other's state in registers.
-template <int DP, bool IDS>
+// SPLIT: the instantiation for head dims past SPLIT_W, launched on
+// clusters whose blocks share one (q tile, head, batch) and split its
+// columns (flash_common.cuh): the partial S of a step lands in the step's
+// K slot, which the S product has read and the next load into that stage
+// waits for (cluster_wait at the top of the following step).
+template <int DP, bool IDS, bool SPLIT>
 __global__ void __launch_bounds__(FwdTc<DP>::THREADS, FwdTc<DP>::MIN_BLOCKS)
     fwd_kernel_tc(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -123,6 +141,8 @@ __global__ void __launch_bounds__(FwdTc<DP>::THREADS, FwdTc<DP>::MIN_BLOCKS)
                   const Geom g) {
   using T = FwdTc<DP>;
   constexpr int BQ = T::BQ, BK = T::BK, NT = T::THREADS, NB = T::NB;
+  static_assert(!SPLIT || (DP == SPLIT_W && T::KV_BYTES == 32 * NT * 4),
+                "a split block's partial S fills its K slot");
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t raw = hopper::smem_addr(smem);
   const uint32_t sQ = (raw + 1023u) & ~1023u;
@@ -136,11 +156,15 @@ __global__ void __launch_bounds__(FwdTc<DP>::THREADS, FwdTc<DP>::MIN_BLOCKS)
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32;
-  // Heads and batches vary fastest on the grid; the last q tiles, the
-  // heaviest under causal masking, go first.
+  // Heads and batches vary fastest on the grid (with SPLIT, the cluster's
+  // blocks faster still); the last q tiles, the heaviest under causal
+  // masking, go first.
+  const int ncol = SPLIT ? (int)hopper::cluster_size() : 1;
+  const int crank = SPLIT ? (int)hopper::cluster_rank() : 0;
+  const int c0 = crank * DP;  // this block's first column
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const int h = blockIdx.x % g.H;
-  const int b = blockIdx.x / g.H;
+  const int h = blockIdx.x / ncol % g.H;
+  const int b = blockIdx.x / ncol / g.H;
   const int hk = h / (g.H / g.Hkv);
   const float scale_log2 = g.scale * LOG2E;
 
@@ -149,16 +173,17 @@ __global__ void __launch_bounds__(FwdTc<DP>::THREADS, FwdTc<DP>::MIN_BLOCKS)
   const int n_kt =
       IDS ? live_tiles<BQ, BK, true>(list, g, q0) : live_k_tiles<BQ, BK>(g, q0);
   if (IDS && n_kt == 0) {  // no row sees any column: out 0, lse NEG_INF
-    write_dead_rows<BQ>(out, g.qs, b, h, q0, g.q_len, g.D, lse, g.stats,
-                        NEG_INF);
+    if (crank == 0)  // every row's every column, for the whole cluster
+      write_dead_rows<BQ>(out, g.qs, b, h, q0, g.q_len, g.D, lse, g.stats,
+                          NEG_INF);
     return;
   }
   if (n_kt > 0) {
     const int k1 = IDS ? (list[0] >> 1) * BK : 0;
-    load_tile_async<BQ, DP, NT>(sQ, q, g.qs, b, h, q0, g.q_len, g.D);
-    load_tile_async<BK, DP, NT>(sKV, k, g.kvs, b, hk, k1, g.kv_len, g.D);
+    load_tile_async<BQ, DP, NT>(sQ, q, g.qs, b, h, q0, g.q_len, g.D, c0);
+    load_tile_async<BK, DP, NT>(sKV, k, g.kvs, b, hk, k1, g.kv_len, g.D, c0);
     load_tile_async<BK, DP, NT>(sKV + KVB, v, g.kvs, b, hk, k1, g.kv_len,
-                                g.D);
+                                g.D, c0);
     if constexpr (IDS) load_ids_async(sCid, g.col_ids, k1, g.kv_len);
     hopper::cp_async_commit();
   }
@@ -181,12 +206,16 @@ __global__ void __launch_bounds__(FwdTc<DP>::THREADS, FwdTc<DP>::MIN_BLOCKS)
   for (int kt = 0; kt < n_kt; ++kt) {
     const uint32_t sK = sKV + (kt & 1) * 2 * KVB;
     const uint32_t sV = sK + KVB;
+    // Every block has read step kt - 1's partials from the K slot the
+    // next load takes.
+    if (SPLIT && kt > 0) hopper::cluster_wait();
     if (kt + 1 < n_kt) {
       const uint32_t nK = sKV + ((kt + 1) & 1) * 2 * KVB;
       const int k1 = (IDS ? list[kt + 1] >> 1 : kt + 1) * BK;
-      load_tile_async<BK, DP, NT>(nK, k, g.kvs, b, hk, k1, g.kv_len, g.D);
+      load_tile_async<BK, DP, NT>(nK, k, g.kvs, b, hk, k1, g.kv_len, g.D,
+                                  c0);
       load_tile_async<BK, DP, NT>(nK + KVB, v, g.kvs, b, hk, k1, g.kv_len,
-                                  g.D);
+                                  g.D, c0);
       if constexpr (IDS)
         load_ids_async(sCid + ((kt + 1) & 1) * BK * 4, g.col_ids, k1,
                        g.kv_len);
@@ -212,6 +241,13 @@ __global__ void __launch_bounds__(FwdTc<DP>::THREADS, FwdTc<DP>::MIN_BLOCKS)
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(s);
+    if constexpr (SPLIT) {
+      __syncthreads();  // both warpgroups' products have read K
+      stash_partial(sK, s, (int)threadIdx.x, NT);
+      hopper::cluster_sync();  // every block's partial S has landed
+      sum_partials<4>(s, sK, (int)threadIdx.x, NT, 0, ncol, crank);
+      hopper::cluster_arrive();  // read; the wait is the next step's
+    }
 
     const int e = IDS ? list[kt] : 0;  // with ids: the tile, TILE_FULL
     const int k0 = (IDS ? e >> 1 : kt) * BK;
@@ -246,6 +282,8 @@ __global__ void __launch_bounds__(FwdTc<DP>::THREADS, FwdTc<DP>::MIN_BLOCKS)
     for (int kk = 0; kk < 4; ++kk) hopper::fence_regs(pa[kk]);
     __syncthreads();  // both warpgroups are done with the stage
   }
+  // No block leaves while another may still read its shared memory.
+  if (SPLIT && n_kt > 0) hopper::cluster_wait();
 
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -253,17 +291,17 @@ __global__ void __launch_bounds__(FwdTc<DP>::THREADS, FwdTc<DP>::MIN_BLOCKS)
     const float lsum = hopper::quad_sum(l[hh]);
     if (row >= g.q_len) continue;
     const float inv = lsum > 0.f ? 1.f / lsum : 0.f;  // a dead row: o = 0
-    __nv_bfloat16* orow = out + g.qs.at(b, h, row);
+    __nv_bfloat16* orow = out + g.qs.at(b, h, row) + c0;
 #pragma unroll
     for (int cb = 0; cb < NB; ++cb)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = cb * 64 + 8 * j + 2 * (lane % 4);
-        if (col < g.D)
+        if (c0 + col < g.D)
           *reinterpret_cast<uint32_t*>(orow + col) = hopper::pack_bf16(
               o[cb][4 * j + 2 * hh] * inv, o[cb][4 * j + 2 * hh + 1] * inv);
       }
-    if (lane % 4 == 0)
+    if (lane % 4 == 0 && crank == 0)
       lse[g.stats.at(b, h, row)] =
           lsum > 0.f ? (m[hh] + log2f(lsum)) * LN2 : NEG_INF;
   }
@@ -278,7 +316,8 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
   if (n_qt > MAX_GRID_YZ || (long long)g.B * g.H > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   const bool ids = g.row_ids != nullptr;
-  const auto kernel = ids ? fwd_kernel_tc<DP, true> : fwd_kernel_tc<DP, false>;
+  const auto kernel =
+      ids ? fwd_kernel_tc<DP, true, false> : fwd_kernel_tc<DP, false, false>;
   const int smem =
       T::SMEM + (ids ? T::IDS_BYTES + id_list_bytes(g.kv_len, T::BK) : 0);
   cudaError_t err = cudaFuncSetAttribute(
@@ -293,20 +332,52 @@ cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// D past SPLIT_W: the SPLIT_W-wide body on clusters of split_blocks(D)
+// blocks, the cluster's blocks side by side on the grid's x.
+inline cudaError_t launch_fwd_tc_split(const void* q, const void* k,
+                                       const void* v, void* out, void* lse,
+                                       const Geom& g, cudaStream_t stream) {
+  using T = FwdTc<SPLIT_W>;
+  const int n = split_blocks(g.D);
+  const int n_qt = (g.q_len + T::BQ - 1) / T::BQ;
+  if (n_qt > MAX_GRID_YZ || (long long)n * g.B * g.H > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const bool ids = g.row_ids != nullptr;
+  const int smem =
+      T::SMEM + (ids ? T::IDS_BYTES + id_list_bytes(g.kv_len, T::BK) : 0);
+  return launch_cluster(
+      ids ? fwd_kernel_tc<SPLIT_W, true, true>
+          : fwd_kernel_tc<SPLIT_W, false, true>,
+      dim3((unsigned)(n * g.B * g.H), n_qt), T::THREADS, smem, n, stream,
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), g);
+}
+
 // ---------------------------------------------------------------------------
 // f32: the SIMT body
 // ---------------------------------------------------------------------------
 
 // W: the body's width (the accumulators' head-dim columns, D <= W); IDS:
-// the instantiation for launches with row/col ids.
-template <typename T, int W, bool IDS>
-__global__ void __launch_bounds__(THREADS)
-    fwd_kernel_simt(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ out,
-                    float* __restrict__ lse, const Geom g) {
+// the instantiation for launches with row/col ids; SPLIT: for head dims
+// past W = SPLIT_W, on clusters whose blocks split the columns
+// (flash_common.cuh), each partial S exchanged through Ps before P
+// takes it.
+template <typename T, int W, bool IDS, bool SPLIT>
+__device__ __forceinline__ void fwd_simt(const T* __restrict__ q,
+                                         const T* __restrict__ k,
+                                         const T* __restrict__ v,
+                                         T* __restrict__ out,
+                                         float* __restrict__ lse,
+                                         const Geom& g) {
   extern __shared__ float smem_f[];
-  const int D = g.D;
-  const int ld = D + 1;
+  const int ncol = SPLIT ? (int)hopper::cluster_size() : 1;
+  const int crank = SPLIT ? (int)hopper::cluster_rank() : 0;
+  const int c0 = crank * W;  // this block's first column
+  // The block's columns, and a row stride the same in every block.
+  const int D = SPLIT ? min(W, g.D - c0) : g.D;
+  const int ld = SPLIT ? W + 1 : D + 1;
   float* Qs = smem_f;         // [BQ][ld]
   float* Ks = Qs + BQ * ld;   // [BK][ld]
   float* Vs = Ks + BK * ld;   // [BK][ld]
@@ -315,7 +386,7 @@ __global__ void __launch_bounds__(THREADS)
   int* Cid = reinterpret_cast<int*>(Ps + BQ * (BK + 1));  // [BK]
   int* list = Cid + BK;
 
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x / ncol * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (g.H / g.Hkv);
@@ -324,7 +395,7 @@ __global__ void __launch_bounds__(THREADS)
   constexpr bool ids = IDS;
   constexpr int DPT = W / 16;  // head-dim columns per thread
 
-  load_tile(Qs, q, g.qs, b, h, q0, g.q_len, D);
+  load_tile(Qs, q, g.qs, b, h, q0, g.q_len, D, ld, c0);
 
   float m[RPT], l[RPT], acc[RPT][DPT];
   int rid[RPT];  // with ids, the ids of the thread's rows
@@ -346,8 +417,8 @@ __global__ void __launch_bounds__(THREADS)
     const int e = ids ? list[it] : 0;
     const int k0 = (ids ? e >> 1 : it) * BK;
     __syncthreads();  // the previous tile's readers are done
-    load_tile(Ks, k, g.kvs, b, hk, k0, g.kv_len, D);
-    load_tile(Vs, v, g.kvs, b, hk, k0, g.kv_len, D);
+    load_tile(Ks, k, g.kvs, b, hk, k0, g.kv_len, D, ld, c0);
+    load_tile(Vs, v, g.kvs, b, hk, k0, g.kv_len, D, ld, c0);
     if (ids) load_ids(Cid, g.col_ids, k0, g.kv_len);
     __syncthreads();
 
@@ -367,6 +438,9 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
+    // The cluster's S, the partials summed in rank order, through Ps.
+    if constexpr (SPLIT)
+      exchange_partials(s, (uint32_t)__cvta_generic_to_shared(Ps), ncol);
 
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
@@ -421,30 +495,62 @@ __global__ void __launch_bounds__(THREADS)
     if (row >= g.q_len) continue;
     const bool live = l[i] > 0.f;
     const float safe_l = live ? l[i] : 1.f;
-    const size_t o = g.qs.at(b, h, row);
+    const size_t o = g.qs.at(b, h, row) + c0;
 #pragma unroll
     for (int jd = 0; jd < DPT; ++jd) {
       const int c = tc + 16 * jd;
       if (c < D) out[o + c] = from_f<T>(acc[i][jd] / safe_l);
     }
-    if (tc == 0)
+    if (tc == 0 && crank == 0)
       lse[g.stats.at(b, h, row)] = live ? m[i] + logf(safe_l) : NEG_INF;
   }
 }
 
+template <typename T, int W, bool IDS>
+__global__ void __launch_bounds__(THREADS)
+    fwd_kernel_simt(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ out,
+                    float* __restrict__ lse, const Geom g) {
+  fwd_simt<T, W, IDS, false>(q, k, v, out, lse, g);
+}
+
+// The split body, one block an SM (its shared memory allows no more), so
+// that ptxas gives it the registers rather than spill for a second.
+template <typename T, bool IDS>
+__global__ void __launch_bounds__(THREADS, 1)
+    fwd_kernel_simt_split(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, T* __restrict__ out,
+                          float* __restrict__ lse, const Geom g) {
+  fwd_simt<T, SPLIT_W, IDS, true>(q, k, v, out, lse, g);
+}
+
+// W: the body's width; past SPLIT_W, clusters of split_blocks(D) blocks
+// of width SPLIT_W side by side on the grid's x.
 template <typename T, int W>
 cudaError_t launch_fwd_simt(const void* q, const void* k, const void* v,
                             void* out, void* lse, const Geom& g,
                             cudaStream_t stream) {
+  const int n = split_blocks(g.D);
   const size_t smem =
-      sizeof(float) * ((size_t)(BQ + 2 * BK) * (g.D + 1) + BQ * (BK + 1)) +
+      sizeof(float) * ((size_t)(BQ + 2 * BK) * (min(g.D, W) + 1) +
+                       BQ * (BK + 1)) +
       (g.row_ids != nullptr ? 4 * BK + id_list_bytes(g.kv_len, BK) : 0);
-  const auto kernel = g.row_ids != nullptr ? fwd_kernel_simt<T, W, true>
-                                            : fwd_kernel_simt<T, W, false>;
+  const dim3 grid(n * ((g.q_len + BQ - 1) / BQ), g.H, g.B);
+  if constexpr (W == SPLIT_W) {
+    if (n > 1)
+      return launch_cluster(
+          g.row_ids != nullptr ? fwd_kernel_simt_split<T, true>
+                               : fwd_kernel_simt_split<T, false>,
+          grid, THREADS, (int)smem, n, stream, static_cast<const T*>(q),
+          static_cast<const T*>(k), static_cast<const T*>(v),
+          static_cast<T*>(out), static_cast<float*>(lse), g);
+  }
+  const auto kernel = g.row_ids != nullptr
+                          ? fwd_kernel_simt<T, W, true>
+                          : fwd_kernel_simt<T, W, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((g.q_len + BQ - 1) / BQ, g.H, g.B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
@@ -464,11 +570,14 @@ inline int fwd(const void* q, const void* k, const void* v, void* out,
     return (int)(g.D <= SIMT_NARROW
                      ? launch_fwd_simt<float, SIMT_NARROW>(q, k, v, out, lse,
                                                            g, s)
-                     : launch_fwd_simt<float, MAX_D>(q, k, v, out, lse, g, s));
+                     : launch_fwd_simt<float, SPLIT_W>(q, k, v, out, lse, g,
+                                                       s));
   if (bad_tc_operands(g, {q, k, v, out})) return (int)cudaErrorInvalidValue;
   return (int)(g.D <= 64    ? launch_fwd_tc<64>(q, k, v, out, lse, g, s)
                : g.D <= 128 ? launch_fwd_tc<128>(q, k, v, out, lse, g, s)
-                            : launch_fwd_tc<256>(q, k, v, out, lse, g, s));
+               : g.D <= SPLIT_W
+                   ? launch_fwd_tc<256>(q, k, v, out, lse, g, s)
+                   : launch_fwd_tc_split(q, k, v, out, lse, g, s));
 }
 
 }  // namespace flash

@@ -74,15 +74,22 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-// Thread block clusters: this block's rank in its cluster, the shared
-// address of `addr` in the block of rank `rank` (distributed shared
-// memory), a 16-byte store there, and a barrier over every thread of the
-// cluster that orders the shared-memory writes before it (release) with
-// the reads after it (acquire).
+// Thread block clusters: this block's rank in its cluster and the number
+// of blocks in it, the shared address of `addr` in the block of rank
+// `rank` (distributed shared memory), 16-byte stores and loads there, and
+// a barrier over every thread of the cluster that orders the
+// shared-memory writes before it (release) with the reads after it
+// (acquire), whole or as its two halves: every thread alternates
+// cluster_arrive and cluster_wait.
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
   return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
 }
 __device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, uint32_t rank) {
   uint32_t out;
@@ -97,11 +104,36 @@ __device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
                "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
                : "memory");
 }
+__device__ __forceinline__ float4 ld_cluster(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ float4 ld_shared(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_shared(uint32_t addr, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 __device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
+  cluster_arrive();
+  cluster_wait();
 }
 
 // wgmma matrix descriptor, SWIZZLE_128B: start address, leading and

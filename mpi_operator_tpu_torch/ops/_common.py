@@ -25,13 +25,22 @@ import torch
 #   256): f32 FMA on f32 tiles in shared memory. ops/_build.py passes these
 #   to nvcc as -D defines; the kernels' static_assert refuses any other
 #   value.
+#
+# Past 256 (FLASH_SPLIT_WIDTH) both kinds split each head's columns across
+# a thread-block cluster (flash_split_plan; csrc/flash_common.cuh): n
+# blocks of 256 columns share one tile and sum their partial scores in
+# distributed shared memory, up to FLASH_MAX_HEAD_DIM.
 # ----------------------------------------------------------------------
 
 DEFAULT_BLOCK_Q = 64   # SIMT flash q-tile (rows per block)
 DEFAULT_BLOCK_K = 64   # SIMT flash k-tile (rows per inner step)
-# Head dims of the bf16 tensor-core bodies; the last is every flash
-# kernel's widest (csrc/flash_common.cuh MAX_D).
+# Head dims of the bf16 tensor-core bodies; the last is the widest a block
+# holds (csrc/flash_common.cuh SPLIT_W).
 FLASH_TC_HEAD_DIMS = (64, 128, 256)
+FLASH_SPLIT_WIDTH = FLASH_TC_HEAD_DIMS[-1]
+# The widest head dim a flash launch takes (csrc/flash_common.cuh MAX_D):
+# a cluster of FLASH_MAX_HEAD_DIM / FLASH_SPLIT_WIDTH = 4 blocks.
+FLASH_MAX_HEAD_DIM = 1024
 
 
 def flash_padded_head_dim(head_dim: int) -> int:
@@ -42,17 +51,31 @@ def flash_padded_head_dim(head_dim: int) -> int:
     return -(-head_dim // 8) * 8
 
 
+def flash_split_plan(head_dim: int) -> tuple:
+    """``(n, width)`` of a flash launch at ``head_dim``: ``n`` blocks of a
+    thread-block cluster share one tile, block ``r`` holding the columns
+    ``[r * width, (r + 1) * width)`` (those past ``head_dim`` zero-filled
+    in shared memory and never stored) and running the ``width``-wide
+    body. Up to FLASH_SPLIT_WIDTH ``n`` is 1 and ``width`` the bf16
+    body's today (the smallest of FLASH_TC_HEAD_DIMS that covers it);
+    past it ``n = ceil(head_dim / FLASH_SPLIT_WIDTH)`` and ``width`` is
+    FLASH_SPLIT_WIDTH. The f32 bodies split at the same ``n``. Raises
+    ValueError for a head dim below 1 or past FLASH_MAX_HEAD_DIM."""
+    if not 1 <= head_dim <= FLASH_MAX_HEAD_DIM:
+        raise ValueError(
+            f"the flash kernels take head_dim between 1 and "
+            f"{FLASH_MAX_HEAD_DIM}, got {head_dim}")
+    if head_dim <= FLASH_SPLIT_WIDTH:
+        return 1, next(w for w in FLASH_TC_HEAD_DIMS if head_dim <= w)
+    return -(-head_dim // FLASH_SPLIT_WIDTH), FLASH_SPLIT_WIDTH
+
+
 def flash_tc_head_dim(head_dim: int) -> int:
-    """The head dim a bf16 flash launch at ``head_dim`` runs at: the
-    smallest of FLASH_TC_HEAD_DIMS that covers it (the columns past
-    ``head_dim``, or past its padded width, are zero-filled in shared
-    memory and never stored). Raises ValueError for a head dim those
-    bodies cannot take: below 1 or wider than the widest."""
-    if 1 <= head_dim <= FLASH_TC_HEAD_DIMS[-1]:
-        return next(w for w in FLASH_TC_HEAD_DIMS if head_dim <= w)
-    raise ValueError(
-        f"the bf16 flash kernels take head_dim between 1 and "
-        f"{FLASH_TC_HEAD_DIMS[-1]}, got {head_dim}")
+    """The head dim a block of a bf16 flash launch at ``head_dim`` runs at
+    (flash_split_plan's width): the smallest of FLASH_TC_HEAD_DIMS that
+    covers it, or past the widest, the widest, with the head split across
+    a cluster. Raises ValueError for a head dim the kernels cannot take."""
+    return flash_split_plan(head_dim)[1]
 
 # ----------------------------------------------------------------------
 # BN reductions (csrc/bn_stats.cu, csrc/bn_grads.cu) over an [M, C]

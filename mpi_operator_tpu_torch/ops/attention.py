@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from ._common import FLASH_TC_HEAD_DIMS, flash_padded_head_dim
+from ._common import FLASH_MAX_HEAD_DIM, flash_padded_head_dim
 
 NEG_INF = -1e30  # safe "minus infinity": avoids inf-inf -> nan in masking
 
@@ -45,7 +45,7 @@ LAUNCHES = {
 }
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-_KERNEL_MAX_D = FLASH_TC_HEAD_DIMS[-1]  # csrc/flash_common.cuh MAX_D
+_KERNEL_MAX_D = FLASH_MAX_HEAD_DIM  # csrc/flash_common.cuh MAX_D
 
 
 # The flat kernels' launches since the last reset_launch_counts(), by
@@ -695,9 +695,10 @@ def flash_attention_bshd(
 
     Differentiable: the backward runs the dq and dkv kernels. Tensors on
     a CUDA device go through the kernels (bfloat16 or float32, head_dim
-    <= 256; in bfloat16 a head dim that is not a multiple of 8 is padded
-    with zero columns around the launch); tensors on the CPU through the
-    plain versions, at any head dim.
+    <= 1024, past 256 each head's columns split across a cluster of
+    blocks, ``flash_split_plan``; in bfloat16 a head dim that is not a
+    multiple of 8 is padded with zero columns around the launch); tensors
+    on the CPU through the plain versions, at any head dim.
     """
     qf, kf, vf = _flat_views(q, k, v, "flash_attention_bshd")
     if sm_scale is None:
@@ -797,9 +798,10 @@ def flash_attention(q, k, v, *, causal: bool = False,
     Causal masking is bottom-right aligned; a row that sees no key gives
     0. Differentiable: the backward runs the dq and dkv kernels. Tensors
     on a CUDA device go through the [B*H, S, D] kernels (bfloat16 or
-    float32, head_dim <= 256; in bfloat16 a head dim that is not a
-    multiple of 8 is padded with zero columns around the launch); tensors
-    on the CPU through their plain versions, at any head dim."""
+    float32, head_dim <= 1024, past 256 split across a cluster of blocks;
+    in bfloat16 a head dim that is not a multiple of 8 is padded with zero
+    columns around the launch); tensors on the CPU through their plain
+    versions, at any head dim."""
     qr, kr, vr = _bhsd_rows(q, k, v)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
