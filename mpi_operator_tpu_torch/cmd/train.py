@@ -152,8 +152,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--async-checkpoint", action="store_true")
     p.add_argument("--profile-dir", default="",
                    help="write a torch.profiler trace (CPU and CUDA "
-                        "activity, Chrome JSON) of the timed steps 11-13 "
-                        "here, one file per process")
+                        "activity and the step's named ranges, Chrome "
+                        "JSON) of the timed steps 11-13 here, one file "
+                        "per process")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data", default="")
     p.add_argument("--prefetch-depth", type=int, default=2)
@@ -939,7 +940,10 @@ def held_tensors(work: Workload) -> list:
 
 def _start_profiler(device):
     """A running ``torch.profiler`` over the CPU and, on the card, CUDA
-    activity (the JAX trainer's ``jax.profiler.start_trace``)."""
+    activity (the JAX trainer's ``jax.profiler.start_trace``). The step's
+    named ranges (``utils/torchtrace.py``) are armed while it runs, so
+    the trace shows the step's phases, casts, norms, head and MoE
+    parts."""
     from torch import profiler
 
     activities = [profiler.ProfilerActivity.CPU]

@@ -32,6 +32,7 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 
+from ..utils import torchtrace
 from ..utils.logging import get_logger
 from .permutation import Feistel
 
@@ -195,7 +196,8 @@ class Prefetcher:
     them ready so host assembly overlaps device compute. Iterate it for
     steps [start, end); an error in ``fn`` is raised on the consuming
     side. ``close()`` stops the thread when the consumer leaves early
-    (a preempted run)."""
+    (a preempted run). Each wait for a batch is the step's ``data.wait``
+    range (``utils/torchtrace.py``)."""
 
     def __init__(self, fn: Callable[[int], object], start: int, end: int,
                  *, depth: int = 2):
@@ -221,7 +223,8 @@ class Prefetcher:
 
     def __iter__(self) -> Iterator:
         while True:
-            item = self._q.get()
+            with torchtrace.timed_range("data.wait"):
+                item = self._q.get()
             if item is None:
                 if self._err is not None:
                     raise self._err

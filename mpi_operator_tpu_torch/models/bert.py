@@ -35,7 +35,8 @@ from torch import nn
 
 from ..ops.losses import f32_logits
 from ..ops.ring_attention import sp_attention, sp_attention_bshd
-from .llama import Dense, checkpointed, remat_policy_for
+from ..utils import torchtrace
+from .llama import Dense, checkpointed, dense_params, remat_policy_for
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,12 +91,14 @@ class LayerNorm(nn.Module):
             torch.zeros(dim, dtype=torch.float32, device=device))
 
     def forward(self, x):
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = torch.clamp_min(
-            (xf * xf).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
-        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale)
-        return (y + self.bias).to(self.dtype)
+        with torchtrace.timed_range("norm") as r:
+            x, scale, bias = r.enter(x, self.scale, self.bias)
+            xf = x.float()
+            mean = xf.mean(dim=-1, keepdim=True)
+            var = torch.clamp_min(
+                (xf * xf).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
+            y = (xf - mean) * (torch.rsqrt(var + self.eps) * scale)
+            return r.leave((y + bias).to(self.dtype))
 
 
 class EncoderLayer(nn.Module):
@@ -114,6 +117,11 @@ class EncoderLayer(nn.Module):
         self.ffn_norm = LayerNorm(cfg.dim, cfg.norm_eps, cfg.dtype, device)
 
     def forward(self, x):
+        with torchtrace.cast_block(self.config.dtype,
+                                   lambda: dense_params(self)):
+            return self._forward(x)
+
+    def _forward(self, x):
         cfg = self.config
         b, s, _ = x.shape
         # -1: the heads this process holds (n/tp under a tensor-parallel
@@ -187,12 +195,15 @@ class Bert(nn.Module):
         for layer in self.layers():
             h = (checkpointed(layer, h, policy=cfg.remat_policy) if remat
                  else layer(h))
-        if mlm_positions is not None:
-            index = mlm_positions.long()[..., None].expand(-1, -1, cfg.dim)
-            h = torch.gather(h, 1, index)
-        h = F.gelu(self.mlm_dense(h), approximate="tanh")
-        h = self.mlm_norm(h)
-        return f32_logits(h, table.t())
+        with torchtrace.timed_range("head") as r:
+            h, table = r.enter(h, table)
+            if mlm_positions is not None:
+                index = mlm_positions.long()[..., None].expand(-1, -1,
+                                                               cfg.dim)
+                h = torch.gather(h, 1, index)
+            h = F.gelu(self.mlm_dense(h), approximate="tanh")
+            h = self.mlm_norm(h)
+            return r.leave(f32_logits(h, table.t()))
 
 
 @torch.no_grad()
@@ -240,14 +251,16 @@ def _weighted_xent(logits, targets, weights):
     from ..parallel.mesh import world_size
     from ..parallel.sharding import all_reduce_sum
 
-    ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                         targets.reshape(-1).long(), reduction="none")
-    w = weights.reshape(-1).float()
-    total, count = torch.sum(ce * w), torch.sum(w)
-    n = world_size()
-    if n > 1:
-        total, count = total * n, all_reduce_sum(count.detach())
-    return total / torch.clamp(count, min=1.0)
+    with torchtrace.timed_range("head") as r:
+        logits = r.enter(logits)
+        ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                             targets.reshape(-1).long(), reduction="none")
+        w = weights.reshape(-1).float()
+        total, count = torch.sum(ce * w), torch.sum(w)
+        n = world_size()
+        if n > 1:
+            total, count = total * n, all_reduce_sum(count.detach())
+        return r.leave(total / torch.clamp(count, min=1.0))
 
 
 def mlm_loss(model: Bert, tokens, mlm_positions_mask, mlm_targets,

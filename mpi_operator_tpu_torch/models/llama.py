@@ -37,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.losses import f32_logits, lm_xent_chunked
 from ..ops.ring_attention import sp_attention, sp_attention_bshd
+from ..utils import torchtrace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,8 +162,17 @@ class Dense(nn.Linear):
 
     def forward(self, x):
         dtype = self.compute_dtype
-        y = F.linear(x.to(dtype), self.weight.to(dtype))
-        return y if self.bias is None else y + self.bias.to(dtype)
+        w, b = torchtrace.cast(dtype, self.weight, self.bias)
+        y = F.linear(x.to(dtype), w)
+        return y if b is None else y + b
+
+
+def dense_params(module: nn.Module) -> list:
+    """The weights and biases of ``module``'s :class:`Dense` layers: what
+    a block casts in one ``cast`` range when the step's ranges are armed
+    (``utils/torchtrace.py:cast_block``)."""
+    return [p for m in module.modules() if isinstance(m, Dense)
+            for p in (m.weight, m.bias) if p is not None]
 
 
 class F32LogitsDense(nn.Module):
@@ -189,11 +199,13 @@ class RMSNorm(nn.Module):
         )
 
     def forward(self, x):
-        xf = x.float()
-        norm = xf * torch.rsqrt(
-            torch.mean(xf * xf, dim=-1, keepdim=True) + self.eps
-        )
-        return (norm * self.scale).to(x.dtype)
+        with torchtrace.timed_range("norm") as r:
+            x, scale = r.enter(x, self.scale)
+            xf = x.float()
+            norm = xf * torch.rsqrt(
+                torch.mean(xf * xf, dim=-1, keepdim=True) + self.eps
+            )
+            return r.leave((norm * scale).to(x.dtype))
 
 
 class Attention(nn.Module):
@@ -267,12 +279,14 @@ class Block(nn.Module):
     def forward(self, x, positions):
         """Returns (x, aux): aux is the router load-balance loss of an MoE
         block, 0.0 for a dense one."""
-        x = x + self.attn(self.attn_norm(x), positions)
-        h = self.mlp_norm(x)
-        if hasattr(self, "moe"):
-            y, aux = self.moe(h)
-            return x + y, aux
-        return x + self.mlp(h), 0.0
+        with torchtrace.cast_block(self.attn.config.dtype,
+                                   lambda: dense_params(self)):
+            x = x + self.attn(self.attn_norm(x), positions)
+            h = self.mlp_norm(x)
+            if hasattr(self, "moe"):
+                y, aux = self.moe(h)
+                return x + y, aux
+            return x + self.mlp(h), 0.0
 
 
 class Llama(nn.Module):
@@ -328,14 +342,18 @@ class Llama(nn.Module):
         h = self.final_norm(h)
         if return_hidden:
             return (h, aux) if cfg.is_moe else h
+        with torchtrace.timed_range("head") as r:
+            h, kernel = r.enter(h, self.head_kernel())
+            if chunked_loss:
+                if targets is None:
+                    h, targets = h[:, :-1], tokens[:, 1:]
+                ce = r.leave(lm_xent_chunked(h, kernel, targets, weights,
+                                             chunk=cfg.xent_chunk))
+            else:
+                # Untied head (Llama-3 does not tie embeddings); f32 logits.
+                logits = r.leave(f32_logits(h, kernel))
         if chunked_loss:
-            if targets is None:
-                h, targets = h[:, :-1], tokens[:, 1:]
-            ce = lm_xent_chunked(h, self.head_kernel(), targets, weights,
-                                 chunk=cfg.xent_chunk)
             return ce + aux_coef * aux if cfg.is_moe and aux_coef else ce
-        # Untied head (Llama-3 does not tie embeddings); f32 logits.
-        logits = f32_logits(h, self.head_kernel())
         return (logits, aux) if cfg.is_moe else logits
 
 

@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.losses import HeadProduct
+from ..utils import torchtrace
 
 EXPERT_PARAMS = ("expert_wg", "expert_wu", "expert_wd")
 # The dim of each that holds the expert hidden dim F (split over tp).
@@ -93,7 +94,12 @@ def routing(probs, top_k: int, capacity: int, *, normalize: bool = True):
     pos = torch.cumsum(oh_k.reshape(g, top_k * s, e), dim=1).reshape(
         g, top_k, s, e)
     pos_sel = ((pos - 1.0) * oh_k).sum(-1)  # [G, K, S]: slot in its expert
-    keep = (pos_sel < capacity) & (oh_k.sum(-1) > 0)
+    made = oh_k.sum(-1) > 0  # [G, K, S]: a choice was made
+    keep = (pos_sel < capacity) & made
+    if torchtrace.ranges_armed():
+        # The capacity's drops against the choices, on the device.
+        torchtrace.add_count("moe.dropped", made & ~keep)
+        torchtrace.add_count("moe.choices", made)
     # One-hot of the slot; a slot past the capacity has no column.
     slot = (pos_sel[..., None] == torch.arange(
         capacity, device=probs.device, dtype=pos_sel.dtype)).float()
@@ -175,26 +181,42 @@ class MoEMLP(nn.Module):
         dtype = self.dtype
         cap = expert_capacity(s, self.n_experts, self.top_k,
                               self.capacity_factor)
-        # Router in f32: a small product, and a bf16 softmax skews balance.
-        probs = torch.softmax(x.float() @ self.router, dim=-1)
-        dispatch, combine, aux = routing(probs, self.top_k, cap)
-        dispatch = dispatch.to(dtype)
-        combine = combine.to(self.combine_dtype or dtype)
+        timed = torchtrace.timed_range
+        with timed("moe") as moe:
+            x = moe.enter(x)
+            with timed("moe.route") as r:
+                xr, router = r.enter(x, self.router)
+                # Router in f32: a small product, and a bf16 softmax skews
+                # balance.
+                probs = torch.softmax(xr.float() @ router, dim=-1)
+                dispatch, combine, aux = routing(probs, self.top_k, cap)
+                dispatch = dispatch.to(dtype)
+                combine, aux = r.leave(
+                    combine.to(self.combine_dtype or dtype), aux)
 
-        wg, wu, wd, groups, first = self.local_experts()
-        xin = x.to(dtype)
-        for group in groups:
-            xin = sum_grads(xin, group)
-            combine = sum_grads(combine, group)
-        n = wg.shape[0]
-        dispatch = dispatch[:, :, first:first + n]  # 0/1: no gradient
-        combine = combine[:, :, first:first + n]
-        expert_in = torch.einsum("gsec,gsd->egcd", dispatch, xin)
-        h = (F.silu(torch.einsum("egcd,edf->egcf", expert_in, wg.to(dtype)))
-             * torch.einsum("egcd,edf->egcf", expert_in, wu.to(dtype)))
-        expert_out = torch.einsum("egcf,efd->egcd", h, wd.to(dtype))
-        out = _combine(combine, expert_out)
-        for group in groups:
-            # This rank's block's share of every token: summed in f32.
-            out = sum_partials(out, group)
-        return out.to(x.dtype), aux
+            wg, wu, wd, groups, first = self.local_experts()
+            wg, wu, wd = torchtrace.cast(dtype, wg, wu, wd)
+            n = wg.shape[0]
+            with timed("moe.dispatch") as r:
+                xin = r.enter(x).to(dtype)
+                for group in groups:
+                    xin = sum_grads(xin, group)
+                dispatch = dispatch[:, :, first:first + n]  # 0/1: no grad
+                expert_in = r.leave(
+                    torch.einsum("gsec,gsd->egcd", dispatch, xin))
+            with timed("moe.experts") as r:
+                expert_in, wg, wu, wd = r.enter(expert_in, wg, wu, wd)
+                h = (F.silu(torch.einsum("egcd,edf->egcf", expert_in, wg))
+                     * torch.einsum("egcd,edf->egcf", expert_in, wu))
+                expert_out = r.leave(torch.einsum("egcf,efd->egcd", h, wd))
+            with timed("moe.combine") as r:
+                combine, expert_out = r.enter(combine, expert_out)
+                for group in groups:
+                    combine = sum_grads(combine, group)
+                out = _combine(combine[:, :, first:first + n], expert_out)
+                for group in groups:
+                    # This rank's block's share of every token: summed in
+                    # f32.
+                    out = sum_partials(out, group)
+                out = r.leave(out.to(x.dtype))
+            return moe.leave(out, aux)

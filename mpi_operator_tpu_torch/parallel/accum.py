@@ -9,6 +9,8 @@ from typing import Callable, Optional
 
 import torch
 
+from ..utils.torchtrace import timed_range
+
 # The param-group key of the update count the LR schedule reads.
 SCHEDULE_COUNT = "schedule_count"
 
@@ -46,10 +48,13 @@ def make_update_step(loss_of_batch: Optional[Callable], optimizer,
     def train_step(*batch):
         optimizer.zero_grad(set_to_none=True)
         if forward_backward is not None:
-            loss = forward_backward(*batch)
+            with timed_range("step.pipeline"):
+                loss = forward_backward(*batch)
         elif accum_steps == 1:
-            loss = loss_of_batch(*batch)
-            loss.backward()
+            with timed_range("step.forward"):
+                loss = loss_of_batch(*batch)
+            with timed_range("step.backward"):
+                loss.backward()
         else:
             for x in batch:
                 if x.shape[0] % accum_steps:
@@ -65,15 +70,18 @@ def make_update_step(loss_of_batch: Optional[Callable], optimizer,
                               *x.shape[1:])[i]
                     for x in batch
                 )
-                micro = loss_of_batch(*mb)
-                (micro / accum_steps).backward()
+                with timed_range("step.forward"):
+                    micro = loss_of_batch(*mb)
+                with timed_range("step.backward"):
+                    (micro / accum_steps).backward()
                 loss = loss + micro.detach()
             loss = loss / accum_steps
-        if lr_schedule is not None:
-            lr = lr_schedule(optimizer.param_groups[0][SCHEDULE_COUNT])
-            for group in optimizer.param_groups:
-                group["lr"] = lr
-        optimizer.step()
+        with timed_range("step.optimizer"):
+            if lr_schedule is not None:
+                lr = lr_schedule(optimizer.param_groups[0][SCHEDULE_COUNT])
+                for group in optimizer.param_groups:
+                    group["lr"] = lr
+            optimizer.step()
         for group in optimizer.param_groups:
             group[SCHEDULE_COUNT] += 1
         return loss.detach()
