@@ -64,8 +64,20 @@ Phases, in order:
      ([1000, 130]);
    - the bf16 head product (cuBLAS bf16 GEMMs with f32 logits) at one
      Llama head chunk against its plain version;
-   each record's ``launches`` is its main path's count in the train
-   phase; the flat kernels' ``launches_by_path`` add every other path's,
+   - the norm kernels (``check_norm_kernels``; alone with ``--phases
+     norm``): LayerNorm at BERT-base's rows ([32768, 768] bf16), RMSNorm
+     at Mixtral's ([4096, 4096] bf16) and both at a ragged width ([3000,
+     1003]), forward and backward against the plain versions (two
+     backward runs bit-identical), timed at the first two beside the
+     bound, the plain version and torch's layer_norm / rms_norm; then
+     each kernel's launches over one optimizer step of BERT-base and of
+     Mixtral / 2 layers at the benchmark cell's 8 microbatches of 4096
+     (26/26 and 72/40), printed as the ``{"norm_kernels": [...]}`` line,
+     and the wrappers' host time a call (``norm_host_us``);
+   every path's launch check below holds the norm kernels' counts too
+   (one a norm a forward and a backward, the blocks' again under remat,
+   one a norm a decoded token); each record's ``launches`` is its main
+   path's count in the train phase; the flat kernels' ``launches_by_path`` add every other path's,
    and the BN kernels' the model phase's ResNet options (a pass and a
    run of steps each);
 3. ``model``: llama3-8b at full width, 2 layers: loss and every gradient
@@ -131,7 +143,8 @@ Phases, in order:
    and dropped share on the run's batch, AdamW alone and a profile of two
    more steps;
 6. ``decode``: KV-cache decoding (``models/generate.py``, which launches
-   no kernel, as the JAX version's plain einsums): llama3-8b at full width
+   the norm kernels and no other, its attention and MLP the JAX
+   version's plain einsums): llama3-8b at full width
    and depth from seeded parameters (B=4, a 128-token prompt, 64 new,
    greedy), the weights-read bound printed first, ms a step, new tokens/s
    and the idle share (one step eager against its CUDA-graph replay); its
@@ -156,7 +169,7 @@ Phases, in order:
    llama-tiny (``--mesh dp=2``, ``tp=2``, ``fsdp=2``) and llama-moe-tiny
    (those and ``ep=2``) checkpoints of seeded parameters, its lines
    equal to the one-process command's (f32) and printed by process 0
-   alone. No arm launches a kernel;
+   alone. No arm launches a kernel but the norms';
 8. ``world``: the port across processes. A one-process NCCL world formed
    by the launcher's own ``form_world``, with the healthcheck's collective
    probe and its JSON line. Then one gang of two processes on the one
@@ -289,7 +302,7 @@ Phases, in order:
 16. ``examples``: the port's deployable jobs. The worker image's kernel
    build: the kernel-build line of ``mpi_operator_tpu_torch/build/worker/
    Dockerfile``, read out of the file, run on a copy of the port as the
-   image's build runs it (all eight libraries must appear in the copy's
+   image's build runs it (every library must appear in the copy's
    ``_build/``), then the copy's flat flash forward, loaded without a
    build, against its plain version (bf16). Then the shipped
    ``examples/seq2seq/seq2seq.yaml`` (``h100-8``: eight pods on
@@ -436,6 +449,45 @@ S2S_TRAIN_ARGS = [
 ]
 S2S_ATTENTION_CALLS = 18  # 6 encoder self, 6 decoder self, 6 cross
 
+# The norm kernels' launches (ops/norm.py) on each path: a norm launches
+# norm_fwd once a forward and norm_bwd once a backward; under remat the
+# blocks' norms launch norm_fwd again in the backward's recompute (under
+# either policy: 'dots' keeps matmuls and the flash forward, and the norm
+# kernel is neither). Norms a forward of each family but Llama's (two a
+# block and the final norm): BERT's embedding norm, two a layer and the
+# MLM head's; ViT's two a block and the final norm; seq2seq's two an
+# encoder block, three a decoder block and the two stacks' final norms.
+BERT_NORMS = 2 * BERT_LAYERS + 2
+VIT_NORMS = 2 * VIT_LAYERS + 1
+S2S_LAYERS = 6  # t5-small's encoder and decoder blocks each
+S2S_NORMS = 2 * S2S_LAYERS + 1 + 3 * S2S_LAYERS + 1
+
+
+def _norms(per_pass: int, passes: int, backward: bool = True,
+           again: int = 0) -> dict:
+    """The norm kernels' launches over ``passes`` forwards of
+    ``per_pass`` norms each, with their backward when ``backward``;
+    ``again`` of each forward's norms recomputed in its backward."""
+    return {"norm_fwd": passes * (per_pass + (again if backward else 0)),
+            "norm_bwd": passes * per_pass if backward else 0}
+
+
+NORM_KEYS = ("norm_fwd", "norm_bwd")
+
+
+def _pick(counts: dict, keys) -> dict:
+    return {k: counts[k] for k in keys}
+
+
+def _llama_norms(layers: int, passes: int, backward: bool = True,
+                 remat: bool = True, final: bool = True) -> dict:
+    """:func:`_norms` of a Llama-family model of ``layers`` blocks (the
+    blocks a pipeline stage holds; ``final``: it holds the final norm);
+    ``remat``: its config checkpoints the blocks (llama3-8b and
+    mixtral-8x7b do, the tiny configs do not)."""
+    return _norms(2 * layers + int(final), passes, backward,
+                  2 * layers if remat else 0)
+
 
 def _with_flag(argv: list, flag: str, value) -> list:
     i = argv.index(flag)
@@ -498,6 +550,9 @@ REPLACES = {
     "flash_fwd_d64": "hack/headdim_probe.py:63",
     "bn_stats": "mpi_operator_tpu/ops/bn.py:54",
     "bn_grads": "mpi_operator_tpu/ops/bn.py:96",
+    # No TPU kernel: the JAX package leaves its norms to XLA's fusion.
+    "norm_fwd": "none (XLA fuses mpi_operator_tpu's norms)",
+    "norm_bwd": "none (XLA fuses mpi_operator_tpu's norms)",
 }
 
 
@@ -1517,6 +1572,257 @@ def check_bn_kernels() -> dict:
     return records
 
 
+# The norm kernels against their plain versions (tests/test_torch_norm.py's
+# tolerances): y (terms |x rstd scale|, |mean rstd scale|, |bias|), dx and
+# the statistics within NORM_TOL of their terms' magnitudes (f32 sums in
+# another order), y and dx besides within one bf16 ulp where they are
+# bf16; dscale and dbias within NORM_TOL of the sum of their terms'
+# magnitudes.
+NORM_TOL = 1e-5
+# (label, rows, width, x dtype, norm): BERT-base's LayerNorm rows (B=64 x
+# S=512 tokens of 768), Mixtral's RMSNorm rows (4096 tokens of 4096), and
+# a ragged width that no vector divides, both norms.
+NORM_SHAPES = [
+    ("bert", 32768, 768, "bf16", "layer"),
+    ("mixtral", 4096, 4096, "bf16", "rms"),
+    ("ragged", 3000, 1003, "bf16", "layer"),
+    ("ragged", 3000, 1003, "bf16", "rms"),
+]
+# One optimizer step of each cell's path, through the trainer, and its
+# norm launches (BERT-base's one forward and backward; Mixtral / 2
+# layers at the cell's 8 microbatches, the blocks' norms again in the
+# remat recompute).
+NORM_STEP_ARGS = {
+    "bert-base": (_with_steps(BERT_TRAIN_ARGS, 1), _norms(BERT_NORMS, 1)),
+    "mixtral-8x7b/2": ([
+        "--model", "mixtral-8x7b", "--n-layers", str(MOE_LAYERS),
+        "--seq-len", "4096", "--global-batch", "8", "--grad-accum", "8",
+        "--xent-chunk", "1024", "--lr", "3e-4", "--steps", "1",
+        "--warmup", "1", "--log-every", "1"], _llama_norms(MOE_LAYERS, 8)),
+}
+
+
+def _ulp_bf16(v):
+    import torch
+
+    mag = v.abs().float().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _excess(got, want, tol) -> float:
+    """The largest amount by which |got - want| passes tol (<= 0: within)."""
+    return float(((got.double() - want.double()).abs() - tol.double()).max())
+
+
+# The wrappers' host cost: calls timed back to back at 8 rows (the
+# device's part a few microseconds, so the host sets the pace), after a
+# warm-up, at BERT's and Mixtral's widths.
+NORM_HOST_CALLS, NORM_HOST_ROWS = 2000, 8
+
+
+def norm_host_us(norm, kind: str, d: int) -> dict:
+    """Microseconds of host time a call of ``norm.layer_norm`` (``kind``
+    'layer') or ``norm.rms_norm`` on bf16 rows of ``d``: the forward
+    alone (no grad) and the forward with its backward through autograd,
+    as a model's training step calls them."""
+    import torch
+
+    x = torch.randn(NORM_HOST_ROWS, d, device="cuda").to(torch.bfloat16)
+    scale = torch.ones(d, device="cuda", requires_grad=True)
+    bias = torch.zeros(d, device="cuda", requires_grad=True)
+    dy = torch.ones_like(x)
+
+    def call(t):
+        if kind == "layer":
+            return norm.layer_norm(t, scale, bias, 1e-12, torch.bfloat16)
+        return norm.rms_norm(t, scale, 1e-5)
+
+    def fwd():
+        with torch.no_grad():
+            call(x)
+
+    def fwd_bwd():
+        call(x.requires_grad_(True)).backward(dy)
+
+    out = {}
+    for label, fn in (("fwd_us", fwd), ("fwd_bwd_us", fwd_bwd)):
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(NORM_HOST_CALLS):
+            fn()
+        out[label] = (time.perf_counter() - t0) / NORM_HOST_CALLS * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
+def check_norm_kernels() -> list:
+    """norm_fwd and norm_bwd against their plain versions at NORM_SHAPES,
+    timed at BERT's and Mixtral's shapes beside the bound, the plain
+    version and torch's own layer_norm / rms_norm (a yardstick the port
+    never calls); then each kernel's launches over one optimizer step of
+    each cell's path. Returns the records."""
+    import torch
+    import torch.nn.functional as F
+
+    from mpi_operator_tpu_torch.ops import _build, norm
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    records = []
+    for label, m, d, dtype_name, kind in NORM_SHAPES:
+        dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
+        layer = kind == "layer"
+        eps = 1e-12 if layer else 1e-5
+        x = (torch.randn(m, d, generator=gen, device="cuda") * 2 + 0.5
+             ).to(dtype)
+        dy = torch.randn(m, d, generator=gen, device="cuda").to(dtype)
+        scale = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        bias = 0.1 * torch.randn(d, generator=gen, device="cuda")
+        b = bias if layer else None
+
+        y, mean, rstd = norm.norm_fwd(x, scale, b, eps, dtype)
+        dx, dscale, dbias = norm.norm_bwd(x, dy, mean, rstd, scale)
+        dx2, dscale2, dbias2 = norm.norm_bwd(x, dy, mean, rstd, scale)
+        torch.cuda.synchronize()
+        same = (torch.equal(dx, dx2) and torch.equal(dscale, dscale2)
+                and (dbias is None or torch.equal(dbias, dbias2)))
+        if layer:
+            y_p = norm.layer_norm_plain(x, scale, bias, eps, dtype)
+            mean_p, rstd_p = norm.layer_norm_stats_plain(x, eps)
+            xhat = (x.float() - mean_p[:, None]) * rstd_p.abs()[:, None]
+            dx_p, dscale_p, dbias_p = norm.layer_norm_bwd_plain(
+                x, dy, mean, rstd, scale)
+        else:
+            y_p = norm.rms_norm_plain(x, scale, eps)
+            rstd_p = norm.rms_norm_stats_plain(x, eps)
+            xhat = x.float() * rstd_p[:, None]
+            dx_p, dscale_p = norm.rms_norm_bwd_plain(x, dy, rstd, scale)
+        y_terms = x.float().abs() * rstd_p.abs()[:, None] * scale.abs()
+        if layer:
+            y_terms += ((mean_p * rstd_p).abs()[:, None] * scale.abs()
+                        + bias.abs())
+        y_tol = NORM_TOL * y_terms
+        y_tol = y_tol + _ulp_bf16(torch.maximum(y.float().abs(),
+                                                y_p.float().abs()))
+        g = dy.float() * scale
+        dx_tol = NORM_TOL * rstd_p.abs()[:, None] * (
+            g.abs() + g.abs().mean(dim=-1, keepdim=True) + xhat.abs()
+            * (g * xhat).abs().mean(dim=-1, keepdim=True))
+        excess = {
+            "y": _excess(y, y_p, y_tol),
+            "rstd": _excess(rstd, rstd_p, NORM_TOL * rstd_p.abs()),
+            "dx": _excess(dx, dx_p, dx_tol + _ulp_bf16(dx_p)),
+            "dscale": _excess(dscale, dscale_p, NORM_TOL * (
+                dy.float() * xhat).abs().sum(0)),
+        }
+        if layer:
+            excess["mean"] = _excess(mean, mean_p, NORM_TOL * x.float()
+                                     .abs().mean(dim=-1))
+            excess["dbias"] = _excess(dbias, dbias_p, NORM_TOL * dy.float()
+                                      .abs().sum(0))
+        del xhat, g, dx_tol, y_tol, y_terms
+        ok = same and max(excess.values()) <= 0
+        log(f"kernel norm [{label} {kind} [{m}, {d}] {dtype_name}]: largest "
+            f"excess over tolerance {json.dumps(excess)}; two backward runs "
+            f"bit-identical {same} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the {kind} norm kernels disagree with "
+                                 f"their plain versions at {label}")
+        if label == "ragged":
+            continue
+
+        # Timed: the kernels, the plain versions, and torch's own norm as a
+        # yardstick (weights in x's type; its backward through autograd).
+        w, wb = scale.to(dtype), bias.to(dtype)
+        xr = x.detach().requires_grad_(True)
+        wr = w.detach().requires_grad_(True)
+        if layer:
+            lib_y = F.layer_norm(xr, (d,), wr, wb, eps)
+            lib_fwd = lambda: F.layer_norm(x, (d,), w, wb, eps)
+            plain_fwd = lambda: norm.layer_norm_plain(x, scale, bias, eps,
+                                                      dtype)
+            plain_bwd = lambda: norm.layer_norm_bwd_plain(x, dy, mean, rstd,
+                                                          scale)
+        else:
+            lib_y = F.rms_norm(xr, (d,), wr, eps)
+            lib_fwd = lambda: F.rms_norm(x, (d,), w, eps)
+            plain_fwd = lambda: norm.rms_norm_plain(x, scale, eps)
+            plain_bwd = lambda: norm.rms_norm_bwd_plain(x, dy, rstd, scale)
+        es = x.element_size()
+        stats_bytes = (2 if layer else 1) * m * 4
+        vec_bytes = (2 if layer else 1) * d * 4
+        calls = {
+            # x in, y and the row statistics out; ~5 FLOPs an element.
+            "norm_fwd": (lambda: norm.norm_fwd(x, scale, b, eps, dtype),
+                         plain_fwd, lib_fwd,
+                         2 * m * d * es + stats_bytes + vec_bytes, 5 * m * d),
+            # x, dy and the statistics in, dx and the column sums out;
+            # ~12 FLOPs an element.
+            "norm_bwd": (lambda: norm.norm_bwd(x, dy, mean, rstd, scale),
+                         plain_bwd,
+                         lambda: torch.autograd.grad(lib_y, (xr, wr), dy,
+                                                     retain_graph=True),
+                         3 * m * d * es + stats_bytes + 2 * vec_bytes,
+                         12 * m * d),
+        }
+        for name, (kernel_fn, plain_fn, lib_fn, nbytes, flops) in calls.items():
+            t_ops = flops / PEAK_FLOPS["f32"]
+            t_bytes = nbytes / PEAK_BYTES_PER_S
+            rec = {
+                "name": name, "shape": label, "norm": kind,
+                "rows": m, "width": d, "dtype": dtype_name,
+                "source": "mpi_operator_tpu_torch/csrc/"
+                          + _build.KERNELS[name][0],
+                "replaces": REPLACES[name],
+                "excess": excess,
+                "ms": time_ms(kernel_fn, 3, 50),
+                "plain_ms": time_ms(plain_fn, 2, 10),
+                "bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": time_ms(lib_fn, 3, 50),
+            }
+            rec["roofline_pct"] = 100 * rec["bound_ms"] / rec["ms"]
+            records.append(rec)
+            log(f"kernel {name} [{label} {kind}] timing: " + json.dumps(
+                {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "roofline_pct", "library_ms")}))
+        del lib_y, xr, wr
+    del x, dy, y, dx, dx2, y_p, dx_p
+    torch.cuda.empty_cache()
+    for kind, d in (("layer", 768), ("rms", 4096)):
+        log(f"kernel norm [{kind} {d}] host cost a call: " + json.dumps(
+            norm_host_us(norm, kind, d)))
+
+    # A CUDA operand the kernels do not take raises; it never falls back.
+    for bad in (torch.zeros(4, 8, device="cuda", dtype=torch.float16),
+                torch.zeros(4, 8, device="cuda", dtype=torch.float64)):
+        try:
+            norm.rms_norm(bad, torch.ones(8, device="cuda"), 1e-5)
+        except TypeError as e:
+            log(f"kernel norm refuses {bad.dtype}: {e}")
+        else:
+            raise AssertionError("the norm kernels took a type they cannot")
+
+    # Launches over one optimizer step of each cell's path.
+    by_path = {}
+    for label, (argv, want) in NORM_STEP_ARGS.items():
+        free_card(f"the norm launch count of {label}")
+        _, launches = _drive_trainer(argv)
+        got = {k: launches[k] for k in want}
+        by_path[label] = got
+        log(f"kernel norm launches over one {label} step: {got} (want "
+            f"{want}) -> {'ok' if got == want else 'FAIL'}")
+        if got != want:
+            raise AssertionError(f"{label}: the norm kernels launched "
+                                 f"{got}, want {want}")
+    for rec in records:
+        rec["launches_by_path"] = {k: v[rec["name"]]
+                                   for k, v in by_path.items()}
+    torch.cuda.empty_cache()
+    return records
+
+
 # The head product (ops/losses.py HeadProduct) against its plain version.
 # Logits: both sides multiply the same bf16 values with f32 accumulation,
 # in another order (cuBLAS against an f32 GEMM of the upcast operands),
@@ -2245,17 +2551,18 @@ def check_resnet_options() -> dict:
 
 def _reset_all_launch_counts() -> None:
     from mpi_operator_tpu_torch.ops import attention as attn
-    from mpi_operator_tpu_torch.ops import bn
+    from mpi_operator_tpu_torch.ops import bn, norm
 
     attn.reset_launch_counts()
     bn.reset_launch_counts()
+    norm.reset_launch_counts()
 
 
 def _all_launch_counts() -> dict:
     from mpi_operator_tpu_torch.ops import attention as attn
-    from mpi_operator_tpu_torch.ops import bn
+    from mpi_operator_tpu_torch.ops import bn, norm
 
-    return {**attn.LAUNCHES, **bn.LAUNCHES}
+    return {**attn.LAUNCHES, **bn.LAUNCHES, **norm.LAUNCHES}
 
 
 def _want_launches(counts: dict) -> dict:
@@ -2264,8 +2571,8 @@ def _want_launches(counts: dict) -> dict:
 
 
 def _drive_trainer(argv) -> tuple[dict, dict]:
-    """``cmd.train.main(argv)`` with every launch counter set to 0 just
-    before it and read just after; returns (summary line with the peak
+    """``cmd.train.main(argv)`` with every launch counter (the flash, BN
+    and norm kernels') set to 0 just before it and read just after; returns (summary line with the peak
     device memory added, launch counts)."""
     import torch
 
@@ -2368,7 +2675,8 @@ def run_train(argv=TRAIN_ARGS, label: str = "llama3-8b") -> tuple[dict, dict]:
     forwards = 1 if "dots" in argv else 2
     want = _want_launches({"flash_fwd": forwards * layers * steps,
                            "flash_bwd_dq": layers * steps,
-                           "flash_bwd_dkv": layers * steps})
+                           "flash_bwd_dkv": layers * steps,
+                           **_llama_norms(layers, steps)})
     ok = (steps == int(argv[argv.index("--steps") + 1])
           and math.isfinite(summary["loss"])
           and summary["loss"] < summary["first_loss"] and launches == want)
@@ -2444,8 +2752,9 @@ def run_bert_train() -> tuple[dict, dict]:
     summary, launches = _drive_trainer(BERT_TRAIN_ARGS)
     summary["mfu_bf16_peak"] = _bert_mfu(summary["examples_per_sec"])
     steps = summary["steps"]
-    want = _want_launches({k: BERT_LAYERS * steps
-                           for k in FLASH_NAMES["flat"]})
+    want = _want_launches({**{k: BERT_LAYERS * steps
+                              for k in FLASH_NAMES["flat"]},
+                           **_norms(BERT_NORMS, steps)})
     ok = (steps == 6 and math.isfinite(summary["loss"])
           and summary["loss"] < summary["first_loss"] and launches == want)
     log("train bert-base summary: " + json.dumps(summary))
@@ -2480,12 +2789,13 @@ def _s2s_flops_per_pair(src_len: int = 512, dec_len: int = 256) -> float:
             + 12 * ld * dec_len * src_len * d)
 
 
-def run_flat_train(label: str, argv, n_calls: int, flops_per_example: float
-                   ) -> tuple[dict, dict]:
+def run_flat_train(label: str, argv, n_calls: int, n_norms: int,
+                   flops_per_example: float) -> tuple[dict, dict]:
     """The trainer's own entry point on a model whose every attention call
     takes the flat flash kernels (``n_calls`` a step): a finite, falling
     loss over 6 steps and exactly ``n_calls`` x 6 launches of each flat
-    kernel and none of any other; returns (the summary line with MFU,
+    kernel, ``n_norms`` x 6 of each norm kernel and none of any other;
+    returns (the summary line with MFU,
     ``flops_per_example`` per example fwd + bwd at the bf16 peak; the
     launch counts)."""
     import torch
@@ -2494,7 +2804,9 @@ def run_flat_train(label: str, argv, n_calls: int, flops_per_example: float
     summary["mfu_bf16_peak"] = (summary["examples_per_sec"]
                                 * flops_per_example / PEAK_FLOPS["bf16"])
     steps = summary["steps"]
-    want = _want_launches({k: n_calls * steps for k in FLASH_NAMES["flat"]})
+    want = _want_launches({**{k: n_calls * steps
+                              for k in FLASH_NAMES["flat"]},
+                           **_norms(n_norms, steps)})
     ok = (steps == 6 and math.isfinite(summary["loss"])
           and summary["loss"] < summary["first_loss"] and launches == want)
     log(f"train {label} summary: " + json.dumps(summary))
@@ -2517,9 +2829,10 @@ def run_vit_seq2seq_train() -> dict:
 
     return {
         "vit-base": run_flat_train("vit-base", VIT_TRAIN_ARGS, VIT_LAYERS,
+                                   VIT_NORMS,
                                    3 * vit.flops_per_image(vit.vit_base())),
         "seq2seq-small": run_flat_train(
-            "seq2seq-small", S2S_TRAIN_ARGS, S2S_ATTENTION_CALLS,
+            "seq2seq-small", S2S_TRAIN_ARGS, S2S_ATTENTION_CALLS, S2S_NORMS,
             _s2s_flops_per_pair()),
     }
 
@@ -2555,8 +2868,8 @@ def run_bert_bhsd_steps() -> dict:
     """3 steps of ``models/bert.py``'s ``make_train_step_positions`` with
     attention_impl 'flash-bhsd' (the step the trainer builds, at its batch
     and learning rate), with every launch counter set to 0 just before
-    and read just after: 12 x 3 launches of each [B*H, S, D] kernel, 0 of
-    any other. Steps 2-3 are timed."""
+    and read just after: 12 x 3 launches of each [B*H, S, D] kernel, 26 x
+    3 of each norm kernel, 0 of any other. Steps 2-3 are timed."""
     import torch
 
     model, step, batch = _bert_bhsd_workload()
@@ -2576,7 +2889,8 @@ def run_bert_bhsd_steps() -> dict:
                "examples_per_sec": 64 / (step_ms / 1e3),
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     summary["mfu_bf16_peak"] = _bert_mfu(summary["examples_per_sec"])
-    want = _want_launches({k: BERT_LAYERS * 3 for k in FLASH_NAMES["bhsd"]})
+    want = _want_launches({**{k: BERT_LAYERS * 3 for k in FLASH_NAMES["bhsd"]},
+                           **_norms(BERT_NORMS, 3)})
     ok = all(math.isfinite(x) for x in losses) and launches == want
     log("train bert-base flash-bhsd summary: " + json.dumps(summary))
     log(f"train bert-base flash-bhsd launches {launches} (want {want}) -> "
@@ -2616,7 +2930,8 @@ def run_llama_data_train(tmp: Path, synthetic: dict) -> tuple[dict, dict]:
     layers, steps = 2, summary["steps"]
     want = _want_launches({"flash_fwd": 2 * layers * steps,
                            "flash_bwd_dq": layers * steps,
-                           "flash_bwd_dkv": layers * steps})
+                           "flash_bwd_dkv": layers * steps,
+                           **_llama_norms(layers, steps)})
     ok = (steps == 6 and math.isfinite(summary["loss"])
           and summary["loss"] < summary["first_loss"] and launches == want)
     log("train llama3-8b --data summary: " + json.dumps(summary))
@@ -2696,9 +3011,11 @@ def run_bert_resume(tmp: Path) -> dict:
         size = sum(f.stat().st_size for f in (resumed_dir / "4").iterdir())
         counts_ok = (
             s_launches == _want_launches(
-                {k: BERT_LAYERS * 4 for k in FLASH_NAMES["flat"]})
+                {**{k: BERT_LAYERS * 4 for k in FLASH_NAMES["flat"]},
+                 **_norms(BERT_NORMS, 4)})
             and r_launches == _want_launches(
-                {k: BERT_LAYERS * 2 for k in FLASH_NAMES["flat"]}))
+                {**{k: BERT_LAYERS * 2 for k in FLASH_NAMES["flat"]},
+                 **_norms(BERT_NORMS, 2)}))
         steps_ok = ((straight["final_step"], straight["steps"]) == (4, 4)
                     and first["final_step"] == 2
                     and (resumed["final_step"], resumed["steps"]) == (4, 2))
@@ -2707,7 +3024,8 @@ def run_bert_resume(tmp: Path) -> dict:
             f"final_step {resumed['final_step']} steps {resumed['steps']} "
             f"loss {resumed['loss']:.6f}; checkpoint "
             f"{size / 1e9:.3f} GB a step; snapshot and write seconds "
-            f"(saves, total) {json.dumps(seconds)}; launches ok {counts_ok}")
+            f"(saves, total) {json.dumps(seconds)}; launches straight "
+            f"{s_launches}, resumed {r_launches}: ok {counts_ok}")
         if not (counts_ok and steps_ok):
             raise AssertionError(f"BERT {manager} resume: wrong steps or "
                                  f"launch counts")
@@ -2795,7 +3113,8 @@ def run_eval_checks(tmp: Path) -> tuple[dict, dict]:
     line = _eval_line(argv)
     launches = _all_launch_counts()
     cpu = _eval_line([*argv, "--device", "cpu"])
-    want = _want_launches({"flash_fwd": 2 * 3})
+    want = _want_launches({"flash_fwd": 2 * 3,
+                           **_llama_norms(2, 3, backward=False)})
     rel = abs(line["loss"] - cpu["loss"]) / abs(cpu["loss"])
     ok = (launches == want and line["step"] == 2 and line["batches"] == 3
           and line["tokens"] == 3 * 4 * 15 and math.isfinite(line["loss"])
@@ -2837,9 +3156,10 @@ def run_eval_checks(tmp: Path) -> tuple[dict, dict]:
     (lf, tokens, elapsed, launches), (ld, _, dense_s, dense_launches) = (
         results["flash"], results["dense"])
     rel = abs(lf - ld) / abs(ld)
-    want = _want_launches({"flash_fwd": 2 * EVAL_BATCHES})
+    norms = _llama_norms(2, EVAL_BATCHES, backward=False)
+    want = _want_launches({"flash_fwd": 2 * EVAL_BATCHES, **norms})
     ok = (math.isfinite(lf) and rel <= MODEL_LOSS_REL_TOL
-          and launches == want and dense_launches == _want_launches({})
+          and launches == want and dense_launches == _want_launches(norms)
           and tokens == EVAL_BATCH * EVAL_BATCHES * (EVAL_SEQ - 1))
     line = {"loss": lf, "dense_loss": ld, "tokens": tokens,
             "tokens_per_sec": tokens / elapsed,
@@ -2977,7 +3297,8 @@ def run_moe_train():
     steps = summary["steps"]
     want = _want_launches({"flash_fwd": 2 * MOE_LAYERS * steps,
                            "flash_bwd_dq": MOE_LAYERS * steps,
-                           "flash_bwd_dkv": MOE_LAYERS * steps})
+                           "flash_bwd_dkv": MOE_LAYERS * steps,
+                           **_llama_norms(MOE_LAYERS, steps)})
     ok = (steps == 6 and math.isfinite(summary["loss"])
           and summary["loss"] < summary["first_loss"] and launches == want
           and work.model.config == cfg and same_batch
@@ -3071,18 +3392,24 @@ def _decode_llama(label: str, model, prompt, max_new: int) -> dict:
            "device_idle_share": 1 - replay_ms / eager_ms,
            "teacher_forced_norm_rel": rel, "argmax_agreement": agree,
            "launches": {"generate": gen_launches, "forward": fwd_launches}}
-    want_fwd = _want_launches({"flash_fwd": cfg.n_layers})
+    # Every step runs the whole model on one position: its norms and no
+    # flash kernel.
+    want_gen = _want_launches(_llama_norms(cfg.n_layers, s0 + max_new - 1,
+                                           backward=False))
+    want_fwd = _want_launches({"flash_fwd": cfg.n_layers, **_llama_norms(
+        cfg.n_layers, 1, backward=False)})
     ok = (out.shape == (b, s0 + max_new) and torch.equal(out[:, :s0], prompt)
           and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size
-          and rel <= DECODE_LOGITS_TOL and gen_launches == _want_launches({})
+          and rel <= DECODE_LOGITS_TOL and gen_launches == want_gen
           and fwd_launches == want_fwd)
     log(f"decode {label}: " + json.dumps(rec))
     log(f"decode {label}: {step_ms:.3f} ms a step ({rec['new_tokens_per_s']:.1f}"
         f" new tokens/s; bound {bound_ms:.3f} ms), idle "
         f"{rec['device_idle_share']:.3f}; teacher-forced logits vs the "
         f"forward norm-rel {rel:.3e} (tol {DECODE_LOGITS_TOL:.0e}), argmax "
-        f"agreement {agree:.4f}; launches generate {gen_launches}, forward "
-        f"{fwd_launches} (want {want_fwd}) -> {'ok' if ok else 'FAIL'}")
+        f"agreement {agree:.4f}; launches generate {gen_launches} (want "
+        f"{want_gen}), forward {fwd_launches} (want {want_fwd}) -> "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"decode {label} failed its checks")
     return rec
@@ -3125,7 +3452,10 @@ def _decode_s2s() -> dict:
     rel = norm_rel(tf, fwd)
     agree = float((fwd.argmax(-1) == out).float().mean())
     calls = cfg.n_enc_layers + 2 * cfg.n_dec_layers
-    want_fwd = _want_launches({"flash_fwd": calls})
+    # The forward's norms launch the kernels; generate's steps
+    # (models/seq2seq_generate.py) normalise in plain ops.
+    want_fwd = _want_launches({"flash_fwd": calls, **_norms(
+        2 * cfg.n_enc_layers + 3 * cfg.n_dec_layers + 2, 1, backward=False)})
     rec = {"generate_s": wall, "encode_ms": encode_ms,
            "ms_per_step": step_ms,
            "new_tokens_per_s": S2S_DECODE_BATCH * 1e3 / step_ms,
@@ -3162,12 +3492,18 @@ def _generate_lines(argv) -> list:
             if line.startswith("{")]
 
 
+# cmd.generate's runs on the llama-tiny and llama-moe-tiny checkpoints:
+# prompts of 3 tokens, 8 new, so 10 steps through the 2 layers, each
+# launching the norm kernels and no other.
+CLI_DECODE_NORMS = _llama_norms(2, 3 + 8 - 1, backward=False)
+
+
 def _decode_cli(tmp: Path) -> dict:
     """``python -m mpi_operator_tpu_torch.cmd.generate`` end to end on the
     card: llama-tiny and llama-moe-tiny checkpoints the trainer writes
     here (2 steps), two prompts of 3 tokens, 8 new; the tokens equal the
     same command's on the CPU (f32 both; only the order of sums differs)
-    and the command launches no kernel. The two commands run side by
+    and the command launches the norm kernels (CLI_DECODE_NORMS) alone. The two commands run side by
     side, beside this process's own runs of the same argv."""
     out, runs = {}, {}
     for name in ("llama-tiny", "llama-moe-tiny"):
@@ -3206,7 +3542,7 @@ def _decode_cli(tmp: Path) -> dict:
                   and all(line["step"] == 2 and len(line["new"]) == 8
                           and line["tokens"][:3] == line["prompt"]
                           for line in card)
-                  and launches == _want_launches({}))
+                  and launches == _want_launches(CLI_DECODE_NORMS))
             log(f"decode cmd.generate {name} ({wall:.1f} s as a process, "
                 f"beside the other): {json.dumps(card)}; CPU tokens "
                 f"{[line['tokens'] for line in cpu]}; launches {launches} "
@@ -3458,7 +3794,8 @@ def run_decode_world(tmp: Path) -> dict:
     parameters (logits at DECODE_LOGITS_TOL, greedy tokens to the first
     near-tie), then ``cmd.generate`` gangs on tiny checkpoints against the
     one-process command (f32, tokens equal, process 0 alone printing).
-    No arm launches a kernel. Returns each path's launch counts."""
+    No arm launches a kernel but the norms', one a norm a step on each
+    rank. Returns each path's launch counts."""
     refs, one = {}, {}
     for arm, (model, overrides, _) in DECODE_WORLD_ARMS.items():
         if model not in refs:
@@ -3482,15 +3819,23 @@ def run_decode_world(tmp: Path) -> dict:
              for name, mesh in cli]
     free_card("the decode_world phase")
     ranks = _run_gang(jobs)
-    none = _want_launches({})
-    ok, paths = cli_launches == none, {}
+    cli_norms = _want_launches(CLI_DECODE_NORMS)
+    want_cli = _want_launches(
+        {k: len(base) * n for k, n in CLI_DECODE_NORMS.items()})
+    ok = cli_launches == want_cli
+    log(f"decode_world cmd.generate in this process, both models: launches "
+        f"{cli_launches} (want {want_cli}) -> {'ok' if ok else 'FAIL'}")
+    paths = {}
     for i, (arm, (model, _, _)) in enumerate(DECODE_WORLD_ARMS.items()):
         recs = [r[i] for r in ranks]
         layers = DECODE_WORLD_ARMS[arm][1].get("n_layers", 32)
+        want = _want_launches(_llama_norms(
+            layers, DECODE_WORLD_PROMPT + DECODE_WORLD_NEW - 1,
+            backward=False))
         want_bytes = (DECODE_WORLD_SUMS[arm] * layers * DECODE_WORLD_BATCH
                       * 4096 * 4)
         arm_ok = all(
-            r["tokens_ok"] and r["launches"] == none
+            r["tokens_ok"] and r["launches"] == want
             and r["teacher_forced_norm_rel"] <= DECODE_LOGITS_TOL
             and sum(r["step_bytes"].get(k, 0) for k in (
                 "c10d.allreduce_",)) == want_bytes for r in recs)
@@ -3513,13 +3858,14 @@ def run_decode_world(tmp: Path) -> dict:
         lines = [r[j]["lines"] for r in ranks]
         launches = [r[j]["launches"] for r in ranks]
         cli_ok = (lines[0] == cli_one[name] and not any(lines[1:])
-                  and all(c == none for c in launches))
+                  and all(c == cli_norms for c in launches))
         ok = ok and cli_ok
         paths[f"decode_world cmd.generate {name} {mesh}"] = launches[0]
         log(f"decode_world cmd.generate {name} --mesh {mesh}: "
             f"{json.dumps(lines[0])} (one process: "
             f"{[line['tokens'] for line in cli_one[name]]}); other ranks "
-            f"printed {sum(len(x) for x in lines[1:])} lines -> "
+            f"printed {sum(len(x) for x in lines[1:])} lines; launches a "
+            f"rank {launches} (want {cli_norms}) -> "
             f"{'ok' if cli_ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the decode world failed its checks")
@@ -4390,7 +4736,8 @@ def run_world(tmp: Path) -> dict:
     # ranks' local curves (equal-sized halves, equal MLM weight counts).
     curve = [sum(c) / WORLD_PROCESSES
              for c in zip(*(r["curve"] for r in got["dp=2"]))]
-    want = _want_launches({k: BERT_LAYERS * 6 for k in flat})
+    want = _want_launches({**{k: BERT_LAYERS * 6 for k in flat},
+                           **_norms(BERT_NORMS, 6)})
     lines = [r["line"] for r in got["dp=2"]]
     check("bert-base dp=2",
           _close(curve, one["curve"], WORLD_LOSS_RTOL)
@@ -4409,8 +4756,9 @@ def run_world(tmp: Path) -> dict:
     for mesh in ("fsdp=2", "tp=2"):
         curve = [sum(c) / WORLD_PROCESSES
                  for c in zip(*(r["curve"] for r in got[mesh]))]
-        want = _want_launches({k: BERT_LAYERS * WORLD_MESH_STEPS
-                               for k in flat})
+        want = _want_launches({**{k: BERT_LAYERS * WORLD_MESH_STEPS
+                                  for k in flat},
+                               **_norms(BERT_NORMS, WORLD_MESH_STEPS)})
         lines = [r["line"] for r in got[mesh]]
         check(f"bert-base {mesh}",
               _close(curve, one["curve"][:WORLD_MESH_STEPS], WORLD_LOSS_RTOL)
@@ -4471,7 +4819,8 @@ def run_world(tmp: Path) -> dict:
     # Eval on the pair's llama-tiny checkpoint, against one process.
     e0, e1 = got["eval"]
     single = _world_job({"cmd": "eval", "argv": tiny_eval})
-    want = _want_launches({"flash_fwd": 2 * 3})
+    want = _want_launches({"flash_fwd": 2 * 3,
+                           **_llama_norms(2, 3, backward=False)})
     rel = abs(e0["line"]["loss"] - single["line"]["loss"]) / abs(
         single["line"]["loss"])
     check("eval dp=2",
@@ -4488,7 +4837,7 @@ def run_world(tmp: Path) -> dict:
     curve = [sum(c) / WORLD_PROCESSES
              for c in zip(*(r["curve"] for r in got["ep=2"]))]
     want = _want_launches({"flash_fwd": 2 * 3, "flash_bwd_dq": 3,
-                           "flash_bwd_dkv": 3})
+                           "flash_bwd_dkv": 3, **_llama_norms(1, 3)})
     lines = [r["line"] for r in got["ep=2"]]
     check("mixtral-8x7b/1 layer ep=2",
           _close(curve, one_moe["curve"], WORLD_LOSS_RTOL)
@@ -4655,7 +5004,8 @@ def run_sp(tmp: Path) -> dict:
     gang, the SP_ARMS in turn), each arm's curve against the one-process
     run, each rank's launches against the hop count's (ring: the forward
     SP_HOPS a layer and again in the remat recompute, dq and dk/dv
-    SP_HOPS a layer; Ulysses: the one-process counts), step_ms, peak
+    SP_HOPS a layer, the norms as one process launches them on the whole
+    sequence; Ulysses: the one-process counts), step_ms, peak
     memory and the transport's bytes beside it. Returns rank 0's launch
     counts by arm."""
     import torch
@@ -4673,7 +5023,8 @@ def run_sp(tmp: Path) -> dict:
     failed = []
     for arm, results in got.items():
         want = (one["launches"] if arm == "ulysses" else _want_launches(
-            {flat[0]: 2 * hops, flat[1]: hops, flat[2]: hops}))
+            {flat[0]: 2 * hops, flat[1]: hops, flat[2]: hops,
+             **_llama_norms(SP_LAYERS, SP_STEPS)}))
         curve = [sum(c) / WORLD_PROCESSES
                  for c in zip(*(r["curve"] for r in results))]
         lines = [r["line"] for r in results]
@@ -4769,6 +5120,18 @@ TP_RUNS = {
                           "ulysses"], 4, (BERT_LAYERS * TP_STEPS,) * 3,
         (3, 3)),
 }
+# Each run's norm launches a rank: as one process's, whether a rank
+# normalises its half of the batch (fsdp), every row whole (tp) or its
+# own positions (sp).
+TP_NORMS = {
+    "mixtral-8x7b/1 fsdp=2": _llama_norms(1, TP_STEPS),
+    "mixtral-8x7b/1 tp=2": _llama_norms(1, TP_STEPS),
+    "vit-base tp=2": _norms(VIT_NORMS, TP_STEPS),
+    "seq2seq-small tp=2": _norms(S2S_NORMS, TP_STEPS),
+    "resnet101 tp=2": {},
+    **{name: _norms(BERT_NORMS, TP_STEPS) for name in TP_RUNS
+       if name.startswith("bert-base")},
+}
 
 
 def run_tp(tmp: Path) -> dict:
@@ -4799,7 +5162,7 @@ def run_tp(tmp: Path) -> dict:
     failed = []
     for name, (argv, flags, n, counts, heads) in TP_RUNS.items():
         results, ref = got[name], one[name]
-        want = _want_launches(dict(zip(flat, counts)))
+        want = _want_launches({**dict(zip(flat, counts)), **TP_NORMS[name]})
         want_heads = ({f"{k} {heads[0]}/{heads[1]}": c
                        for k, c in zip(flat, counts)} if heads else {})
         curve = [sum(c) / n for c in zip(*(r["curve"] for r in results))]
@@ -4911,6 +5274,11 @@ def _check_pp_arm(name: str, run: tuple, results: list, ref: dict,
     counts = (2 * PP_STEPS * m * layers, PP_STEPS * m * layers,
               PP_STEPS * m * layers)
     want = _want_launches(dict(zip(flat, counts)))
+    # Each rank's norms: its stage's blocks, and the final norm on the
+    # last stage (ranks in pp-major order, mesh.STANDARD_AXES).
+    want_ranks = [{**want, **_llama_norms(
+        layers, PP_STEPS * m, final=i // (n // stages) == stages - 1)}
+        for i in range(n)]
     want_heads = {f"{k} {heads[0]}/{heads[1]}": c
                   for k, c in zip(flat, counts)}
     seq = int(argv[argv.index("--seq-len") + 1])
@@ -4923,17 +5291,20 @@ def _check_pp_arm(name: str, run: tuple, results: list, ref: dict,
     lines = [r["line"] for r in results]
     ok = (_close(curve, ref["curve"], WORLD_LOSS_RTOL)
           and curve[-1] < curve[0]
-          and all(r["launches"] == want and r["heads"] == want_heads
-                  for r in results)
+          and all(r["launches"] == w and r["heads"] == want_heads
+                  for r, w in zip(results, want_ranks))
           and all(h == hop for h in hops)
           and all(line["devices"] == n and line["steps"] == PP_STEPS
                   for line in lines))
     log(f"pp {name}: curve {[round(x, 6) for x in curve]} vs one "
         f"process {[round(x, 6) for x in ref['curve']]} (rtol "
         f"{WORLD_LOSS_RTOL}); flat launches a rank by heads "
-        f"{[r['heads'] for r in results]} (want {want_heads}; every "
-        f"other counter 0: "
-        f"{all(r['launches'] == want for r in results)}); hop bytes a "
+        f"{[r['heads'] for r in results]} (want {want_heads}); norm "
+        f"launches a rank {[_pick(r['launches'], NORM_KEYS) for r in results]}"
+        f" (want {[_pick(w, NORM_KEYS) for w in want_ranks]}); every "
+        f"counter as wanted: "
+        f"{all(r['launches'] == w for r, w in zip(results, want_ranks))}; "
+        f"hop bytes a "
         f"step a rank {hops} (want {hop}); step_ms "
         f"{[line['step_ms'] for line in lines]} (one process "
         f"{ref['line']['step_ms']}); peak GB "
@@ -5185,7 +5556,8 @@ def run_operator(tmp: Path, direct: dict) -> dict:
         layers, steps = 2, got["steps"]
         want = _want_launches({"flash_fwd": 2 * layers * steps,
                                "flash_bwd_dq": layers * steps,
-                               "flash_bwd_dkv": layers * steps})
+                               "flash_bwd_dkv": layers * steps,
+                               **_llama_norms(layers, steps)})
         rel = abs(got["first_loss"] - direct["first_loss"]) / abs(
             direct["first_loss"])
         check("llama3-8b/2 layers h100-1",
@@ -5428,7 +5800,8 @@ def run_kube(tmp: Path, direct: dict) -> dict:
         layers, steps = 2, got["steps"]
         want = _want_launches({"flash_fwd": 2 * layers * steps,
                                "flash_bwd_dq": layers * steps,
-                               "flash_bwd_dkv": layers * steps})
+                               "flash_bwd_dkv": layers * steps,
+                               **_llama_norms(layers, steps)})
         rel = abs(got["first_loss"] - direct["first_loss"]) / abs(
             direct["first_loss"])
         metrics = _scrape(port)
@@ -5687,7 +6060,8 @@ def _observe_heartbeats(api, runner, server, tmp: Path, direct: dict,
           f"{mems[-1]['compile_cache_entries']}")
     steps = got["steps"]
     want = _want_launches({"flash_fwd": 4 * steps, "flash_bwd_dq": 2 * steps,
-                           "flash_bwd_dkv": 2 * steps})
+                           "flash_bwd_dkv": 2 * steps,
+                           **_llama_norms(2, steps)})
     p50 = sorted(b["step_wall_p50_ms"] for b in beats)
     check("llama3-8b/2 layers with heartbeats",
           steps == OBSERVE_STEPS and launches == want
@@ -5994,7 +6368,8 @@ def _observe_trace(tmp: Path, check) -> dict:
           f"{len(names)} kernel names, flash {flash[:6]}")
     steps = summary["steps"]
     want = _want_launches({"flash_fwd": 4 * steps, "flash_bwd_dq": 2 * steps,
-                           "flash_bwd_dkv": 2 * steps})
+                           "flash_bwd_dkv": 2 * steps,
+                           **_llama_norms(2, steps)})
     check("profile run launches", launches == want,
           f"{launches} (want {want}); step_ms {summary['step_ms']} over "
           f"{steps} steps, 3 of them profiled")
@@ -6132,9 +6507,10 @@ def _report():
         return
     import torch
 
-    from mpi_operator_tpu_torch.ops import attention, bn
+    from mpi_operator_tpu_torch.ops import attention, bn, norm
 
-    line = {"launches": {**attention.LAUNCHES, **bn.LAUNCHES}}
+    line = {"launches": {**attention.LAUNCHES, **bn.LAUNCHES,
+                         **norm.LAUNCHES}}
     if torch.cuda.is_initialized():
         line["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         line["reserved_gb"] = torch.cuda.max_memory_reserved() / 1e9
@@ -6304,8 +6680,9 @@ def run_example_job(tmp: Path, check, one_process_ms=None) -> dict:
           f"create -> {n} pods Running {job['running_s']:.3f} s, -> "
           f"{job['condition']['type']} {job['done_s']:.3f} s (startup bound "
           f"{OPERATOR_STARTUP_BOUND_S} s)")
-    want = _want_launches({k: S2S_ATTENTION_CALLS * EXAMPLE_STEPS
-                           for k in FLASH_NAMES["flat"]})
+    want = _want_launches({**{k: S2S_ATTENTION_CALLS * EXAMPLE_STEPS
+                              for k in FLASH_NAMES["flat"]},
+                           **_norms(S2S_NORMS, EXAMPLE_STEPS)})
     for rank, (summary, pod) in enumerate(lines):
         ok = bool(summary and pod) and summary["steps"] == EXAMPLE_STEPS and (
             math.isfinite(summary["loss"])
@@ -6481,7 +6858,8 @@ def main(argv=None) -> int:
                              "moe,decode,decode_world,world,sp,tp,pp,"
                              "operator,observe,kube,fleet,examples,entry "
                              "and the opt-in profile, data and kernels_ab "
-                             "(with --ab-parent)")
+                             "(with --ab-parent); norm runs the kernels "
+                             "phase's norm checks alone")
     parser.add_argument("--ab-parent", default="",
                         help="the opt-in kernels_ab phase's other checkout")
     parser.add_argument("--world-child", default="", help=argparse.SUPPRESS)
@@ -6524,6 +6902,11 @@ def main(argv=None) -> int:
         check_lse_cotangent()
         check_head()
         log(f"card: {card}; kernels phase done in "
+            f"{time.perf_counter() - t0:.1f} s")
+    if "kernels" in phases or "norm" in phases:
+        t0 = time.perf_counter()
+        log(json.dumps({"norm_kernels": check_norm_kernels()}))
+        log(f"card: {card}; norm kernels done in "
             f"{time.perf_counter() - t0:.1f} s")
     bn_paths, heads_launches, check_launches = {}, {}, {}
     if "model" in phases:

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.losses import f32_logits
+from ..ops.norm import layer_norm
 from ..ops.ring_attention import sp_attention, sp_attention_bshd
 from ..utils import torchtrace
 from .llama import Dense, checkpointed, dense_params, remat_policy_for
@@ -80,7 +81,7 @@ CONFIGS = {"bert-base": bert_base, "bert-tiny": tiny}
 class LayerNorm(nn.Module):
     """Flax ``LayerNorm(dtype=compute)``: f32 statistics with the variance
     as ``max(E[x^2] - E[x]^2, 0)``, f32 scale and bias, output in the
-    compute dtype."""
+    compute dtype (``ops/norm.py``: the kernels on the card)."""
 
     def __init__(self, dim: int, eps: float, dtype, device=None):
         super().__init__()
@@ -93,12 +94,7 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         with torchtrace.timed_range("norm") as r:
             x, scale, bias = r.enter(x, self.scale, self.bias)
-            xf = x.float()
-            mean = xf.mean(dim=-1, keepdim=True)
-            var = torch.clamp_min(
-                (xf * xf).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
-            y = (xf - mean) * (torch.rsqrt(var + self.eps) * scale)
-            return r.leave((y + bias).to(self.dtype))
+            return r.leave(layer_norm(x, scale, bias, self.eps, self.dtype))
 
 
 class EncoderLayer(nn.Module):

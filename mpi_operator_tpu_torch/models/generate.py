@@ -59,6 +59,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import NEG_INF
 from ..ops.losses import f32_logits
+from ..ops.norm import rms_norm
 from ..parallel.mesh import EP, FSDP, TP
 from .llama import Llama, LlamaConfig, _rope, init_param
 from .moe import topk_gates
@@ -230,12 +231,6 @@ def _layer(weights: dict, i: int) -> dict:
             if k.startswith(prefix)}
 
 
-def _rms(x, scale, eps):
-    xf = x.float()
-    norm = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return (norm * scale).to(x.dtype)
-
-
 def _sum_over(x, groups):
     """``x`` summed over each process group of ``groups`` (None: none)."""
     from ..parallel.sharding import sum_partials
@@ -340,12 +335,12 @@ def _decode_step(weights: dict, layers: list, cfg: LlamaConfig, caches,
             p = {k: (_all_gather(v, gathers[k], shards.group(FSDP),
                                  shards.size(FSDP)) if k in gathers else v)
                  for k, v in p.items()}
-        h = _rms(x, p["attn_norm.scale"], cfg.norm_eps)
+        h = rms_norm(x, p["attn_norm.scale"], cfg.norm_eps)
         x = x + _attn_step(p, ck, cv, h, pos, cfg, shards)
-        h = _rms(x, p["mlp_norm.scale"], cfg.norm_eps)
+        h = rms_norm(x, p["mlp_norm.scale"], cfg.norm_eps)
         x = x + (_moe_step(p, h, cfg, shards) if cfg.is_moe
                  else _mlp_step(p, h, shards))
-    x = _rms(x, weights["final_norm.scale"], cfg.norm_eps)
+    x = rms_norm(x, weights["final_norm.scale"], cfg.norm_eps)
     head = (weights["embed.weight"] if cfg.tie_embeddings
             else weights["lm_head.weight"])
     # bf16 x bf16 -> f32 logits (ops/losses.py:f32_logits), head [D, V].

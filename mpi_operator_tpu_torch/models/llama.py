@@ -36,6 +36,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.losses import f32_logits, lm_xent_chunked
+from ..ops.norm import rms_norm
 from ..ops.ring_attention import sp_attention, sp_attention_bshd
 from ..utils import torchtrace
 
@@ -191,6 +192,9 @@ class F32LogitsDense(nn.Module):
 
 
 class RMSNorm(nn.Module):
+    """RMSNorm with an f32 scale, output in x's dtype (``ops/norm.py``:
+    the kernels on the card)."""
+
     def __init__(self, dim: int, eps: float = 1e-5, device=None):
         super().__init__()
         self.eps = eps
@@ -201,11 +205,7 @@ class RMSNorm(nn.Module):
     def forward(self, x):
         with torchtrace.timed_range("norm") as r:
             x, scale = r.enter(x, self.scale)
-            xf = x.float()
-            norm = xf * torch.rsqrt(
-                torch.mean(xf * xf, dim=-1, keepdim=True) + self.eps
-            )
-            return r.leave((norm * scale).to(x.dtype))
+            return r.leave(rms_norm(x, scale, self.eps))
 
 
 class Attention(nn.Module):

@@ -22,7 +22,8 @@ import threading
 import time
 from pathlib import Path
 
-from ._common import BN_THREADS, DEFAULT_BLOCK_K, DEFAULT_BLOCK_Q
+from ._common import (BN_THREADS, DEFAULT_BLOCK_K, DEFAULT_BLOCK_Q,
+                      NORM_BLOCK, NORM_ITEMS)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -44,6 +45,8 @@ KERNELS = {
                            [_P] * 10 + [_I] * 5 + [_F, _I, _I, _P]),
     "bn_stats": ("bn_stats.cu", [_P] * 3 + [_I] * 7 + [_P]),
     "bn_grads": ("bn_grads.cu", [_P] * 6 + [_I] * 8 + [_P]),
+    "norm_fwd": ("norm_fwd.cu", [_P] * 6 + [_I] * 4 + [_F] + [_I] * 3 + [_P]),
+    "norm_bwd": ("norm_bwd.cu", [_P] * 8 + [_I] * 8 + [_P]),
 }
 
 
@@ -66,7 +69,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v",
     f"-DFLASH_BLOCK_Q={DEFAULT_BLOCK_Q}", f"-DFLASH_BLOCK_K={DEFAULT_BLOCK_K}",
-    f"-DBN_THREADS={BN_THREADS}",
+    f"-DBN_THREADS={BN_THREADS}", f"-DNORM_ITEMS={NORM_ITEMS}",
+    f"-DNORM_BLOCK={NORM_BLOCK}",
 ]
 
 
@@ -145,13 +149,15 @@ def _report(kind: str, name: str, seconds: float) -> None:
 
 def kernel(name: str):
     """The C entry point ``name`` of its library, building it first if
-    needed. Returns a ctypes function whose result is a cudaError_t."""
+    needed: then every library not built yet, all at once, so that a
+    checkout's first run waits for one build and not one after another.
+    Returns a ctypes function whose result is a cudaError_t."""
     with _lock:
         fn = _entry_points.get(name)
         if fn is None:
             path = library_path(name)
             if not path.exists():
-                build([name])
+                build()
             t0 = time.perf_counter()
             fn = getattr(ctypes.CDLL(str(path)), name)
             fn.argtypes = KERNELS[name][1]

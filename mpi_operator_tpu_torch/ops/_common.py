@@ -135,6 +135,48 @@ def bn_geometry(m: int, c: int, elem_bytes: int, ptrs=()) -> tuple:
     return vec, lanes, rows_per_chunk, _ceil_div(m, rows_per_chunk)
 
 
+# ----------------------------------------------------------------------
+# Row normalisation (csrc/norm_common.cuh): tpr threads share a row of D,
+# each holding NORM_ITEMS of its values in registers, so a row is read
+# once. The width picks tpr: a warp a row at BERT's 768, four warps at
+# Mixtral's 4096, up to NORM_MAX_TPR (D <= NORM_MAX_D). A block holds
+# NORM_BLOCK threads, or tpr when more. The backward's blocks walk the
+# rows in one wave of at most NORM_BWD_BLOCKS_PER_SM blocks an SM of the
+# card: the rows of its column partials.
+# ----------------------------------------------------------------------
+
+NORM_ITEMS = 32     # f32 values of a row a thread holds (csrc NORM_ITEMS)
+NORM_BLOCK = 256    # threads a block at tpr <= 256 (csrc NORM_BLOCK)
+NORM_MAX_TPR = 512  # threads a row at most (csrc/norm_common.cuh MAX_TPR)
+NORM_MAX_D = NORM_ITEMS * NORM_MAX_TPR
+NORM_BWD_BLOCKS_PER_SM = 4
+
+
+def norm_bwd_blocks(m: int, tpr: int, sms: int) -> int:
+    """The most blocks the backward over ``m`` rows at ``tpr`` threads a
+    row launches on a card of ``sms`` SMs: the rows of its column
+    partials (the kernel launches fewer where fewer fit an SM)."""
+    rows_per_block = max(1, NORM_BLOCK // tpr)
+    return min(_ceil_div(m, rows_per_block), NORM_BWD_BLOCKS_PER_SM * sms)
+
+
+def norm_geometry(d: int, elem_bytes: int, aligned=()) -> tuple:
+    """The launch geometry of a norm over rows of ``d`` elements whose
+    widest row operand has ``elem_bytes`` bytes; ``aligned`` holds
+    ``(address, element bytes)`` of every operand a thread loads or
+    stores in vectors (the row operands, scale and bias).
+
+    Returns ``(vec, tpr)``: elements a vector (a power of two dividing
+    ``d``, 16 bytes of a row operand at most, every address in
+    ``aligned`` a multiple of its vector) and threads a row (a power of
+    two: the fewest that hold the row at NORM_ITEMS values each)."""
+    vec = BN_VEC_BYTES // elem_bytes
+    while vec > 1 and (d % vec or any(p % (vec * es) for p, es in aligned)):
+        vec //= 2
+    per_thread = _ceil_div(d // vec, NORM_ITEMS // vec)
+    return vec, 1 << (per_thread - 1).bit_length()
+
+
 def clamp_tile(tile: int, extent: int, floor: int = 1) -> int:
     """The shared tile clamp: a tile never exceeds the axis extent it
     walks (short sequences, small row counts) but keeps a floor so a
